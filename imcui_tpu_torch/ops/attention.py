@@ -1,0 +1,136 @@
+"""Attention primitives for LightGlue, and kernels K3 and K4
+(``csrc/attention.cu``). Counterpart of ``imcui_tpu/ops/attention.py``.
+
+Masks are the finite ``NEG_INF = -1e9`` on logits, never ``-inf``: a
+query whose keys are all masked then attends uniformly (the mean of V),
+as ``jax.nn.softmax`` does on a -1e9 row.
+
+Layouts: a head-sequence tensor is (S, N, Dh) with S = batch · heads,
+the batch index of head-sequence ``s`` being ``s // heads``; key masks
+are (batch, N) bool.
+"""
+
+import torch
+
+from . import _build
+
+NEG_INF = -1e9
+
+
+def mha(q, k, v, mask_k=None):
+    """Masked multi-head attention. q: (..., Nq, Dh), k/v: (..., Nk, Dh);
+    mask_k: bool broadcastable to (..., 1, Nk)."""
+    dh = q.shape[-1]
+    logits = torch.matmul(q, k.transpose(-1, -2)) / (dh ** 0.5)
+    if mask_k is not None:
+        logits = torch.where(mask_k, logits, logits.new_tensor(NEG_INF))
+    return torch.matmul(torch.softmax(logits, -1), v)
+
+
+def rotate_half_pairs(x):
+    """Rotate interleaved pairs (x1, x2) → (-x2, x1) over the last dim."""
+    x = x.unflatten(-1, (-1, 2))
+    return torch.stack([-x[..., 1], x[..., 0]], -1).flatten(-2)
+
+
+def apply_rotary(x, encoding):
+    """x: (..., N, D); encoding: (cos, sin), each broadcastable to x."""
+    cos, sin = encoding
+    return x * cos + rotate_half_pairs(x) * sin
+
+
+def learnable_fourier_encoding(kpts, wr, gamma=1.0):
+    """LightGlue's learnable Fourier positional encoding → rotary
+    (cos, sin). kpts: (..., N, 2); wr: (F, 2) torch-layout projection with
+    F = head_dim / 2. Returns cos, sin each (..., N, 2F), every frequency
+    repeated for its (x1, x2) pair."""
+    projected = torch.matmul(kpts, (wr / gamma).t())
+    return (torch.cos(projected).repeat_interleave(2, -1),
+            torch.sin(projected).repeat_interleave(2, -1))
+
+
+def _head_mask(mask, s, n, device):
+    if mask is None:
+        return torch.ones((s, n), dtype=torch.bool, device=device)
+    return mask
+
+
+def fused_attention_plain(q, k, v, mask, heads):
+    """Plain version of K3 (``_fused_attn_xla``). q/k/v: (S, N, Dh)
+    float32; mask: (S // heads, N) bool key validity."""
+    m = mask.repeat_interleave(heads, 0)[:, None, :]
+    return mha(q, k, v, m)
+
+
+def fused_attention(q, k, v, mask, heads):
+    """Kernel K3 on CUDA tensors; the plain version on CPU tensors.
+    Self-attention over (S, N, 64) float32 head-sequences; mask (S/heads,
+    N) bool, or None for all valid."""
+    s, n, dh = q.shape
+    mask = _head_mask(mask, s // heads, n, q.device)
+    if q.device.type == "cpu":
+        return fused_attention_plain(q, k, v, mask, heads)
+    if dh != 64 or s % heads:
+        raise ValueError(f"fused_attention takes Dh = 64 and S divisible by "
+                         f"heads; got {tuple(q.shape)}, heads {heads}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _build.require(t, name, torch.float32, (s, n, 64))
+    _build.require(mask, "mask", torch.bool, (s // heads, n))
+    out = torch.empty_like(q)
+    code = _build.library().fused_attention_f32(
+        _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(mask),
+        _build.ptr(out), s, n, heads, _build.stream_of(q))
+    _build.check(code, "fused_attention")
+    fused_attention.launches += 1
+    return out
+
+
+fused_attention.launches = 0
+
+
+def bidirectional_attention_plain(a0, a1, v0, v1, mask0, mask1, heads):
+    """Plain version of K4 (``_bidir_xla``): one S = A0·A1ᵀ/√dh per head,
+    a row softmax masked by mask1 reads V1 and a column softmax masked by
+    mask0 reads V0. a0/v0: (S, N, Dh), a1/v1: (S, M, Dh); masks (S/heads,
+    N) and (S/heads, M) bool."""
+    dh = a0.shape[-1]
+    logits = torch.matmul(a0, a1.transpose(-1, -2)) / (dh ** 0.5)
+    neg = logits.new_tensor(NEG_INF)
+    mk0 = mask0.repeat_interleave(heads, 0)[:, :, None]
+    mk1 = mask1.repeat_interleave(heads, 0)[:, None, :]
+    att01 = torch.softmax(torch.where(mk1, logits, neg), -1)
+    att10 = torch.softmax(torch.where(mk0, logits, neg), -2)
+    return (torch.matmul(att01, v1),
+            torch.matmul(att10.transpose(-1, -2), v0))
+
+
+def bidirectional_attention(a0, a1, v0, v1, mask0, mask1, heads):
+    """Kernel K4 on CUDA tensors; the plain version on CPU tensors.
+    Returns (O0 (S, N, Dh), O1 (S, M, Dh)); masks may be None."""
+    s, n, dh = a0.shape
+    m = a1.shape[1]
+    mask0 = _head_mask(mask0, s // heads, n, a0.device)
+    mask1 = _head_mask(mask1, s // heads, m, a0.device)
+    if a0.device.type == "cpu":
+        return bidirectional_attention_plain(a0, a1, v0, v1, mask0, mask1,
+                                             heads)
+    if dh != 64 or s % heads:
+        raise ValueError(f"bidirectional_attention takes Dh = 64 and S "
+                         f"divisible by heads; got {tuple(a0.shape)}")
+    for name, t, rows in (("a0", a0, n), ("a1", a1, m), ("v0", v0, n),
+                          ("v1", v1, m)):
+        _build.require(t, name, torch.float32, (s, rows, 64))
+    _build.require(mask0, "mask0", torch.bool, (s // heads, n))
+    _build.require(mask1, "mask1", torch.bool, (s // heads, m))
+    o0 = torch.empty_like(a0)
+    o1 = torch.empty_like(a1)
+    code = _build.library().bidir_attention_f32(
+        _build.ptr(a0), _build.ptr(a1), _build.ptr(v0), _build.ptr(v1),
+        _build.ptr(mask0), _build.ptr(mask1), _build.ptr(o0), _build.ptr(o1),
+        s, n, m, heads, _build.stream_of(a0))
+    _build.check(code, "bidirectional_attention")
+    bidirectional_attention.launches += 1
+    return o0, o1
+
+
+bidirectional_attention.launches = 0

@@ -1,0 +1,119 @@
+"""Host-side request preprocessing without OpenCV.
+
+Counterpart of ``imcui_tpu/utils/image.py``'s ``preprocess`` (the options
+the serving path uses), ``bucket_size`` and ``keypoints_to_original``.
+The JAX package converts to grayscale and resizes with OpenCV; this
+module restates both in numpy: ``to_grayscale`` as ``cv2.cvtColor(...,
+COLOR_RGB2GRAY)`` (fixed-point for uint8) and ``resize_area`` as
+``cv2.resize(..., INTER_AREA)`` for downscaling, each output pixel the
+coverage-weighted mean of the source box it spans.
+"""
+
+import numpy as np
+
+DEFAULT_BUCKETS = (256, 320, 384, 448, 512, 640, 768, 896, 1024, 1152, 1280,
+                   1536, 2048)
+
+
+def to_grayscale(image):
+    """RGB → gray with OpenCV's weights: 0.299 R + 0.587 G + 0.114 B, in
+    15-bit fixed point with rounding for uint8 (as cvtColor does)."""
+    if image.ndim != 3 or image.shape[2] != 3:
+        return image
+    if image.dtype == np.uint8:
+        rgb = image.astype(np.int32)
+        y = (rgb[..., 0] * 9798 + rgb[..., 1] * 19235 + rgb[..., 2] * 3735
+             + (1 << 14)) >> 15
+        return y.astype(np.uint8)
+    rgb = image.astype(np.float32)
+    return (rgb[..., 0] * np.float32(0.299) + rgb[..., 1] * np.float32(0.587)
+            + rgb[..., 2] * np.float32(0.114)).astype(image.dtype)
+
+
+def _area_weights(src, dst):
+    """(dst, src) matrix of INTER_AREA's coverage weights for a
+    downscale src → dst along one axis."""
+    scale = src / dst
+    w = np.zeros((dst, src), np.float64)
+    for d in range(dst):
+        f1 = d * scale
+        f2 = f1 + scale
+        cell = min(scale, src - f1)
+        s1 = int(np.ceil(f1))
+        s2 = min(int(np.floor(f2)), src - 1)
+        s1 = min(s1, s2)
+        if s1 - f1 > 1e-3:
+            w[d, s1 - 1] = (s1 - f1) / cell
+        w[d, s1:s2] = 1.0 / cell
+        if f2 - s2 > 1e-3:
+            w[d, s2] = min(min(f2 - s2, 1.0), cell) / cell
+    return w
+
+
+def resize_area(image, size):
+    """Area-averaging downscale of an (H, W) or (H, W, C) image to
+    ``size`` = (w, h), as ``cv2.resize(image, size, INTER_AREA)``."""
+    h, w = image.shape[:2]
+    wn, hn = size
+    if wn > w or hn > h:
+        raise ValueError(f"resize_area only downscales: {(w, h)} → {size}")
+    wy = _area_weights(h, hn)
+    wx = _area_weights(w, wn)
+    out = np.tensordot(wy, image.astype(np.float64), axes=(1, 0))
+    out = np.moveaxis(np.tensordot(out, wx, axes=(1, 1)), -1, 1)
+    return out.astype(np.float32)
+
+
+def bucket_size(h, w, buckets=DEFAULT_BUCKETS):
+    """Smallest bucket ≥ each dim; beyond the last, the next multiple of
+    128."""
+    def up(x):
+        for b in buckets:
+            if b >= x:
+                return b
+        return int(-(-x // 128) * 128)
+
+    return up(h), up(w)
+
+
+def preprocess(image, grayscale=True, resize_max=1024, dfactor=8,
+               buckets=DEFAULT_BUCKETS):
+    """Reference-equivalent preprocessing onto a fixed canvas.
+
+    Optional grayscale; downscale so the long edge is ``resize_max``
+    (only when that shrinks the image); floor each side to a multiple of
+    ``dfactor`` by an area resize; scale to [0, 1]; zero-pad bottom/right
+    up to a shape bucket. Returns image (1, C, Hb, Wb) float32, size (w, h)
+    valid inside the canvas, original_size (w, h) and scale = original /
+    valid."""
+    image = np.asarray(image)
+    if grayscale:
+        image = to_grayscale(image)
+    image = image.astype(np.float32, copy=False)
+    size = np.array(image.shape[:2][::-1])  # (w, h)
+    if resize_max:
+        s = resize_max / max(size)
+        if s < 1.0:
+            image = resize_area(image, tuple(int(round(x * s)) for x in size))
+    h, w = image.shape[:2]
+    h_new, w_new = (h // dfactor) * dfactor, (w // dfactor) * dfactor
+    if (h_new, w_new) != (h, w):
+        image = resize_area(image, (w_new, h_new))
+        h, w = h_new, w_new
+    image = image[None] if image.ndim == 2 else image.transpose(2, 0, 1)
+    image = image / 255.0
+    hb, wb = bucket_size(h, w, buckets)
+    if (hb, wb) != (h, w):
+        pad = np.zeros((image.shape[0], hb, wb), np.float32)
+        pad[:, :h, :w] = image
+        image = pad
+    valid = np.array([w, h])
+    return {"image": image[None].astype(np.float32), "size": valid,
+            "original_size": size,
+            "scale": size.astype(np.float64) / valid}
+
+
+def keypoints_to_original(kpts, scale):
+    """Model-resolution keypoints → original resolution with the
+    half-pixel-centre convention ``(kp + 0.5) * scale - 0.5``."""
+    return (np.asarray(kpts) + 0.5) * np.asarray(scale) - 0.5

@@ -1,0 +1,114 @@
+"""Weight bridge: the JAX package's flat ``save_tree_npz`` checkpoints and
+parameter trees, read into this package's layout.
+
+A checkpoint is a flat ``.npz`` whose keys are dotted paths into a nested
+tree of dicts and lists (``transformers.3.self_attn.Wqkv.w``). A level
+whose keys are exactly ``0..n-1`` is a list (a layer stack); any other
+level is a dict (LightGlue's ``ffn`` keeps torch's Sequential indices
+``0``, ``1``, ``3`` as dict keys).
+
+Layouts. The JAX trees store conv kernels HWIO ``(kh, kw, cin, cout)``
+and linear weights ``(din, dout)``. This package keeps torch's layouts:
+conv kernels OIHW ``(cout, cin, kh, kw)`` for ``F.conv2d`` and linear
+weights ``(dout, din)`` for ``F.linear``. Every 4-D leaf named ``w`` is a
+conv kernel and every 2-D leaf named ``w`` a linear weight (including
+LightGlue's ``posenc.Wr.w``); all other leaves keep their shape.
+"""
+
+import numpy as np
+import torch
+
+
+def _is_list_level(keys):
+    return keys and sorted(keys, key=lambda k: (len(k), k)) == [
+        str(i) for i in range(len(keys))]
+
+
+def tree_from_flat(flat):
+    """{dotted path: array} → nested dicts/lists (see module docstring)."""
+    root = {}
+    for path, arr in flat.items():
+        node = root
+        parts = path.split(".")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = arr
+
+    def listify(node):
+        if not isinstance(node, dict):
+            return node
+        node = {k: listify(v) for k, v in node.items()}
+        if _is_list_level(list(node)):
+            return [node[str(i)] for i in range(len(node))]
+        return node
+
+    return listify(root)
+
+
+def flatten_tree(tree, prefix=""):
+    """Nested dicts/lists → {dotted path: leaf}."""
+    out = {}
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    for k, v in items:
+        path = f"{prefix}.{k}" if prefix else str(k)
+        if isinstance(v, (dict, list)):
+            out.update(flatten_tree(v, path))
+        else:
+            out[path] = v
+    return out
+
+
+def load_tree_npz(path):
+    """Read a ``save_tree_npz`` checkpoint as a nested tree of numpy arrays
+    in the JAX package's layout."""
+    with np.load(path) as z:
+        return tree_from_flat({k: z[k] for k in z.files})
+
+
+def _map_leaves(tree, fn, name=None):
+    if isinstance(tree, dict):
+        return {k: _map_leaves(v, fn, k) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map_leaves(v, fn, name) for v in tree]
+    return fn(name, tree)
+
+
+def params_from_jax(tree, device="cpu"):
+    """JAX-layout parameter tree (numpy arrays) → this package's tree of
+    float32 torch tensors in torch layout, on ``device``."""
+    def conv(name, a):
+        a = np.asarray(a, np.float32)
+        if name == "w" and a.ndim == 4:
+            a = a.transpose(3, 2, 0, 1)
+        elif name == "w" and a.ndim == 2:
+            a = a.T
+        return torch.tensor(a, device=device)
+
+    return _map_leaves(tree, conv)
+
+
+def params_to_jax(tree):
+    """Inverse of ``params_from_jax``: torch tree → JAX-layout numpy tree."""
+    def conv(name, t):
+        a = t.detach().cpu().numpy()
+        if name == "w" and a.ndim == 4:
+            a = a.transpose(2, 3, 1, 0)
+        elif name == "w" and a.ndim == 2:
+            a = a.T
+        return np.ascontiguousarray(a)
+
+    return _map_leaves(tree, conv)
+
+
+def assert_tree_matches(tree, reference, name=""):
+    """Raise unless ``tree`` has exactly the leaves and shapes of
+    ``reference``."""
+    got = {k: tuple(v.shape) for k, v in flatten_tree(tree).items()}
+    want = {k: tuple(v.shape) for k, v in flatten_tree(reference).items()}
+    missing = sorted(set(want) - set(got))
+    extra = sorted(set(got) - set(want))
+    bad = sorted(k for k in set(got) & set(want) if got[k] != want[k])
+    if missing or extra or bad:
+        raise ValueError(
+            f"weight tree mismatch for {name}: missing={missing[:5]} "
+            f"extra={extra[:5]} shape={[(k, got[k], want[k]) for k in bad[:5]]}")

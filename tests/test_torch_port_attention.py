@@ -1,0 +1,88 @@
+"""Attention of the port (imcui_tpu_torch/ops/attention.py): the plain
+versions of kernels K3 and K4 against the JAX package's XLA restatements
+of its Pallas kernels, and the rotary helpers. float32 throughout;
+tolerance 1e-5 (the same arithmetic, summed in another order)."""
+
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+from imcui_tpu.ops import attention as ja
+from imcui_tpu_torch.ops import attention as ta
+
+HEADS = 4
+
+
+def _rand(rng, *shape, scale=2.0):
+    return (rng.normal(size=shape) * scale).astype(np.float32)
+
+
+def _masks(b, n, rng):
+    m = rng.uniform(size=(b, n)) < 0.8
+    m[0, :] = True
+    m[1, :] = False            # every key masked: attends uniformly
+    return m
+
+
+def test_fused_attention_plain_matches_jax():
+    rng = np.random.default_rng(0)
+    b, n, dh = 3, 96, 64
+    q, k, v = (_rand(rng, b * HEADS, n, dh) for _ in range(3))
+    mask = _masks(b, n, rng)
+    got = ta.fused_attention(*(torch.from_numpy(a) for a in (q, k, v)),
+                             torch.from_numpy(mask), HEADS).numpy()
+    for i in range(b):
+        sl = slice(i * HEADS, (i + 1) * HEADS)
+        maskf = np.broadcast_to(mask[i].astype(np.float32)[None, None],
+                                (HEADS, 1, n))
+        want = np.asarray(ja._fused_attn_xla(q[sl], k[sl], v[sl],
+                                             jnp.asarray(maskf)))
+        np.testing.assert_allclose(got[sl], want, atol=1e-5, rtol=1e-5)
+        want_mha = np.asarray(ja.mha(q[sl], k[sl], v[sl],
+                                     mask_k=jnp.asarray(mask[i])))
+        np.testing.assert_allclose(got[sl], want_mha, atol=1e-5, rtol=1e-5)
+    # a query with every key masked gets the mean of V
+    np.testing.assert_allclose(got[HEADS:2 * HEADS],
+                               np.broadcast_to(v[HEADS:2 * HEADS].mean(
+                                   1, keepdims=True), (HEADS, n, dh)),
+                               atol=1e-5)
+
+
+def test_bidirectional_attention_plain_matches_jax():
+    rng = np.random.default_rng(1)
+    b, n, m, dh = 2, 80, 112, 64
+    a0, v0 = _rand(rng, b * HEADS, n, dh), _rand(rng, b * HEADS, n, dh)
+    a1, v1 = _rand(rng, b * HEADS, m, dh), _rand(rng, b * HEADS, m, dh)
+    m0 = _masks(b, n, rng)
+    m1 = _masks(b, m, rng)
+    m1[1, :5] = True           # pair 1: view 0 all masked, view 1 not
+    o0, o1 = ta.bidirectional_attention(
+        *(torch.from_numpy(x) for x in (a0, a1, v0, v1, m0, m1)), HEADS)
+    for i in range(b):
+        sl = slice(i * HEADS, (i + 1) * HEADS)
+        mk0 = np.broadcast_to(m0[i].astype(np.float32)[None, :, None],
+                              (HEADS, n, 1))
+        mk1 = np.broadcast_to(m1[i].astype(np.float32)[None, None, :],
+                              (HEADS, 1, m))
+        w0, w1 = ja._bidir_xla(a0[sl], a1[sl], v0[sl], v1[sl],
+                               jnp.asarray(mk0), jnp.asarray(mk1))
+        np.testing.assert_allclose(o0.numpy()[sl], np.asarray(w0),
+                                   atol=1e-5, rtol=1e-5)
+        np.testing.assert_allclose(o1.numpy()[sl], np.asarray(w1),
+                                   atol=1e-5, rtol=1e-5)
+
+
+def test_rotary_helpers_match_jax():
+    rng = np.random.default_rng(2)
+    kpts = rng.uniform(-1, 1, size=(50, 2)).astype(np.float32)
+    wr = rng.normal(size=(2, 32)).astype(np.float32)
+    cos_j, sin_j = ja.learnable_fourier_encoding(jnp.asarray(kpts),
+                                                 jnp.asarray(wr))
+    cos_t, sin_t = ta.learnable_fourier_encoding(torch.from_numpy(kpts),
+                                                 torch.from_numpy(wr.T))
+    np.testing.assert_allclose(cos_t.numpy(), np.asarray(cos_j), atol=1e-6)
+    np.testing.assert_allclose(sin_t.numpy(), np.asarray(sin_j), atol=1e-6)
+    x = _rand(rng, HEADS, 50, 64)
+    want = ja.apply_rotary(jnp.asarray(x), (cos_j, sin_j))
+    got = ta.apply_rotary(torch.from_numpy(x), (cos_t, sin_t))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)

@@ -1,0 +1,161 @@
+"""The port's CUDA kernels against their plain versions on the card, at
+small shapes that do not fill the kernels' tiles (ragged edges, odd
+keypoint counts, fully masked images). Needs a CUDA device and nvcc;
+skips without a card. Run on the card with
+
+    python -m pytest tests/test_torch_port_cuda.py -q
+"""
+
+import pytest
+import torch
+
+from imcui_tpu_torch.models.layers import full_fp32
+from imcui_tpu_torch.ops import attention, cuda_nms, cuda_stage1
+
+
+@pytest.fixture
+def gen():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+@pytest.mark.parametrize("shape", [(3, 40, 72), (1, 16, 32), (2, 130, 66)])
+def test_stage_tail_kernel_matches_plain(gen, shape):
+    """Tolerance: one bf16 rounding step of the result."""
+    b, h, w = shape
+    y = (torch.randn((b, h, w, 64), generator=gen, device="cuda") * 0.5
+         ).to(torch.bfloat16)
+    ba = torch.randn(64, generator=gen, device="cuda") * 0.1
+    wb = torch.randn((64, 64, 3, 3), generator=gen, device="cuda") * 0.05
+    bb = torch.randn(64, generator=gen, device="cuda") * 0.1
+    before = cuda_stage1.stage_tail.launches
+    with full_fp32():
+        got = cuda_stage1.stage_tail(y, ba, wb, bb).float()
+        want = cuda_stage1.stage_tail_plain(y, ba, wb, bb).float()
+    assert cuda_stage1.stage_tail.launches == before + 1
+    assert got.shape == (b, h // 2, w // 2, 64)
+    assert bool(((got - want).abs() <= 1e-3 + 2.0 ** -7 * want.abs()).all())
+
+
+@pytest.mark.parametrize("radius", [3, 4])
+def test_nms_cellmax_kernel_matches_plain(gen, radius):
+    """Exact on both maps."""
+    heat = torch.rand((3, 100, 136), generator=gen, device="cuda"
+                      ).to(torch.bfloat16)
+    vwh = torch.tensor([[136, 100], [90, 61], [13, 100]], dtype=torch.int32,
+                       device="cuda")
+    cm, cs = cuda_nms.nms_cellmax(heat, vwh, radius=radius)
+    pm, ps = cuda_nms.nms_cellmax_plain(heat, vwh, radius=radius)
+    assert torch.equal(cm, pm) and torch.equal(cs, ps)
+
+
+def _masks(b, n):
+    m = torch.ones((b, n), dtype=torch.bool, device="cuda")
+    m[1] = False
+    m[-1, n // 2:] = False
+    return m
+
+
+def test_fused_attention_kernel_matches_plain(gen):
+    """1e-5 · max(1, max|plain|): the same f32 arithmetic, summed in
+    another order."""
+    b, n, heads = 3, 100, 4
+    q, k, v = (torch.randn((b * heads, n, 64), generator=gen, device="cuda")
+               * 2 for _ in range(3))
+    mask = _masks(b, n)
+    with full_fp32():
+        got = attention.fused_attention(q, k, v, mask, heads)
+        want = attention.fused_attention_plain(q, k, v, mask, heads)
+    scale = max(1.0, want.abs().max().item())
+    assert (got - want).abs().max().item() <= 1e-5 * scale
+
+
+def test_bidirectional_attention_kernel_matches_plain(gen):
+    b, n, m, heads = 2, 100, 70, 4
+    a0, v0 = (torch.randn((b * heads, n, 64), generator=gen, device="cuda")
+              * 2 for _ in range(2))
+    a1, v1 = (torch.randn((b * heads, m, 64), generator=gen, device="cuda")
+              * 2 for _ in range(2))
+    m0, m1 = _masks(b, n), _masks(b, m)
+    with full_fp32():
+        got = attention.bidirectional_attention(a0, a1, v0, v1, m0, m1, heads)
+        want = attention.bidirectional_attention_plain(a0, a1, v0, v1, m0, m1,
+                                                       heads)
+    for g, w in zip(got, want):
+        scale = max(1.0, w.abs().max().item())
+        assert (g - w).abs().max().item() <= 1e-5 * scale
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take(gen):
+    with pytest.raises(ValueError):
+        cuda_stage1.stage_tail(
+            torch.zeros((1, 8, 8, 64), device="cuda"),  # float32, not bf16
+            torch.zeros(64, device="cuda"),
+            torch.zeros((64, 64, 3, 3), device="cuda"),
+            torch.zeros(64, device="cuda"))
+    with pytest.raises(ValueError):
+        cuda_nms.nms_cellmax(torch.zeros((1, 10, 16), dtype=torch.bfloat16,
+                                         device="cuda"),
+                             torch.ones((1, 2), dtype=torch.int32,
+                                        device="cuda"))
+    q = torch.zeros((4, 16, 32), device="cuda")  # head dim 32, not 64
+    with pytest.raises(ValueError):
+        attention.fused_attention(q, q, q, None, 4)
+
+
+def test_lightglue_on_card_matches_cpu(gen):
+    """forward_pair through K3/K4 on the card against the plain versions
+    on the CPU: matches0 equal, scores within 1e-4 (f32, TF32 off)."""
+    from imcui_tpu_torch.models.matchers import lightglue as lg
+    from imcui_tpu_torch.pipeline.two_view import _to
+
+    params = lg.init_params(torch.Generator().manual_seed(1), n_layers=2)
+    g = torch.Generator().manual_seed(2)
+    b, n = 2, 100
+    kpts0 = torch.rand((b, n, 2), generator=g) * 120
+    desc0 = torch.nn.functional.normalize(torch.randn((b, n, 256),
+                                                      generator=g), dim=-1)
+    perm = torch.randperm(n, generator=g)
+    kpts1 = kpts0[:, perm] + torch.randn((b, n, 2), generator=g)
+    desc1 = torch.nn.functional.normalize(
+        desc0[:, perm] + 0.05 * torch.randn((b, n, 256), generator=g), dim=-1)
+    mask0 = torch.ones((b, n), dtype=torch.bool)
+    mask1 = torch.ones((b, n), dtype=torch.bool)
+    mask1[1, 70:] = False
+    size = torch.tensor([[128.0, 96.0], [120.0, 90.0]])
+    args = (kpts0, kpts1, desc0, desc1, mask0, mask1, size, size)
+    want = lg.forward_pair(params, *args, match_threshold=0.0, device="cpu")
+    launches = attention.fused_attention.launches
+    got = lg.forward_pair(_to(params, "cuda"), *args, match_threshold=0.0,
+                          device="cuda")
+    assert attention.fused_attention.launches == launches + 2
+    assert torch.equal(got["matches0"].cpu(), want["matches0"])
+    assert torch.allclose(got["matching_scores0"].cpu(),
+                          want["matching_scores0"], atol=1e-4)
+
+
+def test_superpoint_bf16_on_card_matches_cpu(gen):
+    """SuperPoint bf16 through K1/K2 on the card against the plain versions
+    on the CPU. cuDNN and the CPU round bf16 convolutions differently, so
+    keypoint sets are compared: IoU >= 0.9 per image."""
+    import numpy as np
+
+    import chip_smoke
+    from imcui_tpu_torch.models.extractors import superpoint as sp
+    from imcui_tpu_torch.pipeline import two_view
+
+    params, _ = two_view.load_pretrained(device="cpu")
+    img = np.stack([chip_smoke.textured_image(np.random.default_rng(s),
+                                              160, 224)
+                    for s in (5, 6)])[:, None].astype(np.float32) / 255
+    vwh = np.array([[224, 160], [200, 150]], np.int32)
+    kw = dict(max_keypoints=256, keypoint_threshold=0.0005)
+    want = sp.apply(params["superpoint"], img, vwh, device="cpu", **kw)
+    got = sp.apply(two_view._to(params["superpoint"], "cuda"), img, vwh,
+                   device="cuda", **kw)
+    for i in range(2):
+        sw = {tuple(p) for p in want["keypoints"][i][want["mask"][i]].tolist()}
+        sg = {tuple(p) for p in
+              got["keypoints"][i][got["mask"][i]].cpu().tolist()}
+        assert len(sw) > 50 and len(sw & sg) / len(sw | sg) >= 0.9
