@@ -5,10 +5,10 @@
 
 Phases, each of which passes or ends the run with a non-zero exit:
   0. the card's name and power limit, the versions, the kernels' build;
-  1. every CUDA kernel of the serving path at the serving path's shapes,
-     held against its plain PyTorch version, timed beside it, beside a
-     PyTorch library call of the same function where one exists, and
-     beside the least time the card could take (its bound);
+  1. every CUDA kernel at the shapes the two paths below give it, held
+     against its plain PyTorch version, timed beside it, beside a PyTorch
+     library call of the same function where one exists, and beside the
+     least time the card could take (its bound);
   2. serving: TurboMatcher(device="cuda") at the flagship configuration
      answers concurrent requests (synthetic textured images and their
      warps under known homographies); the kernels' launch counters must
@@ -16,7 +16,14 @@ Phases, each of which passes or ends the run with a non-zero exit:
      agree with the planted homographies;
   3. timing of match_step at bench.py's operating point: pairs/s, the
      per-stage split, and a short profiler window (device time by kernel,
-     device idle share).
+     device idle share);
+  4. the general matching path: ImageMatchingAPI(device="cuda") with the
+     registry's superpoint_inloc + superpoint-lightglue (adaptive depth)
+     at 4096 keypoints answers requests on 1600x1200 planted pairs, one
+     more at 1024 keypoints and one through each route of SuperPoint's
+     stem; the same gate, the launch counters of all six kernels, the
+     per-stage times, the device's idle share and the host cost of the
+     adaptive loop.
 Near the end it prints one JSON line {"timing": ...}, one {"kernels":
 [...]} and the card's name and power limit; the last line is {"ok": true,
 "device": {...}}. Without a CUDA device, or without the rest of the
@@ -54,6 +61,15 @@ GATE_MIN_INLIERS = 50
 # resize runs; the first is larger than the canvas.
 REQUEST_SIZES = [(1203, 901), (1003, 757), (997, 1013), (851, 643)]
 N_REQUESTS, N_THREADS = 8, 4
+# The general path (phase 4): the registry's localisation operating point.
+G_FEATURE, G_MATCHER, G_KPTS = "superpoint_inloc", "superpoint-lightglue", 4096
+G_SIZES = [(1600, 1200), (1600, 1200), (1923, 1443)]   # the last is resized
+G_CANVAS = (1280, 2048)      # (H, W) bucket of a 1600x1200 image
+G_MIN_KEYPOINTS = 1024       # each view must hold more than the turbo path's
+# The trained detector's serving threshold (TurboMatcher's): the synthetic
+# images then hold 1600 to 3300 keypoints in the 4096 slots, about half as
+# many under the API's default of 0.015.
+G_DETECT_THRESHOLD = 0.0005
 
 
 def fail(msg):
@@ -205,6 +221,7 @@ def phase1(params, peaks):
     import torch
     import torch.nn.functional as F
 
+    from imcui_tpu_torch.models.extractors.superpoint import BF16_FUSED
     from imcui_tpu_torch.models.layers import full_fp32
     from imcui_tpu_torch.ops import attention, cuda_nms, cuda_stage1
 
@@ -213,8 +230,11 @@ def phase1(params, peaks):
     sp = params["superpoint"]
     rows = []
 
-    # K1: stage_tail at both stages of 2·BATCH images
+    # K1: stage_tail at both stages of 2·BATCH images. Both are checked; the
+    # row's times count the stages the default route runs through it (stage
+    # 1 goes to the stem kernel when that is the default).
     b = 2 * BATCH
+    k1_stages = 1 if BF16_FUSED == "stem" else 2
     k1 = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
           "max_abs_err": 0.0, "max_plain": 0.0, "flops": 0.0, "bytes": 0.0}
     for pa, pb, hw in (("conv1a", "conv1b", CANVAS),
@@ -235,6 +255,10 @@ def phase1(params, peaks):
             k1["max_abs_err"] = max(k1["max_abs_err"], diff.max().item())
             k1["max_plain"] = max(k1["max_plain"],
                                   want.float().abs().max().item())
+            if hw == CANVAS and k1_stages == 1:
+                del y, got, want, diff, tol
+                torch.cuda.empty_cache()
+                continue
             k1["ms"] += cuda_ms(lambda: cuda_stage1.stage_tail(y, ba, wb, bb))
             k1["plain_ms"] += cuda_ms(
                 lambda: cuda_stage1.stage_tail_plain(y, ba, wb, bb))
@@ -258,7 +282,8 @@ def phase1(params, peaks):
         "name": "stage_tail", "route": "cuda",
         "source": "imcui_tpu_torch/csrc/stage_tail.cu",
         "replaces": "imcui_tpu/ops/pallas_stage1.py:164",
-        "launches_per_step": 2, "tolerance": "1e-3 + 2^-7*|plain| (bf16)",
+        "launches_per_step": k1_stages,
+        "tolerance": "1e-3 + 2^-7*|plain| (bf16)",
         "max_abs_err": k1["max_abs_err"],
         "rel_err": k1["max_abs_err"] / k1["max_plain"], "ms": k1["ms"],
         "plain_ms": k1["plain_ms"], "library_ms": k1["library_ms"],
@@ -370,7 +395,7 @@ def phase1(params, peaks):
         "bound_ms_with_recompute": N_LAYERS * bound(
             flops4 * 4 / 3, bytes4, peaks["fp32"], peaks)[0]})
     for r in rows:
-        r["kernel_ms"] = r["ms"]
+        r["per"] = "step of the serving path"
         log(f"  {r['name']}: err {r['max_abs_err']:.3g} (relative "
             f"{r['rel_err']:.3g}; tolerance {r['tolerance']}), "
             f"{r['ms']:.3f} ms/step vs plain {r['plain_ms']:.3f}, library "
@@ -378,11 +403,227 @@ def phase1(params, peaks):
     return rows
 
 
+def phase1_general(params, peaks):
+    """The two kernels the general path adds (K5 and the stem) and K1, K2
+    and K4 at the general path's shapes, each against its plain version."""
+    import torch
+    import torch.nn.functional as F
+
+    from imcui_tpu_torch.models.extractors import superpoint as spm
+    from imcui_tpu_torch.models.layers import full_fp32
+    from imcui_tpu_torch.ops import attention, cuda_nms, cuda_stage1
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    sp = params["superpoint"]
+    rows = []
+
+    def rnd(s, n, dh, dtype=torch.float32):
+        return (torch.randn((s, n, dh), generator=gen, device=dev) * 2.0
+                ).to(dtype)
+
+    # K5: flash_attention. The first case is the main path's launch: both
+    # views of one pair, 4 heads each, 4096 keypoint slots, f32.
+    cases = [  # name, S, Nq, Nk, Dh, dtype
+        ("self 4096", 2 * HEADS, G_KPTS, G_KPTS, 64, torch.float32),
+        ("Nq 1024, Nk 4096", 2 * HEADS, 1024, G_KPTS, 64, torch.float32),
+        ("ragged 4000", 2 * HEADS, 4000, 4000, 64, torch.float32),
+        ("Dh 128", 2 * HEADS, 2048, 2048, 128, torch.float32),
+        ("bf16", 2 * HEADS, G_KPTS, G_KPTS, 64, torch.bfloat16),
+    ]
+    for name, s, nq, nk, dh, dtype in cases:
+        q, k, v = rnd(s, nq, dh, dtype), rnd(s, nk, dh, dtype), \
+            rnd(s, nk, dh, dtype)
+        mask = torch.ones((s // HEADS, nk), dtype=torch.bool, device=dev)
+        mask[0, nk // 2:] = False
+        mask[1, :] = False          # a view without keypoints: the mean of V
+        with full_fp32():
+            got = attention.flash_attention(q, k, v, mask, HEADS)
+            want = attention.flash_attention_plain(q, k, v, mask, HEADS)
+        torch.cuda.synchronize()
+        top = want.float().abs().max().item()
+        err = (got.float() - want.float()).abs().max().item()
+        # f32: the same arithmetic summed in another order; bf16: one
+        # rounding step of the result on top
+        tol = (1e-5 if dtype == torch.float32 else 2.0 ** -7) * max(1.0, top)
+        mean_v = v[HEADS:].float().mean(1, keepdim=True).expand(-1, nq, -1)
+        err_mean = (got[HEADS:].float() - mean_v).abs().max().item()
+        log(f"  flash_attention [{name}]: err {err:.3g} (tolerance {tol:.3g}),"
+            f" masked view vs mean of V {err_mean:.3g}")
+        if not err <= tol or not err_mean <= tol:
+            fail(f"flash_attention [{name}] differs from its plain version")
+        if name != "self 4096":
+            continue
+        with full_fp32():
+            ms = cuda_ms(lambda: attention.flash_attention(q, k, v, mask,
+                                                           HEADS))
+            plain = cuda_ms(lambda: attention.flash_attention_plain(
+                q, k, v, mask, HEADS))
+        add = torch.where(mask.repeat_interleave(HEADS, 0), 0.0, -1e9
+                          )[:, None, :].expand(s, nq, nk)
+        lib = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v,
+                                                             attn_mask=add))
+        flops = 4.0 * s * nq * nk * dh
+        nbytes = (2 * s * nq * dh + 2 * s * nk * dh) * 4 + mask.numel()
+        t, by = bound(flops, nbytes, peaks["fp32"], peaks)
+        rows.append({
+            "name": "flash_attention", "route": "cuda",
+            "source": "imcui_tpu_torch/csrc/flash_attention.cu",
+            "replaces": "imcui_tpu/ops/attention.py:155",
+            "tolerance": "1e-5*max(1,|plain|) f32, 2^-7*max(1,|plain|) bf16",
+            "max_abs_err": err, "rel_err": err / top, "ms": ms,
+            "plain_ms": plain, "library_ms": lib, "bound_ms": t,
+            "bound_by": by,
+            "per": f"launch at {s} x {nq} x {nk} x {dh} f32 (one pair)"})
+        del add
+    del q, k, v, got, want
+    torch.cuda.empty_cache()
+
+    # the stem (K6/K7): both image types at the turbo batch, at a
+    # 2048x1536 batch and at the general path's canvas
+    pa, pb = sp["conv1a"], sp["conv1b"]
+    conv_a = torch.nn.Conv2d(1, 64, 3, padding=1).to(dev, torch.bfloat16)
+    conv_b = torch.nn.Conv2d(64, 64, 3, padding=1).to(dev, torch.bfloat16)
+    with torch.no_grad():
+        conv_a.weight.copy_(pa["w"])
+        conv_a.bias.copy_(pa["b"])
+        conv_b.weight.copy_(pb["w"])
+        conv_b.bias.copy_(pb["b"])
+    conv_a, conv_b = (c.to(memory_format=torch.channels_last)
+                      for c in (conv_a, conv_b))
+    stem_row = None
+    decision = {}
+    for b, h, w, dtype in ((2 * BATCH, CANVAS, CANVAS, torch.float32),
+                           (2 * BATCH, CANVAS, CANVAS, torch.bfloat16),
+                           (2, 1536, 2048, torch.float32),
+                           (2, 1536, 2048, torch.bfloat16),
+                           (1, *G_CANVAS, torch.bfloat16)):
+        img = torch.rand((b, h, w), generator=gen, device=dev).to(dtype)
+        args = (img, pa["w"], pa["b"], pb["w"], pb["b"])
+        got = cuda_stage1.stem_tail(*args).float()
+        want = cuda_stage1.stem_tail_plain(*args).float()
+        torch.cuda.synchronize()
+        diff = (got - want).abs()
+        # one bf16 rounding step of the result, as stage_tail
+        over = int((diff > 1e-3 + 2.0 ** -7 * want.abs()).sum())
+        err, top = diff.max().item(), want.abs().max().item()
+        del got, want, diff
+        # the other route to the same function, conv1a + stage_tail, timed
+        # in turns with the stem kernel (staged, stem, stem, staged)
+        x16 = img.to(torch.bfloat16)[:, None]
+        p16 = {k: {n: t.to(torch.bfloat16) for n, t in sp[k].items()}
+               for k in ("conv1a", "conv1b")}
+
+        def staged():
+            return spm._stage(p16["conv1a"], p16["conv1b"], x16, True)
+
+        def stem():
+            return cuda_stage1.stem_tail(*args)
+
+        turns = [cuda_ms(staged), cuda_ms(stem), cuda_ms(stem),
+                 cuda_ms(staged)]
+        staged_ms = (turns[0] + turns[3]) / 2
+        stem_ms = (turns[1] + turns[2]) / 2
+        decision[f"{b}x{h}x{w} {str(dtype)[6:]}"] = {
+            "stem_ms": stem_ms, "conv1a_plus_stage_tail_ms": staged_ms}
+        log(f"  stem_tail [{b}x{h}x{w} {str(dtype)[6:]}]: err {err:.3g} "
+            f"(max|plain| {top:.3g}; {over} over 1e-3 + 2^-7*|plain|), "
+            f"{stem_ms:.3f} ms vs conv1a + stage_tail {staged_ms:.3f} ms")
+        if over:
+            fail("stem_tail differs from its plain version")
+        if (b, h, w) == (1, *G_CANVAS):
+            plain = cuda_ms(lambda: cuda_stage1.stem_tail_plain(*args), 5, 1)
+            xcl = x16.contiguous(memory_format=torch.channels_last)
+            with torch.no_grad():
+                lib = cuda_ms(lambda: F.max_pool2d(torch.relu(conv_b(
+                    torch.relu(conv_a(xcl)))), 2, 2))
+            flops = 2.0 * b * h * w * (9 * 64 + 9 * 64 * 64)
+            nbytes = img.numel() * img.element_size() \
+                + b * (h // 2) * (w // 2) * 64 * 2 + 9 * 64 * 64 * 2 \
+                + 9 * 64 * 4 + 2 * 64 * 4
+            t, by = bound(flops, nbytes, peaks["bf16"], peaks)
+            stem_row = {
+                "name": "stem_tail", "route": "cuda",
+                "source": "imcui_tpu_torch/csrc/stem_tail.cu",
+                "replaces": "imcui_tpu/ops/pallas_stage1.py:370 and "
+                            "imcui_tpu/ops/pallas_conv.py:140",
+                "tolerance": "1e-3 + 2^-7*|plain| (bf16)",
+                "max_abs_err": err, "rel_err": err / top, "ms": stem_ms,
+                "plain_ms": plain, "library_ms": lib, "bound_ms": t,
+                "bound_by": by, "conv1a_plus_stage_tail_ms": staged_ms,
+                "per": f"launch at {b} x {h} x {w} bf16 (one image)"}
+        del img, x16, args
+        torch.cuda.empty_cache()
+    rows.append(stem_row)
+    default = "stem" if spm.BF16_FUSED == "stem" else "conv1a + stage_tail"
+    log(f"  stem decision: the bf16 default is {default}")
+
+    # K1 and K2 at the general path's canvas and at a 2048x1536 batch
+    # (nms_radius 3 is superpoint_aachen's and superpoint_max's)
+    for b, h, w, radius in ((1, *G_CANVAS, 4), (2, 1536, 2048, 3)):
+        y = (torch.randn((b, h, w, 64), generator=gen, device=dev) * 0.5
+             ).to(torch.bfloat16)
+        ba, wb, bb = pa["b"], pb["w"], pb["b"]
+        with full_fp32():
+            got = cuda_stage1.stage_tail(y, ba, wb, bb).float()
+            want = cuda_stage1.stage_tail_plain(y, ba, wb, bb).float()
+        diff = (got - want).abs()
+        over = int((diff > 1e-3 + 2.0 ** -7 * want.abs()).sum())
+        log(f"  stage_tail [{b}x{h}x{w}]: err {diff.max().item():.3g}, "
+            f"{over} over tolerance, "
+            f"{cuda_ms(lambda: cuda_stage1.stage_tail(y, ba, wb, bb)):.3f} ms")
+        if over:
+            fail("stage_tail differs from its plain version")
+        del y, got, want, diff
+        heat = torch.rand((b, h, w), generator=gen, device=dev
+                          ).to(torch.bfloat16)
+        vwh = torch.tensor([[1600, 1200], [w, h]][:b], dtype=torch.int32,
+                           device=dev)
+        cm, cs = cuda_nms.nms_cellmax(heat, vwh, radius=radius)
+        pm, ps = cuda_nms.nms_cellmax_plain(heat, vwh, radius=radius)
+        err = max((cm - pm).abs().max().item(), (cs - ps).abs().max().item())
+        log(f"  nms_cellmax [{b}x{h}x{w}, radius {radius}]: err {err}, "
+            f"{cuda_ms(lambda: cuda_nms.nms_cellmax(heat, vwh, radius=radius)):.3f} ms")
+        if err != 0.0:
+            fail("nms_cellmax differs from its plain version")
+        del heat, cm, cs, pm, ps
+        torch.cuda.empty_cache()
+
+    # K4 at 4096 x 4096 (the JAX package leaves this size to XLA)
+    s, n = HEADS, G_KPTS
+    a0, a1, v0, v1 = (rnd(s, n, 64) for _ in range(4))
+    m0 = torch.ones((1, n), dtype=torch.bool, device=dev)
+    m1 = m0.clone()
+    m1[0, 3000:] = False
+    with full_fp32():
+        got = attention.bidirectional_attention(a0, a1, v0, v1, m0, m1, HEADS)
+        want = attention.bidirectional_attention_plain(a0, a1, v0, v1, m0,
+                                                       m1, HEADS)
+        top = max(t.abs().max().item() for t in want)
+        err = max((g - t).abs().max().item() for g, t in zip(got, want))
+        ms4 = cuda_ms(lambda: attention.bidirectional_attention(
+            a0, a1, v0, v1, m0, m1, HEADS))
+    # f32 sums over four times the keys of the serving shape: their
+    # rounding error grows with the root of the count, so twice its bound
+    tol = 2e-5 * max(1.0, top)
+    log(f"  bidirectional_attention [{s} x {n} x {n}]: err {err:.3g} "
+        f"(tolerance {tol:.3g}), {ms4:.3f} ms")
+    if not err <= tol:
+        fail("bidirectional_attention differs from its plain version at 4096")
+    for r in rows:
+        log(f"  {r['name']}: {r['ms']:.3f} ms per {r['per']} vs plain "
+            f"{r['plain_ms']:.3f}, library {r['library_ms']:.3f}, bound "
+            f"{r['bound_ms']:.4f} ({r['bound_by']})")
+    return rows, {"stem_decision": decision, "bf16_default": default,
+                  "bidir_4096_ms": ms4}
+
+
 def phase2():
     """Serving through TurboMatcher: counters and the homography gate."""
     import torch
 
     from imcui_tpu_torch.api.turbo import TurboMatcher
+    from imcui_tpu_torch.models.extractors.superpoint import BF16_FUSED
     from imcui_tpu_torch.ops import attention, cuda_nms, cuda_stage1
 
     tm = TurboMatcher(device="cuda", canvas=CANVAS, max_keypoints=MAX_KPTS,
@@ -402,9 +643,11 @@ def phase2():
         return run(items)
 
     tm._batcher.run_batch = counted
-    kernels = (cuda_stage1.stage_tail, cuda_nms.nms_cellmax,
-               attention.fused_attention, attention.bidirectional_attention)
-    per_batch = (2, 1, N_LAYERS, N_LAYERS)
+    kernels = (cuda_stage1.stage_tail, cuda_stage1.stem_tail,
+               cuda_nms.nms_cellmax, attention.fused_attention,
+               attention.bidirectional_attention)
+    stem = int(BF16_FUSED == "stem")  # stage 1 through the stem kernel
+    per_batch = (2 - stem, stem, 1, N_LAYERS, N_LAYERS)
     for kfn in kernels:
         kfn.launches = 0
     results = [None] * N_REQUESTS
@@ -433,7 +676,7 @@ def phase2():
     log(f"  {N_REQUESTS} requests from {N_THREADS} threads in {wall:.2f} s, "
         f"{batches[0]} batches; launches {launches}")
     for kfn, per in zip(kernels, per_batch):
-        if kfn.launches == 0 or kfn.launches != per * batches[0]:
+        if batches[0] == 0 or kfn.launches != per * batches[0]:
             fail(f"{kfn.__name__}: {kfn.launches} launches for "
                  f"{batches[0]} batches (expected {per} per batch)")
     for i, (res, (_, _, hm)) in enumerate(zip(results, pairs)):
@@ -559,6 +802,234 @@ def phase3(params):
             "device_idle_share": idle}
 
 
+def phase4():
+    """The general path through ImageMatchingAPI: gate, counters, stage
+    times, idle share, and the host cost of the adaptive loop."""
+    import torch
+
+    from imcui_tpu_torch.api.core import ImageMatchingAPI
+    from imcui_tpu_torch.models.matchers import lightglue as lg
+    from imcui_tpu_torch.ops import attention, cuda_nms, cuda_stage1
+    from imcui_tpu_torch.ui import utils as ui
+
+    def api_for(max_keypoints, fused=None):
+        conf = ui.parse_match_config({"feature": G_FEATURE,
+                                      "matcher": G_MATCHER, "dense": False})
+        if fused is not None:
+            conf["feature"]["model"]["fused"] = fused
+        api = ImageMatchingAPI(conf, device="cuda",
+                               max_keypoints=max_keypoints,
+                               detect_threshold=G_DETECT_THRESHOLD)
+        if not (api.extractor.meta["pretrained"]
+                and api.matcher.meta["pretrained"]):
+            fail("the general path did not load the weights/ npz trees")
+        return api
+
+    api = api_for(G_KPTS)
+    log(f"  conf: feature {api.conf['feature']['model']}, preprocessing "
+        f"{api.conf['feature']['preprocessing']}, matcher "
+        f"{api.conf['matcher']['model']}, ransac {api.conf['ransac']}")
+    pairs = [synthetic_pair(200 + i, w, h) for i, (w, h) in enumerate(G_SIZES)]
+    api(*pairs[0][:2])  # warm-up: cuDNN's algorithm choice, allocator
+
+    stops, events, captured = [], {}, {}
+
+    def mark(name):
+        def hook(*_):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            events.setdefault(name, []).append(ev)
+        return hook
+
+    def watch(target):
+        return [
+            target.extractor.register_forward_pre_hook(mark("sp_in")),
+            target.extractor.register_forward_hook(mark("sp_out")),
+            target.matcher.register_forward_pre_hook(mark("lg_in")),
+            target.matcher.register_forward_hook(mark("lg_out")),
+            target.matcher.register_forward_pre_hook(
+                lambda mod, args: captured.update(data=args[0])),
+            target.matcher.register_forward_hook(
+                lambda mod, args, out: stops.append(
+                    int(out["stop_layer"][0]))),
+        ]
+
+    kernels = (cuda_stage1.stage_tail, cuda_stage1.stem_tail,
+               cuda_nms.nms_cellmax, attention.fused_attention,
+               attention.bidirectional_attention, attention.flash_attention)
+    for kfn in kernels:
+        kfn.launches = 0
+
+    def gate(tag, res, hm):
+        for key in ("mkeypoints0_orig", "mmkeypoints0_orig",
+                    "mmkeypoints1_orig", "mconf", "mmconf", "H"):
+            if res[key] is None or not np.isfinite(res[key]).all():
+                fail(f"{tag}: {key} is missing or not finite")
+        err = transfer_errors(hm, res["mmkeypoints0_orig"],
+                              res["mmkeypoints1_orig"])
+        med = float(np.median(err)) if len(err) else float("inf")
+        log(f"  {tag}: {len(res['keypoints0_orig'])}/"
+            f"{len(res['keypoints1_orig'])} keypoints, "
+            f"{len(res['mkeypoints0_orig'])} raw matches, {len(err)} inliers,"
+            f" median transfer error {med:.3f} px, stop_layer {stops[-1]}")
+        if len(err) < GATE_MIN_INLIERS or med > GATE_MEDIAN_PX:
+            fail(f"{tag}: gate is >= {GATE_MIN_INLIERS} inliers with median "
+                 f"error <= {GATE_MEDIAN_PX} px")
+
+    # requests at 4096 keypoints, timed per stage
+    hooks = watch(api)
+    split = {"superpoint": [], "lightglue": [], "ransac": [], "request": [],
+             "request_wall": []}
+    for i, (img0, img1, hm) in enumerate(pairs):
+        events.clear()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0 = time.perf_counter()
+        start.record()
+        res = api(img0, img1)
+        end.record()
+        end.synchronize()
+        split["request_wall"].append((time.perf_counter() - t0) * 1e3)
+        split["superpoint"].append(sum(
+            a.elapsed_time(b) for a, b in zip(events["sp_in"],
+                                              events["sp_out"])))
+        split["lightglue"].append(
+            events["lg_in"][0].elapsed_time(events["lg_out"][0]))
+        split["ransac"].append(events["lg_out"][0].elapsed_time(end))
+        split["request"].append(start.elapsed_time(end))
+        gate(f"request {i} {G_SIZES[i]} at {G_KPTS} keypoints", res, hm)
+        if min(len(res["keypoints0_orig"]),
+               len(res["keypoints1_orig"])) <= G_MIN_KEYPOINTS:
+            fail(f"request {i} found no more than {G_MIN_KEYPOINTS} "
+                 f"keypoints in a view")
+    stops_4096 = list(stops)
+
+    # the adaptive loop's host cost: the matcher on the last request's
+    # features, against the static forward cut to the depth it stopped at
+    # (the same layers and head, no confidence heads, no host wait)
+    data, depth = captured["data"], stops[-1]
+    p = api.matcher.params
+    cut = {**p, "transformers": p["transformers"][:depth],
+           "log_assignment": p["log_assignment"][:depth]}
+    f = {k: torch.as_tensor(v, device="cuda") for k, v in data.items()
+         if v is not None and k != "image0" and k != "image1"}
+    h, w = data["image0"].shape[-2:]
+    size = torch.tensor([[w, h]], dtype=torch.float32, device="cuda")
+    largs = (f["keypoints0"], f["keypoints1"],
+             f["descriptors0"].transpose(1, 2),
+             f["descriptors1"].transpose(1, 2), f["mask0"], f["mask1"], size,
+             size)
+    saved = {k.__name__: k.launches for k in kernels}
+
+    def wall_ms(fn, iters=5):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / iters * 1e3
+
+    adaptive_ms = wall_ms(lambda: lg.forward_pair_adaptive(
+        p, *largs, match_threshold=0.2, depth_confidence=0.95))
+    static_ms = wall_ms(lambda: lg.forward_pair(cut, *largs,
+                                                match_threshold=0.2))
+    for kfn in kernels:  # the comparison's launches do not count
+        kfn.launches = saved[kfn.__name__]
+    log(f"  adaptive loop at depth {depth}: {adaptive_ms:.2f} ms against "
+        f"{static_ms:.2f} ms for the static forward of the same depth "
+        f"({(adaptive_ms - static_ms) / depth:.3f} ms per layer for the "
+        f"confidence heads and the host wait)")
+
+    # the device's idle share: a profiler window over two requests
+    from torch.profiler import ProfilerActivity, profile
+
+    n_prof = 2
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        for i in range(n_prof):
+            api(*pairs[i][:2])
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t1) * 1e3 / n_prof
+    evs = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    device_ms = sum(e.self_device_time_total for e in evs) / (n_prof * 1e3)
+    for h_ in hooks:
+        h_.remove()
+    med = {k: float(np.median(v)) for k, v in split.items()}
+    idle = 1 - device_ms / med["request_wall"]
+    log("  stage split per request (ms, CUDA events, median of "
+        f"{len(pairs)}): SuperPoint x2 {med['superpoint']:.2f}, LightGlue "
+        f"{med['lightglue']:.2f}, RANSAC F+H {med['ransac']:.2f}, whole "
+        f"request {med['request']:.2f} (host clock {med['request_wall']:.2f},"
+        " preprocessing on the host included)")
+    log(f"  profiler ({n_prof} requests, {window_ms:.1f} ms/request under the"
+        f" profiler): device busy {device_ms:.2f} ms/request, idle share "
+        f"{idle:.3f} of the unprofiled request; top device time per request:")
+    for e in sorted(evs, key=lambda e: e.self_device_time_total,
+                    reverse=True)[:12]:
+        log(f"    {e.self_device_time_total / (n_prof * 1e3):9.3f} ms  "
+            f"x{e.count / n_prof:g}  {e.key[:100]}")
+    # the two profiled requests ran the same pairs again
+    stops_4096 += stops[len(stops_4096):]
+
+    # one request at 1024 keypoints (self-attention through K3) and one
+    # through each route of the stem, which must find the same keypoints
+    n_before = len(stops)
+    small = api_for(MAX_KPTS)
+    hooks = watch(small)
+    gate(f"request at {MAX_KPTS} keypoints",
+         small(*pairs[0][:2]), pairs[0][2])
+    for h_ in hooks:
+        h_.remove()
+    stops_1024 = stops[n_before:]
+    kept = {}
+    for route in (True, "stem"):
+        routed = api_for(G_KPTS, fused=route)
+        hooks = watch(routed)
+        res = routed(*pairs[1][:2])
+        gate(f"request with fused={route!r}", res, pairs[1][2])
+        kept[route] = [{tuple(k) for k in np.round(res[key], 3).tolist()}
+                       for key in ("keypoints0_orig", "keypoints1_orig")]
+        for h_ in hooks:
+            h_.remove()
+    ious = [len(a & b) / len(a | b) for a, b in zip(kept[True], kept["stem"])]
+    log(f"  keypoint sets of the two stem routes: IoU {ious[0]:.4f} / "
+        f"{ious[1]:.4f}")
+    # The routes round conv_a's output at different places (once in the
+    # stem kernel; to bf16 before and after the bias in conv1a + stage_tail),
+    # so a peak near the threshold or a tie can differ: the sets must agree
+    # as the bf16 trunk agrees across devices, IoU >= 0.9.
+    if min(ious) < 0.9:
+        fail("the stem route and the conv1a + stage_tail route disagree")
+    stops_routes = stops[n_before + len(stops_1024):]
+
+    torch.cuda.synchronize()
+    launches = {k.__name__: k.launches for k in kernels}
+    n_extract = 2 * (len(stops_4096) + len(stops_1024) + len(stops_routes))
+    expected = {
+        # stage 2 on every image, stage 1 unless the stem kernel ran it
+        "stage_tail": 2 * n_extract - launches["stem_tail"],
+        "nms_cellmax": n_extract,
+        "fused_attention": sum(stops_1024),
+        "bidirectional_attention": sum(stops),
+        "flash_attention": sum(stops_4096) + sum(stops_routes),
+    }
+    log(f"  launches {launches}; stop layers {stops}")
+    for name, want in expected.items():
+        if launches[name] == 0 or launches[name] != want:
+            fail(f"{name}: {launches[name]} launches on the general path, "
+                 f"expected {want}")
+    if launches["stem_tail"] < 2:
+        fail("the stem kernel was not launched on the general path")
+    timing = {
+        "keypoints": G_KPTS, "sizes": G_SIZES, "split_ms": med,
+        "stop_layers": stops_4096, "device_busy_ms": device_ms,
+        "device_idle_share": idle, "adaptive_ms": adaptive_ms,
+        "static_same_depth_ms": static_ms, "adaptive_depth": depth,
+        "stem_route_keypoint_iou": ious}
+    return launches, timing
+
+
 def main():
     import torch
 
@@ -573,12 +1044,23 @@ def main():
     log(f"phase 1: kernels vs plain versions (peaks of an H100 {part})")
     params, _ = two_view.load_pretrained(n_layers=N_LAYERS, device="cuda")
     rows = phase1(params, peaks)
+    more_rows, kernel_notes = phase1_general(params, peaks)
+    rows += more_rows
     log("phase 2: serving")
     launches = phase2()
-    for r in rows:
-        r["launches"] = launches[r["name"]]
     log("phase 3: timing at the bench operating point")
     timing = phase3(params)
+    log("phase 4: the general path (ImageMatchingAPI, adaptive LightGlue at "
+        f"{G_KPTS} keypoints)")
+    launches_general, timing["general"] = phase4()
+    timing["kernels"] = kernel_notes
+    for r in rows:
+        by_path = {"turbo": launches.get(r["name"], 0),
+                   "general": launches_general[r["name"]]}
+        r["launches_by_path"] = by_path
+        r["launches"] = sum(by_path.values())
+        if r["launches"] == 0:
+            fail(f"{r['name']} was launched on neither path")
     log(json.dumps({"timing": timing, "card": smi_line}))
     log(json.dumps({"kernels": rows}))
     log(smi_line)

@@ -1,16 +1,43 @@
-"""PyTorch/CUDA port of the imcui_tpu turbo two-view serving path.
+"""PyTorch/CUDA port of imcui_tpu for an NVIDIA Hopper card.
 
-SuperPoint → LightGlue → RANSAC on an NVIDIA Hopper card, with the four
-Pallas kernels of that path rewritten by hand in CUDA C++ (``csrc/``,
-built on first use by ``ops/_build.py``). The JAX package ``imcui_tpu``
-stays the reference; this package imports nothing of it.
+Two paths are ported so far:
+
+- the turbo two-view serving path (``api/turbo.py::TurboMatcher`` →
+  ``pipeline/two_view.py::match_step``: SuperPoint → static-depth
+  LightGlue → RANSAC on a batch of pairs);
+- the general matching path every other user surface sits on
+  (``api/core.py::ImageMatchingAPI`` → ``pipeline/extract_features.py`` →
+  the ``SuperPoint`` ``BaseModel`` → ``pipeline/match_features.py`` → the
+  ``LightGlue`` ``BaseModel`` with adaptive depth → ``ui/utils.py``'s
+  RANSAC filter), configured from the registry in ``configs/``.
+
+The six Pallas kernels on those paths are rewritten by hand in CUDA C++
+(``csrc/``, built on first use by ``ops/_build.py``): ``stage_tail``,
+``stem_tail`` (one kernel for both TPU stem kernels), ``nms_cellmax``,
+``fused_attention``, ``bidirectional_attention`` and ``flash_attention``.
+The JAX package ``imcui_tpu`` stays the reference; this package imports
+nothing of it.
 
 Every entry point takes ``device=`` and defaults to ``"cuda"``. Only a
 caller that asks for ``"cpu"`` gets the CPU (the tests do); on a machine
 without a card ``"cuda"`` raises instead of dropping to the CPU.
 """
 
+import logging
+import sys
+
 import torch
+
+logger = logging.getLogger("imcui_tpu_torch")
+logger.setLevel(logging.INFO)
+if not logger.handlers:
+    _handler = logging.StreamHandler(sys.stdout)
+    _handler.setFormatter(logging.Formatter(
+        fmt="[%(asctime)s %(name)s %(levelname)s] %(message)s",
+        datefmt="%Y/%m/%d %H:%M:%S"))
+    _handler.setLevel(logging.INFO)
+    logger.addHandler(_handler)
+logger.propagate = False
 
 
 def resolve_device(device="cuda"):

@@ -1,21 +1,41 @@
-"""LightGlue attentional matcher, static depth, float32.
+"""LightGlue attentional matcher, float32, static or adaptive depth.
 
-Counterpart of ``imcui_tpu/models/matchers/lightglue.py:forward_pair``
-with pairs as a batch dimension in place of ``vmap``. Learnable-Fourier
-rotary positional encoding, L layers of self-attention (kernel K3) and
-bidirectional cross-attention (kernel K4), and the sigmoid-matchability
-double-softmax assignment head of the last layer. Padded keypoint slots
-carry a key mask and zero mass in the assignment.
+Counterpart of ``imcui_tpu/models/matchers/lightglue.py``
+(``forward_pair``, ``forward_pair_adaptive`` and the ``LightGlue``
+``BaseModel``) with pairs as a batch dimension in place of ``vmap``.
+Learnable-Fourier rotary positional encoding, L layers of self-attention
+(kernel K3 up to 2048 keypoint slots, the blockwise kernel K5 above) and
+bidirectional cross-attention (kernel K4), and a sigmoid-matchability
+double-softmax assignment head per layer. Padded keypoint slots carry a
+key mask and zero mass in the assignment.
 """
+
+import math
+from pathlib import Path
 
 import torch
 
 from ... import resolve_device
 from ...ops.attention import (NEG_INF, apply_rotary, bidirectional_attention,
-                              fused_attention, learnable_fourier_encoding)
+                              flash_attention, fused_attention,
+                              learnable_fourier_encoding)
+from ...utils import weights
+from ...utils.base_model import BaseModel
 from ..layers import full_fp32, gelu, layer_norm, linear
 
 NUM_HEADS = 4
+# self-attention over more key slots than this takes the blockwise kernel
+FUSED_MAX_KEYS = 2048
+WEIGHTS_NPZ = Path(__file__).resolve().parents[3] / "weights" \
+    / "lightglue_selftrained.npz"
+FEATURE_DIMS = {
+    "superpoint": 256,
+    "disk": 128,
+    "aliked": 128,
+    "raco-aliked": 128,
+    "sift": 128,
+    "xfeat": 64,
+}
 
 
 def _linear_init(generator, din, dout):
@@ -29,13 +49,14 @@ def _ffn_init(generator, dim):
             "3": _linear_init(generator, 2 * dim, dim)}
 
 
-def init_params(generator, n_layers=9):
+def init_params(generator, n_layers=9, input_dim=256, pos_dim=2):
     """Random init in torch layout, the tree of the JAX ``init_params``
-    for SuperPoint features (256-d, 4 heads)."""
+    (256-d, 4 heads; ``input_dim`` the feature's descriptor width,
+    ``pos_dim`` 4 with scale and orientation)."""
     dim, head_dim = 256, 64
     params = {
-        "input_proj": _linear_init(generator, dim, dim),
-        "posenc": {"Wr": {"w": torch.randn((head_dim // 2, 2),
+        "input_proj": _linear_init(generator, input_dim, dim),
+        "posenc": {"Wr": {"w": torch.randn((head_dim // 2, pos_dim),
                                            generator=generator)}},
         "transformers": [],
         "log_assignment": [],
@@ -73,7 +94,7 @@ def _heads(x, num_heads):
     """(B, N, D) → (B·H, N, Dh), contiguous."""
     b, n, d = x.shape
     return (x.reshape(b, n, num_heads, d // num_heads).transpose(1, 2)
-            .reshape(b * num_heads, n, d // num_heads))
+            .reshape(b * num_heads, n, d // num_heads).contiguous())
 
 
 def _merge(x, b):
@@ -98,8 +119,9 @@ def self_block(p, x, enc, mask, num_heads):
     q = apply_rotary(qkv[0], (cos, sin)).reshape(b * num_heads, n, dh)
     k = apply_rotary(qkv[1], (cos, sin)).reshape(b * num_heads, n, dh)
     v = qkv[2].reshape(b * num_heads, n, dh)
-    ctx = fused_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                          mask, NUM_HEADS)
+    attend = fused_attention if n <= FUSED_MAX_KEYS else flash_attention
+    ctx = attend(q.contiguous(), k.contiguous(), v.contiguous(), mask,
+                 NUM_HEADS)
     message = linear(p["out_proj"], _merge(ctx, b))
     return x + ffn_apply(p["ffn"], x, message)
 
@@ -162,6 +184,49 @@ def filter_matches(scores, threshold, mask0, mask1):
                                                  torch.zeros_like(mscores))
 
 
+def _prepare(params, kpts0, kpts1, desc0, desc1, mask0, mask1, size0, size1,
+             dev):
+    """Inputs on ``dev``; projected descriptors and rotary encodings.
+    Keypoints with 4 columns carry scale and orientation (SIFT mode)."""
+    kpts0, kpts1, desc0, desc1, size0, size1 = (
+        torch.as_tensor(t, dtype=torch.float32, device=dev)
+        for t in (kpts0, kpts1, desc0, desc1, size0, size1))
+    mask0, mask1 = (torch.as_tensor(m, device=dev).bool().contiguous()
+                    for m in (mask0, mask1))
+    x0 = linear(params["input_proj"], desc0)
+    x1 = linear(params["input_proj"], desc1)
+    wr = params["posenc"]["Wr"]["w"]
+
+    def encode(kpts, size):
+        p = normalize_keypoints(kpts[..., :2], size)
+        if wr.shape[1] == 4:
+            p = torch.cat([p, kpts[..., 2:4]], -1)
+        return learnable_fourier_encoding(p, wr)
+
+    return x0, x1, encode(kpts0, size0), encode(kpts1, size1), mask0, mask1
+
+
+def _joined(enc0, enc1, mask0, mask1):
+    """Both views' encodings and masks as one batch, for one self-attention
+    launch per layer."""
+    return (tuple(torch.cat([a, c]) for a, c in zip(enc0, enc1)),
+            torch.cat([mask0, mask1]))
+
+
+def _layer(layer, x0, x1, enc0, enc1, mask0, mask1, joined=None):
+    """One transformer layer: self-attention on each view (one launch for
+    both when their shapes agree), then bidirectional cross-attention."""
+    sa = layer["self_attn"]
+    if x0.shape == x1.shape:
+        enc, mask = joined or _joined(enc0, enc1, mask0, mask1)
+        x0, x1 = self_block(sa, torch.cat([x0, x1]), enc, mask,
+                            NUM_HEADS).split(x0.shape[0])
+    else:
+        x0 = self_block(sa, x0, enc0, mask0, NUM_HEADS)
+        x1 = self_block(sa, x1, enc1, mask1, NUM_HEADS)
+    return cross_block(layer["cross_attn"], x0, x1, mask0, mask1, NUM_HEADS)
+
+
 def forward_pair(params, kpts0, kpts1, desc0, desc1, mask0, mask1, size0,
                  size1, match_threshold=0.1, device="cuda"):
     """Static-depth forward over a batch of B pairs, float32.
@@ -170,34 +235,181 @@ def forward_pair(params, kpts0, kpts1, desc0, desc1, mask0, mask1, size0,
     (w, h). ``params`` must already be on ``device``. Returns matches0
     (B, N0) int32 (-1 = unmatched) and matching_scores0 (B, N0)."""
     dev = resolve_device(device)
-    kpts0, kpts1, desc0, desc1, size0, size1 = (
-        torch.as_tensor(t, dtype=torch.float32, device=dev)
-        for t in (kpts0, kpts1, desc0, desc1, size0, size1))
-    mask0, mask1 = (torch.as_tensor(m, device=dev).bool().contiguous()
-                    for m in (mask0, mask1))
-    b = kpts0.shape[0]
     with full_fp32():
-        x0 = linear(params["input_proj"], desc0)
-        x1 = linear(params["input_proj"], desc1)
-        wr = params["posenc"]["Wr"]["w"]
-        enc0 = learnable_fourier_encoding(normalize_keypoints(kpts0, size0), wr)
-        enc1 = learnable_fourier_encoding(normalize_keypoints(kpts1, size1), wr)
-        same = x0.shape == x1.shape
-        if same:  # both views' self-attention in one launch per layer
-            enc = tuple(torch.cat([a, c]) for a, c in zip(enc0, enc1))
-            mask = torch.cat([mask0, mask1])
+        x0, x1, enc0, enc1, mask0, mask1 = _prepare(
+            params, kpts0, kpts1, desc0, desc1, mask0, mask1, size0, size1,
+            dev)
+        joined = _joined(enc0, enc1, mask0, mask1) \
+            if x0.shape == x1.shape else None
         for layer in params["transformers"]:
-            sa = layer["self_attn"]
-            if same:
-                x0, x1 = self_block(sa, torch.cat([x0, x1]), enc, mask,
-                                    NUM_HEADS).split(b)
-            else:
-                x0 = self_block(sa, x0, enc0, mask0, NUM_HEADS)
-                x1 = self_block(sa, x1, enc1, mask1, NUM_HEADS)
-            x0, x1 = cross_block(layer["cross_attn"], x0, x1, mask0, mask1,
-                                 NUM_HEADS)
+            x0, x1 = _layer(layer, x0, x1, enc0, enc1, mask0, mask1, joined)
         scores = assignment(params["log_assignment"][-1], x0, x1, mask0,
                             mask1)
         matches0, mscores0 = filter_matches(scores, match_threshold, mask0,
                                             mask1)
     return {"matches0": matches0, "matching_scores0": mscores0}
+
+
+def forward_pair_adaptive(params, kpts0, kpts1, desc0, desc1, mask0, mask1,
+                          size0, size1, match_threshold=0.1,
+                          depth_confidence=0.95, device="cuda"):
+    """Adaptive-depth forward over a batch of B pairs, float32.
+
+    After layer i (but the last) a pair exits once more than
+    ``depth_confidence`` of its valid tokens pass that layer's confidence
+    threshold ``0.8 + 0.1·exp(−4i/L)``, and is read through the
+    assignment head of the layer it stopped at. Each pair stops on its
+    own: a pair that has exited keeps its state while the others run on
+    (only the pairs still active go through a layer). The exit test costs
+    one host synchronisation per layer. Arguments as ``forward_pair``;
+    additionally returns stop_layer (B,) int32, the number of layers each
+    pair ran."""
+    n_layers = len(params["transformers"])
+    depth_confidence = float(depth_confidence or 0)
+    if n_layers < 2 or depth_confidence <= 0:
+        return forward_pair(params, kpts0, kpts1, desc0, desc1, mask0, mask1,
+                            size0, size1, match_threshold, device)
+    dev = resolve_device(device)
+    with full_fp32():
+        x0, x1, enc0, enc1, mask0, mask1 = _prepare(
+            params, kpts0, kpts1, desc0, desc1, mask0, mask1, size0, size1,
+            dev)
+        b = x0.shape[0]
+        npts = (mask0.sum(-1) + mask1.sum(-1)).clamp_min(1).float()
+        stop = [n_layers] * b
+        active = list(range(b))
+        for i, layer in enumerate(params["transformers"]):
+            whole = len(active) == b
+            sel = None if whole else torch.tensor(active, device=dev)
+
+            def take(t):
+                return t if whole else t[sel]
+
+            m0, m1 = take(mask0), take(mask1)
+            xa0, xa1 = _layer(layer, take(x0), take(x1),
+                              tuple(take(e) for e in enc0),
+                              tuple(take(e) for e in enc1), m0, m1)
+            if whole:
+                x0, x1 = xa0, xa1
+            else:
+                x0[sel], x1[sel] = xa0, xa1
+            if i == n_layers - 1:
+                break
+            tc = params["token_confidence"][i]["token"]
+            th = min(max(0.8 + 0.1 * math.exp(-4.0 * i / n_layers), 0.0), 1.0)
+            c0 = torch.sigmoid(linear(tc, xa0))[..., 0]
+            c1 = torch.sigmoid(linear(tc, xa1))[..., 0]
+            n_unconf = (m0 & (c0 < th)).sum(-1) + (m1 & (c1 < th)).sum(-1)
+            ratio = 1.0 - n_unconf.float() / take(npts)
+            done = (ratio > depth_confidence).tolist()  # the host waits here
+            for j, d in zip(active, done):
+                if d:
+                    stop[j] = i + 1
+            active = [j for j, d in zip(active, done) if not d]
+            if not active:
+                break
+        n0, n1 = x0.shape[1], x1.shape[1]
+        scores = x0.new_empty((b, n0 + 1, n1 + 1))
+        for depth in sorted(set(stop)):
+            sel = torch.tensor([j for j in range(b) if stop[j] == depth],
+                               device=dev)
+            scores[sel] = assignment(params["log_assignment"][depth - 1],
+                                     x0[sel], x1[sel], mask0[sel], mask1[sel])
+        matches0, mscores0 = filter_matches(scores, match_threshold, mask0,
+                                            mask1)
+    return {"matches0": matches0, "matching_scores0": mscores0,
+            "stop_layer": torch.tensor(stop, dtype=torch.int32, device=dev)}
+
+
+def load_params(conf, device):
+    """The trained tree in ``weights/`` (or ``conf["checkpoint_npz"]``) for
+    SuperPoint features at 9 layers; no download is attempted. Any other
+    feature or depth, like an absent file, takes random init from a
+    generator seeded 0, recorded in ``meta``."""
+    n_layers = conf["n_layers"]
+    init = init_params(
+        torch.Generator().manual_seed(0), n_layers=n_layers,
+        input_dim=conf.get("input_dim", conf["descriptor_dim"]),
+        pos_dim=4 if conf.get("add_scale_ori") else 2)
+    path = conf.get("checkpoint_npz")
+    if not path and conf["features"] == "superpoint" and n_layers == 9:
+        path = WEIGHTS_NPZ
+    return weights.load_or_init(path or None, init, "lightglue", device)
+
+
+class LightGlue(BaseModel):
+    """BaseModel wrapper: keypoints*, descriptors* (and mask*, size* or
+    image*, scales*/oris* with ``add_scale_ori``) → matches0,
+    matching_scores0 and, at adaptive depth, stop_layer."""
+
+    default_conf = {
+        "features": "superpoint",
+        "model_name": "superpoint_lightglue.pth",
+        "descriptor_dim": 256,
+        "num_heads": 4,
+        "n_layers": 9,
+        "match_threshold": 0.2,
+        "add_scale_ori": False,
+        # depth_confidence drives the early exit (forward_pair_adaptive);
+        # width_confidence is accepted for API parity and is a no-op
+        "depth_confidence": 0.95,
+        "width_confidence": 0.99,
+        "flash": True,
+    }
+    required_inputs = [
+        "keypoints0", "keypoints1", "descriptors0", "descriptors1",
+    ]
+
+    def _init(self, conf):
+        if conf["num_heads"] != NUM_HEADS:
+            raise ValueError(f"LightGlue runs {NUM_HEADS} heads, not "
+                             f"{conf['num_heads']}")
+        if conf["features"] in FEATURE_DIMS:
+            conf.setdefault("input_dim", FEATURE_DIMS[conf["features"]])
+        self.params, self.meta = load_params(conf, self.device)
+
+    def _forward(self, data):
+        dev = self.device
+
+        def f32(x):
+            return torch.as_tensor(x, dtype=torch.float32, device=dev)
+
+        kpts0, kpts1 = f32(data["keypoints0"]), f32(data["keypoints1"])
+        if self.conf["add_scale_ori"]:
+            kpts0 = torch.cat([kpts0[..., :2], f32(data["scales0"])[..., None],
+                               f32(data["oris0"])[..., None]], -1)
+            kpts1 = torch.cat([kpts1[..., :2], f32(data["scales1"])[..., None],
+                               f32(data["oris1"])[..., None]], -1)
+        desc0, desc1 = f32(data["descriptors0"]), f32(data["descriptors1"])
+        if desc0.shape[1] != kpts0.shape[1]:  # (B, D, N) → (B, N, D)
+            desc0 = desc0.transpose(1, 2)
+        if desc1.shape[1] != kpts1.shape[1]:
+            desc1 = desc1.transpose(1, 2)
+        b = kpts0.shape[0]
+
+        def mask(key, n):
+            if data.get(key) is None:
+                return torch.ones((b, n), dtype=torch.bool, device=dev)
+            return torch.as_tensor(data[key], device=dev).bool()
+
+        def size(key_img, key_wh, kpts):
+            if key_wh in data:
+                return f32(data[key_wh])
+            img = data.get(key_img)
+            if img is not None and hasattr(img, "shape") \
+                    and len(img.shape) == 4:
+                h, w = img.shape[-2:]
+                return f32([[w, h]]).expand(b, 2)
+            return kpts[..., :2].amax(1) + 1.0  # the keypoints' extent
+
+        args = (self.params, kpts0, kpts1, desc0, desc1,
+                mask("mask0", kpts0.shape[1]), mask("mask1", kpts1.shape[1]),
+                size("image0", "size0", kpts0), size("image1", "size1", kpts1))
+        depth_confidence = float(self.conf.get("depth_confidence") or 0)
+        if depth_confidence:
+            return forward_pair_adaptive(
+                *args, match_threshold=float(self.conf["match_threshold"]),
+                depth_confidence=depth_confidence, device=dev)
+        return forward_pair(
+            *args, match_threshold=float(self.conf["match_threshold"]),
+            device=dev)

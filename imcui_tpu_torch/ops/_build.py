@@ -39,6 +39,8 @@ SIGNATURES = {
     "nms_cellmax_f32": [P, P, P, P, I, I, I, I, I, P],
     "fused_attention_f32": [P, P, P, P, P, I, I, I, P],
     "bidir_attention_f32": [P, P, P, P, P, P, P, P, I, I, I, I, P],
+    "flash_attention_fwd": [P, P, P, P, P, I, I, I, I, I, I, P],
+    "stem_tail_fwd": [P, P, P, P, P, P, I, I, I, I, P],
 }
 
 _lock = threading.Lock()

@@ -1,5 +1,6 @@
 """Attention primitives for LightGlue, and kernels K3 and K4
-(``csrc/attention.cu``). Counterpart of ``imcui_tpu/ops/attention.py``.
+(``csrc/attention.cu``) and K5 (``csrc/flash_attention.cu``). Counterpart
+of ``imcui_tpu/ops/attention.py``.
 
 Masks are the finite ``NEG_INF = -1e9`` on logits, never ``-inf``: a
 query whose keys are all masked then attends uniformly (the mean of V),
@@ -134,3 +135,43 @@ def bidirectional_attention(a0, a1, v0, v1, mask0, mask1, heads):
 
 
 bidirectional_attention.launches = 0
+
+
+def flash_attention_plain(q, k, v, mask, heads):
+    """Plain version of K5: ``mha`` with the key mask, computed in float32
+    and returned in ``q``'s dtype. q: (S, Nq, Dh); k/v: (S, Nk, Dh); mask:
+    (S // heads, Nk) bool key validity."""
+    m = mask.repeat_interleave(heads, 0)[:, None, :]
+    return mha(q.float(), k.float(), v.float(), m).to(q.dtype)
+
+
+def flash_attention(q, k, v, mask, heads):
+    """Kernel K5 on CUDA tensors; the plain version on CPU tensors.
+    Blockwise attention of (S, Nq, Dh) queries over (S, Nk, Dh) keys and
+    values, Dh 64 or 128, float32 or bfloat16 (float32 inside, the output
+    in the input type); mask (S/heads, Nk) bool, or None for all valid."""
+    s, nq, dh = q.shape
+    nk = k.shape[1]
+    mask = _head_mask(mask, s // heads, nk, q.device)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, mask, heads)
+    if dh not in (64, 128) or s % heads or q.dtype not in (torch.float32,
+                                                           torch.bfloat16):
+        raise ValueError(f"flash_attention takes Dh 64 or 128, float32 or "
+                         f"bfloat16, and S divisible by heads; got "
+                         f"{tuple(q.shape)} {q.dtype}, heads {heads}")
+    _build.require(q, "q", q.dtype, (s, nq, dh))
+    _build.require(k, "k", q.dtype, (s, nk, dh))
+    _build.require(v, "v", q.dtype, (s, nk, dh))
+    _build.require(mask, "mask", torch.bool, (s // heads, nk))
+    out = torch.empty_like(q)
+    code = _build.library().flash_attention_fwd(
+        _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(mask),
+        _build.ptr(out), s, nq, nk, heads, dh,
+        int(q.dtype == torch.bfloat16), _build.stream_of(q))
+    _build.check(code, "flash_attention")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

@@ -1,5 +1,5 @@
 """Keypoint detection ops: window NMS, border masking, fixed-k selection,
-descriptor sampling. Counterpart of ``imcui_tpu/ops/nms.py``.
+sub-pixel refinement, descriptor sampling. Counterpart of ``imcui_tpu/ops/nms.py``.
 
 Shapes stay fixed: ``k`` keypoint slots and a validity mask instead of a
 dynamic keypoint count.
@@ -60,6 +60,25 @@ def select_topk_keypoints(scores, k, threshold=0.0):
     kscores = torch.where(mask, kscores, torch.zeros_like(kscores))
     kpts = torch.where(mask[..., None], kpts, torch.zeros_like(kpts))
     return kpts, kscores, mask
+
+
+def soft_argmax_refinement(kpts, scores, radius=2):
+    """Sub-pixel refinement: soft-argmax over a (2r+1)² patch of
+    ``scores`` around each keypoint, patch indices clamped to the map.
+    kpts: (B, k, 2) xy; scores: (B, H, W) → (B, k, 2)."""
+    b, h, w = scores.shape
+    d = torch.arange(-radius, radius + 1, device=scores.device)
+    dy, dx = d.view(1, 1, -1, 1), d.view(1, 1, 1, -1)
+    ix = (kpts[..., 0].to(torch.int64)[..., None, None] + dx).clamp(0, w - 1)
+    iy = (kpts[..., 1].to(torch.int64)[..., None, None] + dy).clamp(0, h - 1)
+    win = 2 * radius + 1
+    patches = torch.gather(scores.reshape(b, -1), 1,
+                           (iy * w + ix).reshape(b, -1))
+    patches = patches.reshape(b, -1, win, win)
+    weights = patches / patches.sum((-1, -2), keepdim=True).clamp_min(1e-8)
+    off_x = (weights * dx).sum((-1, -2))
+    off_y = (weights * dy).sum((-1, -2))
+    return kpts + torch.stack([off_x, off_y], -1)
 
 
 def sample_descriptors(kpts, desc_map, s=8):

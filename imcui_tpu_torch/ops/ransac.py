@@ -187,6 +187,11 @@ _SOLVERS = {
 }
 
 
+def minimal_size(model):
+    """Correspondences in one minimal sample of ``model``."""
+    return _SOLVERS[model][3]
+
+
 def sample_indices(mask, num_hypotheses, k, generator):
     """Gumbel top-k sampling without replacement from the valid slots.
     mask: (B, N) bool → (B, S, k) int64 indices."""
@@ -246,5 +251,5 @@ def ransac(pts0, pts1, mask, generator, model="fundamental", threshold=8.0,
     pts0 = torch.as_tensor(pts0, dtype=torch.float32, device=dev)
     pts1 = torch.as_tensor(pts1, dtype=torch.float32, device=dev)
     mask = torch.as_tensor(mask, device=dev).bool()
-    idx = sample_indices(mask, num_hypotheses, _SOLVERS[model][3], generator)
+    idx = sample_indices(mask, num_hypotheses, minimal_size(model), generator)
     return ransac_from_indices(idx, pts0, pts1, mask, model, threshold)

@@ -18,24 +18,6 @@ SP_NPZ = "superpoint_adapted.npz"
 LG_NPZ = "lightglue_selftrained.npz"
 
 
-def _load(path, init, name, device):
-    """The npz tree at ``path`` when the file exists, else ``init``."""
-    if path.exists():
-        tree = weights.params_from_jax(weights.load_tree_npz(path), device)
-        weights.assert_tree_matches(tree, init, name)
-        return tree, {"pretrained": True, "source": str(path)}
-    return _to(init, device), {
-        "pretrained": False, "source": f"random init (seed 0): {path} is absent"}
-
-
-def _to(tree, device):
-    if isinstance(tree, dict):
-        return {k: _to(v, device) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_to(v, device) for v in tree]
-    return tree.to(device)
-
-
 def load_pretrained(n_layers=9, weights_dir=WEIGHTS_DIR, device="cuda"):
     """Weights of the step, read from the npz trees in ``weights_dir``
     (no download is attempted). LightGlue's tree has 9 layers; another
@@ -46,15 +28,16 @@ def load_pretrained(n_layers=9, weights_dir=WEIGHTS_DIR, device="cuda"):
     sp_init = sp.init_params(gen)
     lg_init = lg.init_params(gen, n_layers=n_layers)
     wdir = Path(weights_dir)
-    sp_params, sp_meta = _load(wdir / SP_NPZ, sp_init, "superpoint", dev)
+    sp_params, sp_meta = weights.load_or_init(wdir / SP_NPZ, sp_init, "superpoint", dev)
     lg_path = wdir / LG_NPZ
     if n_layers != 9:
-        lg_params, lg_meta = _to(lg_init, dev), {
+        lg_params, lg_meta = weights.to_device(lg_init, dev), {
             "pretrained": False,
             "source": f"random init (seed 0): {lg_path} holds 9 layers, "
                       f"not {n_layers}"}
     else:
-        lg_params, lg_meta = _load(lg_path, lg_init, "lightglue", dev)
+        lg_params, lg_meta = weights.load_or_init(lg_path, lg_init,
+                                                  "lightglue", dev)
     return ({"superpoint": sp_params, "lightglue": lg_params},
             {"superpoint": sp_meta, "lightglue": lg_meta})
 

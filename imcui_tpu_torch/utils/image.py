@@ -1,13 +1,17 @@
 """Host-side request preprocessing without OpenCV.
 
-Counterpart of ``imcui_tpu/utils/image.py``'s ``preprocess`` (the options
-the serving path uses), ``bucket_size`` and ``keypoints_to_original``.
-The JAX package converts to grayscale and resizes with OpenCV; this
-module restates both in numpy: ``to_grayscale`` as ``cv2.cvtColor(...,
-COLOR_RGB2GRAY)`` (fixed-point for uint8) and ``resize_area`` as
+Counterpart of ``imcui_tpu/utils/image.py``'s ``preprocess``,
+``load_conf``, ``bucket_size`` and ``keypoints_to_original``. The JAX
+package converts to grayscale and resizes with OpenCV; this module
+restates both in numpy: ``to_grayscale`` as ``cv2.cvtColor(...,
+COLOR_RGB2GRAY)`` (fixed-point for uint8), ``resize_area`` as
 ``cv2.resize(..., INTER_AREA)`` for downscaling, each output pixel the
-coverage-weighted mean of the source box it spans.
+coverage-weighted mean of the source box it spans, and ``resize_linear``
+as ``cv2.resize(..., INTER_LINEAR)``. The other OpenCV and PIL
+interpolations are not restated and raise ``NotImplementedError``.
 """
+
+from types import SimpleNamespace
 
 import numpy as np
 
@@ -57,11 +61,54 @@ def resize_area(image, size):
     wn, hn = size
     if wn > w or hn > h:
         raise ValueError(f"resize_area only downscales: {(w, h)} → {size}")
-    wy = _area_weights(h, hn)
-    wx = _area_weights(w, wn)
+    return _separable(image, _area_weights(h, hn), _area_weights(w, wn))
+
+
+def _linear_weights(src, dst):
+    """(dst, src) matrix of INTER_LINEAR's weights along one axis: output
+    pixel d samples the source at (d + 0.5)·src/dst − 0.5, clamped to the
+    edge pixels."""
+    x = (np.arange(dst) + 0.5) * (src / dst) - 0.5
+    x0 = np.floor(x).astype(np.int64)
+    frac = x - x0
+    w = np.zeros((dst, src), np.float64)
+    rows = np.arange(dst)
+    np.add.at(w, (rows, np.clip(x0, 0, src - 1)), 1.0 - frac)
+    np.add.at(w, (rows, np.clip(x0 + 1, 0, src - 1)), frac)
+    return w
+
+
+def _separable(image, wy, wx):
     out = np.tensordot(wy, image.astype(np.float64), axes=(1, 0))
     out = np.moveaxis(np.tensordot(out, wx, axes=(1, 1)), -1, 1)
     return out.astype(np.float32)
+
+
+def resize_linear(image, size):
+    """Bilinear resize of an (H, W) or (H, W, C) float image to ``size`` =
+    (w, h), as ``cv2.resize(image, size, INTER_LINEAR)`` (no antialiasing
+    when shrinking)."""
+    h, w = image.shape[:2]
+    return _separable(image, _linear_weights(h, size[1]),
+                      _linear_weights(w, size[0]))
+
+
+def resize_image(image, size, interp="cv2_area"):
+    """Resize to ``size`` = (w, h) by interpolation name. ``cv2_area``
+    turns into ``cv2_linear`` when either side grows, as in the JAX
+    package; any other interpolation needs OpenCV or PIL, which this
+    package does not import."""
+    h, w = image.shape[:2]
+    if interp == "cv2_area" and (w < size[0] or h < size[1]):
+        interp = "cv2_linear"
+    if interp == "cv2_area":
+        return resize_area(image, size)
+    if interp == "cv2_linear":
+        return resize_linear(image, size)
+    package = "PIL" if interp.startswith("pil_") else "cv2"
+    raise NotImplementedError(
+        f"interpolation {interp!r} needs the {package} package, which the "
+        f"port does not use; cv2_area and cv2_linear are restated in numpy")
 
 
 def bucket_size(h, w, buckets=DEFAULT_BUCKETS):
@@ -76,15 +123,17 @@ def bucket_size(h, w, buckets=DEFAULT_BUCKETS):
     return up(h), up(w)
 
 
-def preprocess(image, grayscale=True, resize_max=1024, dfactor=8,
+def preprocess(image, grayscale=True, resize_max=1024, force_resize=False,
+               width=640, height=480, dfactor=8, interpolation="cv2_area",
                buckets=DEFAULT_BUCKETS):
     """Reference-equivalent preprocessing onto a fixed canvas.
 
     Optional grayscale; downscale so the long edge is ``resize_max``
-    (only when that shrinks the image); floor each side to a multiple of
-    ``dfactor`` by an area resize; scale to [0, 1]; zero-pad bottom/right
-    up to a shape bucket. Returns image (1, C, Hb, Wb) float32, size (w, h)
-    valid inside the canvas, original_size (w, h) and scale = original /
+    (only when that shrinks the image); optional ``force_resize`` to
+    (``width``, ``height``); floor each side to a multiple of ``dfactor``
+    by an area resize; scale to [0, 1]; zero-pad bottom/right up to a
+    shape bucket. Returns image (1, C, Hb, Wb) float32, size (w, h) valid
+    inside the canvas, original_size (w, h) and scale = original /
     valid."""
     image = np.asarray(image)
     if grayscale:
@@ -94,7 +143,10 @@ def preprocess(image, grayscale=True, resize_max=1024, dfactor=8,
     if resize_max:
         s = resize_max / max(size)
         if s < 1.0:
-            image = resize_area(image, tuple(int(round(x * s)) for x in size))
+            image = resize_image(image, tuple(int(round(x * s)) for x in size),
+                                 interpolation)
+    if force_resize:
+        image = resize_image(image, (width, height), interpolation)
     h, w = image.shape[:2]
     h_new, w_new = (h // dfactor) * dfactor, (w // dfactor) * dfactor
     if (h_new, w_new) != (h, w):
@@ -117,3 +169,17 @@ def keypoints_to_original(kpts, scale):
     """Model-resolution keypoints → original resolution with the
     half-pixel-centre convention ``(kp + 0.5) * scale - 0.5``."""
     return (np.asarray(kpts) + 0.5) * np.asarray(scale) - 0.5
+
+
+def load_conf(conf):
+    """dict → attribute namespace with ``preprocess``'s defaults applied."""
+    defaults = {
+        "grayscale": True,
+        "resize_max": 1024,
+        "force_resize": False,
+        "width": 640,
+        "height": 480,
+        "dfactor": 8,
+        "interpolation": "cv2_area",
+    }
+    return SimpleNamespace(**{**defaults, **(conf or {})})

@@ -15,6 +15,8 @@ conv kernel and every 2-D leaf named ``w`` a linear weight (including
 LightGlue's ``posenc.Wr.w``); all other leaves keep their shape.
 """
 
+from pathlib import Path
+
 import numpy as np
 import torch
 
@@ -100,6 +102,11 @@ def params_to_jax(tree):
     return _map_leaves(tree, conv)
 
 
+def to_device(tree, device):
+    """The tree with every tensor moved to ``device``."""
+    return _map_leaves(tree, lambda _, t: t.to(device))
+
+
 def assert_tree_matches(tree, reference, name=""):
     """Raise unless ``tree`` has exactly the leaves and shapes of
     ``reference``."""
@@ -112,3 +119,18 @@ def assert_tree_matches(tree, reference, name=""):
         raise ValueError(
             f"weight tree mismatch for {name}: missing={missing[:5]} "
             f"extra={extra[:5]} shape={[(k, got[k], want[k]) for k in bad[:5]]}")
+
+
+def load_or_init(path, init, name, device):
+    """(tree, meta): the npz tree at ``path``, converted to this package's
+    layout on ``device`` and checked against ``init``'s shapes, when the
+    file exists; else ``init`` itself (``path`` may be None). ``meta``
+    records which, so random weights are never taken for trained ones."""
+    if path is not None and Path(path).exists():
+        tree = params_from_jax(load_tree_npz(path), device)
+        assert_tree_matches(tree, init, name)
+        return tree, {"pretrained": True, "source": str(path)}
+    why = f"{path} is absent" if path is not None \
+        else f"no local tree for this {name} configuration"
+    return to_device(init, device), {
+        "pretrained": False, "source": f"random init (seed 0): {why}"}

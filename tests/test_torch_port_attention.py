@@ -1,10 +1,12 @@
 """Attention of the port (imcui_tpu_torch/ops/attention.py): the plain
-versions of kernels K3 and K4 against the JAX package's XLA restatements
-of its Pallas kernels, and the rotary helpers. float32 throughout;
-tolerance 1e-5 (the same arithmetic, summed in another order)."""
+versions of kernels K3, K4 and K5 against the JAX package's XLA
+restatements of its Pallas kernels, and the rotary helpers. float32
+unless a test says otherwise; tolerance 1e-5 (the same arithmetic, summed
+in another order)."""
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from imcui_tpu.ops import attention as ja
@@ -86,3 +88,48 @@ def test_rotary_helpers_match_jax():
     want = ja.apply_rotary(jnp.asarray(x), (cos_j, sin_j))
     got = ta.apply_rotary(torch.from_numpy(x), (cos_t, sin_t))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
+
+
+@pytest.mark.parametrize("nq,nk,dh,dtype,atol", [
+    (80, 80, 64, "float32", 1e-5),
+    (48, 112, 64, "float32", 1e-5),       # Nq != Nk
+    (64, 96, 128, "float32", 1e-5),       # the wider head
+    (80, 80, 64, "bfloat16", 2.0 ** -6),  # one bf16 step of values up to ~4
+])
+def test_flash_attention_plain_matches_jax(nq, nk, dh, dtype, atol):
+    """Plain version of K5 against the JAX package's ``flash_attention``
+    (off the TPU: ``mha`` with the key mask), one masked batch row
+    included. f32: 1e-5, the same arithmetic summed in another order; bf16
+    inputs: both compute in f32 from the same bf16 values, but JAX rounds
+    the probabilities to bf16 before the readout, so within 2^-6."""
+    rng = np.random.default_rng(3)
+    b = 3
+    q = _rand(rng, b * HEADS, nq, dh, scale=1.0)
+    k = _rand(rng, b * HEADS, nk, dh, scale=1.0)
+    v = _rand(rng, b * HEADS, nk, dh)
+    mask = _masks(b, nk, rng)
+    tdt = getattr(torch, dtype)
+    jdt = getattr(jnp, dtype)
+    tq, tk, tv = (torch.from_numpy(a).to(tdt) for a in (q, k, v))
+    got = ta.flash_attention(tq, tk, tv, torch.from_numpy(mask), HEADS)
+    assert got.dtype == tdt and got.shape == (b * HEADS, nq, dh)
+    got = got.float().numpy()
+    for i in range(b):
+        sl = slice(i * HEADS, (i + 1) * HEADS)
+        want = ja.flash_attention(*(jnp.asarray(a[sl]).astype(jdt)
+                                    for a in (q, k, v)), jnp.asarray(mask[i]))
+        assert want.dtype == jdt
+        np.testing.assert_allclose(got[sl], np.asarray(want, np.float32),
+                                   atol=atol, rtol=atol)
+    # every key masked: the mean of V (of its bf16 values for bf16 inputs)
+    vm = tv[HEADS:2 * HEADS].float().numpy().mean(1, keepdims=True)
+    np.testing.assert_allclose(got[HEADS:2 * HEADS],
+                               np.broadcast_to(vm, (HEADS, nq, dh)),
+                               atol=atol)
+
+
+def test_flash_attention_without_mask_is_plain_mha():
+    rng = np.random.default_rng(4)
+    q, k, v = (torch.from_numpy(_rand(rng, HEADS, 40, 64)) for _ in range(3))
+    got = ta.flash_attention(q, k, v, None, HEADS)
+    torch.testing.assert_close(got, ta.mha(q, k, v), atol=1e-6, rtol=0)

@@ -108,7 +108,7 @@ def test_lightglue_on_card_matches_cpu(gen):
     """forward_pair through K3/K4 on the card against the plain versions
     on the CPU: matches0 equal, scores within 1e-4 (f32, TF32 off)."""
     from imcui_tpu_torch.models.matchers import lightglue as lg
-    from imcui_tpu_torch.pipeline.two_view import _to
+    from imcui_tpu_torch.utils.weights import to_device as _to
 
     params = lg.init_params(torch.Generator().manual_seed(1), n_layers=2)
     g = torch.Generator().manual_seed(2)
@@ -144,6 +144,7 @@ def test_superpoint_bf16_on_card_matches_cpu(gen):
     import chip_smoke
     from imcui_tpu_torch.models.extractors import superpoint as sp
     from imcui_tpu_torch.pipeline import two_view
+    from imcui_tpu_torch.utils.weights import to_device
 
     params, _ = two_view.load_pretrained(device="cpu")
     img = np.stack([chip_smoke.textured_image(np.random.default_rng(s),
@@ -152,10 +153,132 @@ def test_superpoint_bf16_on_card_matches_cpu(gen):
     vwh = np.array([[224, 160], [200, 150]], np.int32)
     kw = dict(max_keypoints=256, keypoint_threshold=0.0005)
     want = sp.apply(params["superpoint"], img, vwh, device="cpu", **kw)
-    got = sp.apply(two_view._to(params["superpoint"], "cuda"), img, vwh,
+    got = sp.apply(to_device(params["superpoint"], "cuda"), img, vwh,
                    device="cuda", **kw)
     for i in range(2):
         sw = {tuple(p) for p in want["keypoints"][i][want["mask"][i]].tolist()}
         sg = {tuple(p) for p in
               got["keypoints"][i][got["mask"][i]].cpu().tolist()}
         assert len(sw) > 50 and len(sw & sg) / len(sw | sg) >= 0.9
+
+
+@pytest.mark.parametrize("nq,nk,dh,dtype", [
+    (100, 100, 64, torch.float32), (70, 333, 64, torch.float32),
+    (129, 65, 128, torch.float32), (100, 100, 64, torch.bfloat16),
+    (65, 200, 128, torch.bfloat16)])
+def test_flash_attention_kernel_matches_plain(gen, nq, nk, dh, dtype):
+    """f32: 1e-5 · max(1, max|plain|), the same arithmetic summed in another
+    order; bf16 in and out: one rounding step of the result, 2^-7."""
+    b, heads = 3, 4
+    q = (torch.randn((b * heads, nq, dh), generator=gen, device="cuda") * 2
+         ).to(dtype)
+    k, v = ((torch.randn((b * heads, nk, dh), generator=gen, device="cuda")
+             * 2).to(dtype) for _ in range(2))
+    mask = _masks(b, nk)
+    before = attention.flash_attention.launches
+    with full_fp32():
+        got = attention.flash_attention(q, k, v, mask, heads)
+        want = attention.flash_attention_plain(q, k, v, mask, heads)
+    assert attention.flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    scale = max(1.0, want.float().abs().max().item())
+    tol = 1e-5 if dtype == torch.float32 else 2.0 ** -7
+    assert (got.float() - want.float()).abs().max().item() <= tol * scale
+
+
+@pytest.mark.parametrize("shape,dtype", [
+    ((3, 40, 72), torch.float32), ((1, 16, 32), torch.bfloat16),
+    ((2, 130, 66), torch.float32), ((1, 2, 2), torch.bfloat16)])
+def test_stem_tail_kernel_matches_plain(gen, shape, dtype):
+    """Tolerance: one bf16 rounding step of the result, as stage_tail."""
+    img = torch.rand(shape, generator=gen, device="cuda").to(dtype)
+    wa = torch.randn((64, 1, 3, 3), generator=gen, device="cuda") * 0.3
+    ba = torch.randn(64, generator=gen, device="cuda") * 0.1
+    wb = torch.randn((64, 64, 3, 3), generator=gen, device="cuda") * 0.05
+    bb = torch.randn(64, generator=gen, device="cuda") * 0.1
+    before = cuda_stage1.stem_tail.launches
+    got = cuda_stage1.stem_tail(img, wa, ba, wb, bb).float()
+    want = cuda_stage1.stem_tail_plain(img, wa, ba, wb, bb).float()
+    assert cuda_stage1.stem_tail.launches == before + 1
+    assert got.shape == (shape[0], shape[1] // 2, shape[2] // 2, 64)
+    assert bool(((got - want).abs() <= 1e-3 + 2.0 ** -7 * want.abs()).all())
+
+
+def test_new_wrappers_reject_what_the_kernels_do_not_take(gen):
+    q = torch.zeros((4, 16, 32), device="cuda")  # head dim 32
+    with pytest.raises(ValueError):
+        attention.flash_attention(q, q, q, None, 4)
+    q = torch.zeros((4, 16, 64), device="cuda", dtype=torch.float16)
+    with pytest.raises(ValueError):
+        attention.flash_attention(q, q, q, None, 4)
+    w = torch.zeros((64, 64, 3, 3), device="cuda")
+    with pytest.raises(ValueError):
+        cuda_stage1.stem_tail(torch.zeros((1, 15, 16), device="cuda"),
+                              w[:, :1], w[0, :, 0, 0], w, w[0, :, 0, 0])
+
+
+def test_adaptive_lightglue_on_card_matches_cpu(gen):
+    """forward_pair_adaptive through K5/K4 on the card (2304 keypoint slots,
+    above K3's range) against the plain versions on the CPU: stop_layer and
+    matches0 equal, scores within 1e-4 (f32, TF32 off). Head 0 is saturated
+    so both pairs leave after the first layer through head 0."""
+    from imcui_tpu_torch.models.matchers import lightglue as lg
+    from imcui_tpu_torch.utils.weights import to_device
+
+    params = lg.init_params(torch.Generator().manual_seed(1), n_layers=3)
+    tok = params["token_confidence"][0]["token"]
+    tok["w"].zero_()
+    tok["b"].fill_(10.0)
+    g = torch.Generator().manual_seed(2)
+    b, n = 2, 2304
+    kpts0 = torch.rand((b, n, 2), generator=g) * 1500
+    desc0 = torch.nn.functional.normalize(torch.randn((b, n, 256),
+                                                      generator=g), dim=-1)
+    perm = torch.randperm(n, generator=g)
+    kpts1 = kpts0[:, perm] + torch.randn((b, n, 2), generator=g)
+    desc1 = torch.nn.functional.normalize(
+        desc0[:, perm] + 0.05 * torch.randn((b, n, 256), generator=g), dim=-1)
+    mask0 = torch.ones((b, n), dtype=torch.bool)
+    mask1 = torch.ones((b, n), dtype=torch.bool)
+    mask1[1, 2000:] = False
+    size = torch.tensor([[1600.0, 1200.0]] * b)
+    args = (kpts0, kpts1, desc0, desc1, mask0, mask1, size, size)
+    want = lg.forward_pair_adaptive(params, *args, match_threshold=0.0,
+                                    device="cpu")
+    launches = attention.flash_attention.launches
+    got = lg.forward_pair_adaptive(to_device(params, "cuda"), *args,
+                                   match_threshold=0.0, device="cuda")
+    assert attention.flash_attention.launches == launches + 1
+    assert got["stop_layer"].tolist() == want["stop_layer"].tolist() == [1, 1]
+    assert torch.equal(got["matches0"].cpu(), want["matches0"])
+    assert torch.allclose(got["matching_scores0"].cpu(),
+                          want["matching_scores0"], atol=1e-4)
+
+
+def test_image_matching_api_on_card(gen):
+    """ImageMatchingAPI on the card at a small canvas: the planted
+    homography gate of chip_smoke.py, and K1, K2, K3, K4 launched."""
+    import numpy as np
+
+    import chip_smoke
+    from imcui_tpu_torch.api.core import ImageMatchingAPI
+    from imcui_tpu_torch.ui import utils as ui
+
+    conf = ui.parse_match_config({"feature": "superpoint_inloc",
+                                  "matcher": "superpoint-lightglue",
+                                  "dense": False})
+    api = ImageMatchingAPI(conf, device="cuda", max_keypoints=1024,
+                           detect_threshold=0.005)
+    img0, img1, hm = chip_smoke.synthetic_pair(100, 601, 451)
+    before = (cuda_stage1.stage_tail.launches, cuda_nms.nms_cellmax.launches,
+              attention.fused_attention.launches,
+              attention.bidirectional_attention.launches)
+    res = api(img0, img1)
+    after = (cuda_stage1.stage_tail.launches, cuda_nms.nms_cellmax.launches,
+             attention.fused_attention.launches,
+             attention.bidirectional_attention.launches)
+    assert all(a > b for a, b in zip(after, before))
+    err = chip_smoke.transfer_errors(hm, res["mmkeypoints0_orig"],
+                                     res["mmkeypoints1_orig"])
+    assert len(err) >= chip_smoke.GATE_MIN_INLIERS
+    assert np.median(err) <= chip_smoke.GATE_MEDIAN_PX

@@ -1,6 +1,7 @@
-"""Plain versions of the port's kernels K1 (stage_tail) and K2
-(nms_cellmax) against the JAX package's Pallas kernels, run in interpret
-mode on the CPU, and the detection ops around them."""
+"""Plain versions of the port's kernels K1 (stage_tail), K2
+(nms_cellmax) and K6/K7 (stem_tail) against the JAX package's Pallas
+kernels, run in interpret mode on the CPU, or their XLA references, and
+the detection ops around them."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -9,7 +10,7 @@ import torch
 
 from imcui_tpu.models import layers as jlayers
 from imcui_tpu.ops import nms as jnms
-from imcui_tpu.ops import pallas_nms, pallas_stage1
+from imcui_tpu.ops import pallas_conv, pallas_nms, pallas_stage1
 from imcui_tpu_torch.ops import cuda_nms, cuda_stage1
 from imcui_tpu_torch.ops import nms as tnms
 
@@ -140,3 +141,108 @@ def test_detection_ops_match_jax():
     got = tnms.sample_descriptors(torch.from_numpy(kpts)[None],
                                   torch.from_numpy(dmap)[None], s=8)[0]
     np.testing.assert_allclose(got.numpy(), want, atol=1e-6)
+
+
+def _stem_weights(rng):
+    pa = {"w": jnp.asarray(rng.normal(size=(3, 3, 1, 64)) * 0.3, jnp.float32),
+          "b": jnp.asarray(rng.normal(size=64) * 0.1, jnp.float32)}
+    pb = {"w": jnp.asarray(rng.normal(size=(3, 3, 64, 64)) * 0.05,
+                           jnp.float32),
+          "b": jnp.asarray(rng.normal(size=64) * 0.1, jnp.float32)}
+    return pa, pb
+
+
+def _stem_torch(image, pa, pb):
+    def oihw(w):
+        return torch.from_numpy(np.asarray(w).transpose(3, 2, 0, 1).copy())
+
+    return cuda_stage1.stem_tail(
+        image, oihw(pa["w"]), torch.from_numpy(np.asarray(pa["b"])),
+        oihw(pb["w"]), torch.from_numpy(np.asarray(pb["b"]))).float().numpy()
+
+
+# One bf16 rounding step of the result (2^-7 relative) plus 1e-3, as K1: both
+# sides add the same bf16 products in f32, in another order, and round conv_a's
+# output and the result to bf16.
+def _stem_close(got, want):
+    return np.all(np.abs(got - want) <= 1e-3 + 2.0 ** -7 * np.abs(want))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_stem_tail_plain_matches_stem_xla(dtype):
+    """The yardstick of the stem kernel: pallas_conv._stem_xla (which pools
+    too), for an f32 image (K7's input) and a bf16 one (K6's)."""
+    rng = np.random.default_rng(0)
+    pa, pb = _stem_weights(rng)
+    image = rng.uniform(size=(2, 40, 72)).astype(np.float32)
+    timg = torch.from_numpy(image).to(getattr(torch, dtype))
+    want = np.asarray(pallas_conv._stem_xla(
+        jnp.asarray(timg.float().numpy()), pa["w"], pa["b"], pb["w"],
+        pb["b"]), np.float32)
+    got = _stem_torch(timg, pa, pb)
+    assert got.shape == want.shape == (2, 20, 36, 64)
+    assert _stem_close(got, want)
+    # zero padding applies to conv_b's input: the border row is not what a
+    # relu(b_a) halo would give
+    assert np.abs(want[:, 0]).max() > 0
+
+
+def test_stem_tail_plain_matches_pallas_stem_interpret():
+    """pallas_stage1.stem_tail in interpret mode on the folded image, as
+    tests/test_folded_conv.py runs the Pallas kernels on the CPU; its
+    output unfolded. That kernel keeps conv_a's weights in f32 where
+    _stem_xla (the yardstick) rounds them to bf16, so the test feeds conv_a
+    weights that are bf16 values already: then both compute one function
+    and the same tolerance holds."""
+    rng = np.random.default_rng(1)
+    pa, pb = _stem_weights(rng)
+    pa["w"] = pa["w"].astype(jnp.bfloat16).astype(jnp.float32)
+    image = rng.uniform(size=(1, 64, 256)).astype(np.float32)
+    img16 = jnp.asarray(image).astype(jnp.bfloat16)
+    fa = jlayers.fold_conv3x3(pa)
+    fb = jlayers.fold_conv3x3(pb)
+    want = pallas_stage1.stem_tail(jlayers.fold_width(img16[..., None]),
+                                   fa["w"], fa["b"], fb["w"], fb["b"],
+                                   interpret=True)
+    want = np.asarray(jlayers.unfold_width(want), np.float32)
+    got = _stem_torch(torch.from_numpy(image).to(torch.bfloat16), pa, pb)
+    assert got.shape == want.shape == (1, 32, 128, 64)
+    assert _stem_close(got, want)
+
+
+def test_stem_route_of_the_backbone_matches_the_staged_route():
+    """backbone(fused="stem") against backbone(fused=True) on the CPU
+    (both through plain versions): the routes round conv_a's output at
+    different places, so features agree to bf16 accuracy, not bitwise."""
+    from imcui_tpu_torch.models.extractors import superpoint as tsp
+
+    params = tsp.init_params(torch.Generator().manual_seed(0))
+    cparams = {k: {n: t.to(torch.bfloat16) for n, t in p.items()}
+               for k, p in params.items()}
+    x = torch.rand((1, 1, 32, 48),
+                   generator=torch.Generator().manual_seed(1)).bfloat16()
+    a = tsp.backbone(cparams, x, fused=True).float()
+    b = tsp.backbone(cparams, x, fused="stem").float()
+    assert a.shape == b.shape == (1, 128, 4, 6)
+    assert (a - b).abs().max() <= 0.05 * a.abs().max()
+
+
+def test_soft_argmax_refinement_matches_jax():
+    rng = np.random.default_rng(5)
+    heat = rng.uniform(0, 1, (2, 40, 56)).astype(np.float32)
+    kpts = np.stack([rng.integers(0, 56, (2, 30)),
+                     rng.integers(0, 40, (2, 30))], -1).astype(np.float32)
+    kpts[0, 0] = (0, 0)          # the patch is clamped at the corner
+    kpts[1, 1] = (55, 39)
+    for radius in (1, 2):
+        got = tnms.soft_argmax_refinement(torch.from_numpy(kpts),
+                                          torch.from_numpy(heat), radius)
+        for b in range(2):
+            want = jnms.soft_argmax_refinement(jnp.asarray(kpts[b]),
+                                               jnp.asarray(heat[b]), radius)
+            np.testing.assert_allclose(got[b].numpy(), np.asarray(want),
+                                       atol=1e-5)
+    # an all-zero patch moves nothing
+    still = tnms.soft_argmax_refinement(torch.from_numpy(kpts),
+                                        torch.zeros((2, 40, 56)), 1)
+    np.testing.assert_array_equal(still.numpy(), kpts)

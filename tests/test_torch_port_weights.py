@@ -81,3 +81,30 @@ def test_cuda_device_raises_without_a_card():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="cuda"):
         ttv.load_pretrained(device="cuda")
+
+
+def test_token_confidence_heads_reach_the_wrappers():
+    """The 8 token_confidence heads adaptive depth needs: read by the
+    LightGlue wrapper from weights/ as (1, 256) linear weights equal to the
+    npz leaves transposed, with their biases; SuperPoint's wrapper reads
+    its tree the same way."""
+    from imcui_tpu_torch.models.extractors.superpoint import SuperPoint
+    from imcui_tpu_torch.models.matchers.lightglue import LightGlue
+
+    lg = LightGlue({}, device="cpu")
+    assert lg.meta["pretrained"]
+    heads = lg.params["token_confidence"]
+    assert len(heads) == 8 and len(lg.params["log_assignment"]) == 9
+    with np.load(WEIGHTS / "lightglue_selftrained.npz") as z:
+        for i, head in enumerate(heads):
+            w, b = head["token"]["w"], head["token"]["b"]
+            assert tuple(w.shape) == (1, 256) and tuple(b.shape) == (1,)
+            assert np.array_equal(w.numpy().T, z[f"token_confidence.{i}.token.w"])
+            assert np.array_equal(b.numpy(), z[f"token_confidence.{i}.token.b"])
+    sp = SuperPoint({}, device="cpu")
+    assert sp.meta["pretrained"]
+    want = np.load(WEIGHTS / "superpoint_adapted.npz")["convPb.w"]
+    assert np.array_equal(
+        sp.params["convPb"]["w"].numpy().transpose(2, 3, 1, 0), want)
+    moved = tweights.to_device(lg.params, "cpu")
+    tweights.assert_tree_matches(moved, lg.params, "lightglue")
