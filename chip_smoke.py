@@ -5,7 +5,7 @@
 
 Phases, each of which passes or ends the run with a non-zero exit:
   0. the card's name and power limit, the versions, the kernels' build;
-  1. every CUDA kernel at the shapes the two paths below give it, held
+  1. every CUDA kernel at the shapes the three paths below give it, held
      against its plain PyTorch version, timed beside it, beside a PyTorch
      library call of the same function where one exists, and beside the
      least time the card could take (its bound);
@@ -23,7 +23,16 @@ Phases, each of which passes or ends the run with a non-zero exit:
      more at 1024 keypoints and one through each route of SuperPoint's
      stem; the same gate, the launch counters of all six kernels, the
      per-stage times, the device's idle share and the host cost of the
-     adaptive loop.
+     adaptive loop;
+  5. the dense path at full width: ImageMatchingAPI(device="cuda") with the
+     registry's roma (DINOv2 ViT-L/14 at 560x560, GP, anchor decoder, five
+     conv refiners) in float32 and in bfloat16, on seeded random weights
+     (the trained checkpoints are not in the repository, so the planted-
+     homography gate is not applied here): finite outputs of the expected
+     shape, 48 launches of the q-tiled attention kernel per bf16 request
+     and 48 of the fused one per f32 request, the GP posterior of an
+     identical pair, the card against the CPU on a cut DINOv2 and one
+     refiner scale, bf16 against f32, per-stage times and the idle share.
 Near the end it prints one JSON line {"timing": ...}, one {"kernels":
 [...]} and the card's name and power limit; the last line is {"ok": true,
 "device": {...}}. Without a CUDA device, or without the rest of the
@@ -70,6 +79,20 @@ G_MIN_KEYPOINTS = 1024       # each view must hold more than the turbo path's
 # images then hold 1600 to 3300 keypoints in the 4096 slots, about half as
 # many under the API's default of 0.015.
 G_DETECT_THRESHOLD = 0.0005
+# The dense path (phase 5): the registry's roma entry at its published
+# widths; requests of these original sizes (its preprocessing forces
+# 320 x 240, the model resizes to 560 x 560).
+D_MATCHER = "roma"
+D_SIZES = [(640, 480), (1203, 901), (800, 600)]
+D_TOKENS, D_HEADS, D_BLOCKS = 1601, 16, 24    # ViT-L/14 at 560 x 560
+D_GP_BOUND = 0.15            # identical pair: max |posterior - target|
+# Card against CPU, float32, relative to the largest value (measured 2e-6
+# to 4e-6: sums in another order on another device), and bf16 against f32
+# on the card (random weights turn a rounding difference into another
+# anchor for single cells, so the bound is on the median and loose:
+# measured 0.16).
+D_CPU_TOL = 5e-5
+D_BF16_MEDIAN_WARP = 0.25
 
 
 def fail(msg):
@@ -1030,6 +1053,364 @@ def phase4():
     return launches, timing
 
 
+def phase1_dense(peaks):
+    """K14 (the q-tiled attention of the ViT blocks) against its plain
+    version at the dense path's shapes, timed beside K5 on the same bf16
+    inputs and one SDPA call; K3 through mha_auto at 1601 tokens."""
+    import torch
+    import torch.nn.functional as F
+
+    from imcui_tpu_torch.models.layers import full_fp32
+    from imcui_tpu_torch.ops import attention
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def rnd(h, n, dtype):
+        return (torch.randn((h, n, 64), generator=gen, device=dev) * 1.5
+                ).to(dtype)
+
+    bf16 = torch.bfloat16
+    timed = {}
+    main = None
+    for name, h, nq, nk in (("dinov2-560", D_HEADS, D_TOKENS, D_TOKENS),
+                            ("vit 16 x 1024", 16, 1024, 1024),
+                            ("vit 12 x 1024", 12, 1024, 1024),
+                            ("cross 1024 over 1601", 12, 1024, D_TOKENS),
+                            ("ragged 50 over 77", 3, 50, 77)):
+        q, k, v = rnd(h, nq, bf16), rnd(h, nk, bf16), rnd(h, nk, bf16)
+        got = attention.qtiled_attention(q, k, v).float()
+        want = attention.qtiled_attention_plain(q, k, v).float()
+        torch.cuda.synchronize()
+        diff = (got - want).abs()
+        # one bf16 rounding step of the output, plus the weights the kernel
+        # rounds to bf16 before its tensor-core readout
+        tol = 2.0 ** -7 * want.abs().clamp_min(1.0) \
+            + 2.0 ** -9 * v.float().abs().max()
+        over = int((diff > tol).sum())
+        err, top = diff.max().item(), want.abs().max().item()
+        log(f"  qtiled_attention [{name}: {h} x {nq} x {nk} x 64 bf16]: err "
+            f"{err:.3g} (max|plain| {top:.3g}; {over} over 2^-7*max(1,|plain|)"
+            f" + 2^-9*max|v|)")
+        if over or not torch.isfinite(got).all():
+            fail(f"qtiled_attention [{name}] differs from its plain version")
+        if nq != nk or h != 16:
+            continue
+        t = {"ms": cuda_ms(lambda: attention.qtiled_attention(q, k, v)),
+             "plain_ms": cuda_ms(
+                 lambda: attention.qtiled_attention_plain(q, k, v)),
+             "k5_bf16_ms": cuda_ms(
+                 lambda: attention.flash_attention(q, k, v, None, h)),
+             "library_ms": cuda_ms(
+                 lambda: F.scaled_dot_product_attention(q, k, v))}
+        # once more in the other order: K5, K14
+        t["k5_bf16_ms"] = (t["k5_bf16_ms"] + cuda_ms(
+            lambda: attention.flash_attention(q, k, v, None, h))) / 2
+        t["ms"] = (t["ms"] + cuda_ms(
+            lambda: attention.qtiled_attention(q, k, v))) / 2
+        flops = 4.0 * h * nq * nk * 64
+        nbytes = (2 * h * nq * 64 + 2 * h * nk * 64) * 2
+        t["bound_ms"], t["bound_by"] = bound(flops, nbytes, peaks["bf16"],
+                                             peaks)
+        timed[name] = t
+        log(f"    {t['ms']:.3f} ms vs K5 on the same bf16 inputs "
+            f"{t['k5_bf16_ms']:.3f}, SDPA {t['library_ms']:.3f}, plain "
+            f"{t['plain_ms']:.3f}, bound {t['bound_ms']:.4f} "
+            f"({t['bound_by']})")
+        if name == "dinov2-560":
+            main = {"max_abs_err": err, "rel_err": err / top, **t}
+    row = {
+        "name": "qtiled_attention", "route": "cuda",
+        "source": "imcui_tpu_torch/csrc/qtiled_attention.cu",
+        "replaces": "tools/try_vit_attn.py:27",
+        "tolerance": "2^-7*max(1,|plain|) + 2^-9*max|v| (bf16)", **main,
+        "at_16x1024": timed["vit 16 x 1024"],
+        "per": f"launch at {D_HEADS} x {D_TOKENS} x {D_TOKENS} x 64 bf16 "
+               f"(one DINOv2 block of one view)"}
+
+    # K3 at the ragged 1601 tokens, f32, the way the f32 tree reaches it
+    q, k, v = (torch.randn((D_HEADS, D_TOKENS, 64), generator=gen, device=dev)
+               for _ in range(3))
+    before = attention.fused_attention.launches
+    with full_fp32():
+        got = attention.mha_auto(q, k, v)
+        want = attention.mha(q, k, v)
+        torch.cuda.synchronize()
+        if attention.fused_attention.launches != before + 1:
+            fail("mha_auto did not send f32 x 1601 x 64 to fused_attention")
+        err = (got - want).abs().max().item()
+        top = want.abs().max().item()
+        ms3 = cuda_ms(lambda: attention.mha_auto(q, k, v))
+        plain3 = cuda_ms(lambda: attention.mha(q, k, v))
+    lib3 = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+    t3, by3 = bound(4.0 * D_HEADS * D_TOKENS ** 2 * 64,
+                    4 * D_HEADS * D_TOKENS * 64 * 4, peaks["fp32"], peaks)
+    log(f"  fused_attention through mha_auto [{D_HEADS} x {D_TOKENS} x 64 "
+        f"f32]: err {err:.3g} (tolerance 1e-5*max(1,|plain|), max|plain| "
+        f"{top:.3g}), {ms3:.3f} ms vs plain {plain3:.3f}, SDPA {lib3:.3f}, "
+        f"bound {t3:.4f} ({by3})")
+    if not err <= 1e-5 * max(1.0, top):
+        fail("fused_attention at 1601 tokens differs from the plain mha")
+    k3_at_1601 = {"max_abs_err": err, "ms": ms3, "plain_ms": plain3,
+                  "library_ms": lib3, "bound_ms": t3, "bound_by": by3}
+    return row, k3_at_1601
+
+
+def phase5():
+    """The dense path through ImageMatchingAPI at RoMa's published widths,
+    float32 and bfloat16, on seeded random weights."""
+    import torch
+
+    from imcui_tpu_torch.api.core import ImageMatchingAPI
+    from imcui_tpu_torch.models.backbones import dinov2
+    from imcui_tpu_torch.models.layers import full_fp32
+    from imcui_tpu_torch.models.matchers import roma
+    from imcui_tpu_torch.ops import attention
+    from imcui_tpu_torch.ui import utils as ui
+    from imcui_tpu_torch.utils.weights import to_device
+
+    dev = torch.device("cuda")
+    kernels = (attention.qtiled_attention, attention.fused_attention,
+               attention.flash_attention, attention.bidirectional_attention)
+    problems = []
+    log("  the planted-homography gate is NOT applied on this path: the "
+        "trained checkpoints (roma_outdoor.pth, dinov2_vitl14_pretrain.pth) "
+        "are not in the repository, so the weights are a seeded random "
+        "initialisation and the matches mean nothing geometrically")
+
+    def api_for(precision):
+        conf = ui.parse_match_config({"matcher": D_MATCHER, "dense": True})
+        conf["matcher"]["model"]["precision"] = precision
+        api = ImageMatchingAPI(conf, device="cuda")
+        meta = api.matcher.meta
+        log(f"  [{precision or 'f32'}] weights: {meta}")
+        if meta["pretrained"] is not False:
+            fail("the dense path claims trained weights that do not exist")
+        # LayerScale starts at 1e-5, which would hide the attention and the
+        # MLP of every DINOv2 block: draw it in [0.5, 1.5] from a seed
+        gen = torch.Generator().manual_seed(7)
+        for blk in api.matcher.params["dinov2"]["blocks"]:
+            for ls in ("ls1", "ls2"):
+                g = blk[ls]["gamma"]
+                g.copy_((torch.rand(g.shape, generator=gen) + 0.5).to(g))
+        return api
+
+    pairs = [synthetic_pair(300 + i, w, h) for i, (w, h) in enumerate(D_SIZES)]
+    per_request = D_BLOCKS * 2
+    result = {}
+    warps = {}
+    apis = {}
+    for precision in (None, "bf16"):
+        tag = precision or "f32"
+        api = apis[tag] = api_for(precision)
+        model = api.matcher
+        conf = model.conf
+        if (conf["dinov2_variant"], tuple(conf["coarse_res"])) != (
+                "vitl14", (560, 560)):
+            fail(f"the registry's roma is not at full width: {conf}")
+        want_k = int(conf["max_keypoints"])
+        api(*pairs[0][:2])                       # warm-up
+        captured = []
+        stages = {}
+        undo = []
+
+        def stage(mod, name, label):
+            fn = getattr(mod, name)
+
+            def wrapper(*a, **kw):
+                ev = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+                ev[0].record()
+                out = fn(*a, **kw)
+                ev[1].record()
+                stages.setdefault(label(a), []).append(ev)
+                return out
+
+            setattr(mod, name, wrapper)
+            undo.append(lambda: setattr(mod, name, fn))
+
+        stage(roma.dinov2, "apply", lambda a: "dinov2 x2")
+        stage(roma.vgg, "apply", lambda a: "vgg19 x2")
+        stage(roma, "coarse_match", lambda a: "gp + decoder")
+        stage(roma, "refiner_apply",
+              lambda a: f"refiner {560 // a[2].shape[1]}")
+        stage(roma, "sample", lambda a: "sample")
+        match = model.match
+        model.match = lambda a, b: (captured.append(match(a, b)),
+                                    captured[-1])[1]
+        for kfn in kernels:
+            kfn.launches = 0
+        walls, rows, tails = [], [], []
+        for i, (img0, img1, _) in enumerate(pairs):
+            before = {k.__name__: k.launches for k in kernels}
+            stages.clear()
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            t0 = time.perf_counter()
+            start.record()
+            res = api(img0, img1)
+            end.record()
+            end.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            rows.append({k: sum(a.elapsed_time(b) for a, b in v)
+                         for k, v in stages.items()})
+            tails.append(stages["sample"][-1][1].elapsed_time(end))
+            delta = {k.__name__: k.launches - before[k.__name__]
+                     for k in kernels}
+            # (a) what comes out
+            for key in ("mkeypoints0_orig", "mkeypoints1_orig", "mconf"):
+                if not np.isfinite(res[key]).all():
+                    fail(f"[{tag}] request {i}: {key} is not finite")
+            n = len(res["mkeypoints0_orig"])
+            # at the model's resolution: the preprocessing's 320 x 240 on
+            # its 320 x 256 canvas
+            canvas = np.array([320 - 1, 256 - 1]) + 1e-3
+            k0, k1 = res["mkeypoints0"], res["mkeypoints1"]
+            inside0 = bool(((k0 >= 0) & (k0 <= canvas)).all())
+            inside1 = float(((k1 >= 0) & (k1 <= canvas)).all(1).mean())
+            conf_ok = bool(((res["mconf"] >= 0) & (res["mconf"] <= 1)).all())
+            cert = captured[-1][1]
+            log(f"  [{tag}] request {i} {D_SIZES[i]}: {n} correspondences, "
+                f"image-0 points inside: {inside0}, image-1 points inside "
+                f"{inside1:.3f} (an untrained warp is not confined), "
+                f"certainty in [{float(cert.min()):.3g}, "
+                f"{float(cert.max()):.3g}], RANSAC kept "
+                f"{len(res['mmkeypoints0_orig'])}; {walls[-1]:.1f} ms; "
+                f"launches {delta}")
+            if n != want_k or not inside0 or not conf_ok or \
+                    captured[-1][0].shape != (560, 560, 2) or \
+                    not torch.isfinite(captured[-1][0]).all():
+                problems.append(f"[{tag}] request {i}: expected {want_k} "
+                                f"finite correspondences from image 0's grid "
+                                f"with certainty in [0, 1]")
+            # (b) the kernels this precision must go through, and no other
+            expect = {"qtiled_attention": per_request if precision else 0,
+                      "fused_attention": 0 if precision else per_request,
+                      "flash_attention": 0, "bidirectional_attention": 0}
+            if delta != expect:
+                fail(f"[{tag}] request {i}: launches {delta}, expected "
+                     f"{expect}")
+        launches = {k.__name__: k.launches for k in kernels}
+        warps[tag] = captured[-1][0].float()
+
+        # device busy time and idle share over two more requests
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for i in range(2):
+                api(*pairs[i][:2])
+            torch.cuda.synchronize()
+        for fn in undo:
+            fn()
+        model.match = match
+        evs = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+        device_ms = sum(e.self_device_time_total for e in evs) / 2e3
+        med = {k: float(np.median([r[k] for r in rows])) for k in rows[0]}
+        med["ransac + host tail"] = float(np.median(tails))
+        wall = float(np.median(walls))
+        idle = 1 - device_ms / wall
+        log(f"  [{tag}] {wall:.2f} ms per request (host clock, median of "
+            f"{len(walls)}); stages (ms, CUDA events): "
+            + ", ".join(f"{k} {v:.2f}" for k, v in med.items()))
+        log(f"  [{tag}] device busy {device_ms:.2f} ms/request, idle share "
+            f"{idle:.3f}; top device time per request:")
+        for e in sorted(evs, key=lambda e: e.self_device_time_total,
+                        reverse=True)[:10]:
+            log(f"    {e.self_device_time_total / 2e3:9.3f} ms  "
+                f"x{e.count / 2:g}  {e.key[:100]}")
+        result[tag] = {"ms_per_request": wall, "split_ms": med,
+                       "device_busy_ms": device_ms,
+                       "device_idle_share": idle, "launches": launches}
+
+    # (e) bf16 against f32 on the card, the last request's warp
+    dw = (warps["bf16"] - warps["f32"]).abs()
+    med_dw = float(dw.median())
+    log(f"  bf16 against f32, warp of the last request: median |diff| "
+        f"{med_dw:.4f} normalised ({med_dw * 280:.1f} px at 560), 90th "
+        f"percentile {float(dw.flatten().kthvalue(int(dw.numel() * 0.9))[0]):.4f}"
+        f" (bound on the median {D_BF16_MEDIAN_WARP})")
+    if not med_dw <= D_BF16_MEDIAN_WARP:
+        problems.append("bf16 and f32 warps differ by more than the bound")
+    result["bf16_vs_f32_median_warp"] = med_dw
+
+    # (c) the property that holds without training, at full width: on an
+    # identical pair the GP posterior of the embedded grid is the grid. It
+    # holds where the tokens tell the cells apart: the JAX test's condition,
+    # a uniform-noise image through the initialisation (LayerScale 1e-5),
+    # is the one held to the bound. The other three cases are reported: a
+    # textured image gives neighbouring patches similar tokens, and with
+    # LayerScale near 1 the 24 random blocks add the same mean of values to
+    # every token, so the kernel matrix fills up and the posterior tends to
+    # the targets' mean.
+    p32 = apis["f32"].matcher.params
+    img = torch.as_tensor(pairs[0][0], device=dev).permute(2, 0, 1).float()
+    img = roma.resize_ops.resize(img / 255.0, (560, 560))
+    noise = torch.rand((3, 560, 560), device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(3))
+    at_init = {**p32["dinov2"], "blocks": [
+        {**blk, "ls1": {"gamma": torch.full_like(blk["ls1"]["gamma"], 1e-5)},
+         "ls2": {"gamma": torch.full_like(blk["ls2"]["gamma"], 1e-5)}}
+        for blk in p32["dinov2"]["blocks"]]}
+    gp = {}
+    with torch.inference_mode(), full_fp32():
+        for iname, image in (("noise image", noise), ("textured image", img)):
+            for tname, tree in (("LayerScale 1e-5", at_init),
+                                ("LayerScale in [0.5, 1.5]", p32["dinov2"])):
+                tokens, (hp, wp) = dinov2.apply(tree, image, "vitl14")
+                emb = roma.fourier_embed(roma.coord_grid(hp, wp, dev),
+                                         p32["gps"]["16"]["pos_conv"])
+                k11 = roma.cos_kernel(tokens, tokens)
+                off = float((k11.sum() - k11.diagonal().sum())
+                            / (k11.numel() - k11.shape[0]))
+                name = f"{iname}, {tname}"
+                gp[name] = float((roma.gp_posterior(tokens, tokens, emb)
+                                  - emb).abs().max())
+                log(f"  identical pair, ViT-L/14 at 560x560, {name}: max |GP "
+                    f"posterior - target| {gp[name]:.4f}, mean off-diagonal "
+                    f"kernel value {off:.4f}")
+    if not gp["noise image, LayerScale 1e-5"] < D_GP_BOUND:
+        problems.append(f"the GP posterior of an identical pair misses its "
+                        f"targets (bound {D_GP_BOUND})")
+    result["gp_identity_err"] = gp
+
+    # (d) the card against the CPU on the same weights, float32: DINOv2 at
+    # 560x560 cut to two blocks (K3 on the card, its plain version on the
+    # CPU), and the stride-16 refiner on random features
+    cut = {**p32["dinov2"], "blocks": p32["dinov2"]["blocks"][:2]}
+    gen = torch.Generator().manual_seed(11)
+    f0, f1 = (torch.randn((512, 40, 40), generator=gen) for _ in range(2))
+    warp = torch.rand((40, 40, 2), generator=gen) * 2 - 1
+    cert = torch.randn((40, 40), generator=gen)
+    ref16 = p32["conv_refiner"]["16"]
+    with torch.inference_mode(), full_fp32():
+        tok_card, _ = dinov2.apply(cut, img, "vitl14")
+        tok_cpu, _ = dinov2.apply(to_device(cut, "cpu"), img.cpu(), "vitl14")
+        w_card, c_card = roma.refiner_apply(
+            ref16, roma.REFINERS["16"], f0.to(dev), f1.to(dev), warp.to(dev),
+            cert.to(dev))
+        w_cpu, c_cpu = roma.refiner_apply(
+            to_device(ref16, "cpu"), roma.REFINERS["16"], f0, f1, warp, cert)
+    e_tok = float((tok_card.cpu() - tok_cpu).abs().max())
+    top_tok = float(tok_cpu.abs().max())
+    e_w = float((w_card.cpu() - w_cpu).abs().max())
+    top_w = float((w_cpu - warp).abs().max())
+    e_c = float((c_card.cpu() - c_cpu).abs().max())
+    top_c = float((c_cpu - cert).abs().max())
+    log(f"  card against CPU, f32: DINOv2 (2 blocks, 560x560) {e_tok:.3g} of "
+        f"max {top_tok:.3g}; stride-16 refiner warp {e_w:.3g} of a largest "
+        f"change {top_w:.3g}, certainty {e_c:.3g} of {top_c:.3g} (tolerance "
+        f"{D_CPU_TOL} of each maximum)")
+    if not (e_tok <= D_CPU_TOL * max(1.0, top_tok)
+            and e_w <= D_CPU_TOL * top_w and e_c <= D_CPU_TOL * top_c):
+        problems.append("the card and the CPU disagree in float32")
+    result["card_vs_cpu"] = {"dinov2": e_tok, "refiner_warp": e_w,
+                             "refiner_cert": e_c}
+    if problems:
+        fail("; ".join(problems))
+    return result
+
+
 def main():
     import torch
 
@@ -1046,6 +1427,10 @@ def main():
     rows = phase1(params, peaks)
     more_rows, kernel_notes = phase1_general(params, peaks)
     rows += more_rows
+    k14_row, k3_at_1601 = phase1_dense(peaks)
+    rows.append(k14_row)
+    next(r for r in rows if r["name"] == "fused_attention")[
+        "through_mha_auto_at_1601"] = k3_at_1601
     log("phase 2: serving")
     launches = phase2()
     log("phase 3: timing at the bench operating point")
@@ -1054,13 +1439,20 @@ def main():
         f"{G_KPTS} keypoints)")
     launches_general, timing["general"] = phase4()
     timing["kernels"] = kernel_notes
+    log(f"phase 5: the dense path (ImageMatchingAPI, {D_MATCHER} at full "
+        "width, f32 and bf16)")
+    timing["dense"] = phase5()
     for r in rows:
-        by_path = {"turbo": launches.get(r["name"], 0),
-                   "general": launches_general[r["name"]]}
+        by_path = {
+            "turbo": launches.get(r["name"], 0),
+            "general": launches_general.get(r["name"], 0),
+            "dense f32": timing["dense"]["f32"]["launches"].get(r["name"], 0),
+            "dense bf16": timing["dense"]["bf16"]["launches"].get(
+                r["name"], 0)}
         r["launches_by_path"] = by_path
         r["launches"] = sum(by_path.values())
         if r["launches"] == 0:
-            fail(f"{r['name']} was launched on neither path")
+            fail(f"{r['name']} was launched on no path")
     log(json.dumps({"timing": timing, "card": smi_line}))
     log(json.dumps({"kernels": rows}))
     log(smi_line)

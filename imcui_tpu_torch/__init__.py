@@ -1,6 +1,6 @@
 """PyTorch/CUDA port of imcui_tpu for an NVIDIA Hopper card.
 
-Two paths are ported so far:
+Three paths are ported so far:
 
 - the turbo two-view serving path (``api/turbo.py::TurboMatcher`` →
   ``pipeline/two_view.py::match_step``: SuperPoint → static-depth
@@ -9,12 +9,18 @@ Two paths are ported so far:
   (``api/core.py::ImageMatchingAPI`` → ``pipeline/extract_features.py`` →
   the ``SuperPoint`` ``BaseModel`` → ``pipeline/match_features.py`` → the
   ``LightGlue`` ``BaseModel`` with adaptive depth → ``ui/utils.py``'s
-  RANSAC filter), configured from the registry in ``configs/``.
+  RANSAC filter), configured from the registry in ``configs/``;
+- the dense (standalone) branch of that API
+  (``pipeline/match_dense.py::match_images`` → the ``Roma`` ``BaseModel``:
+  DINOv2 ViT-L/14 and a VGG19 pyramid, a Gaussian-process coarse matcher,
+  an anchor-classification decoder and five convolutional refiners, in
+  float32 or bfloat16 → ``sample`` → the same RANSAC filter).
 
-The six Pallas kernels on those paths are rewritten by hand in CUDA C++
+The seven Pallas kernels on those paths are rewritten by hand in CUDA C++
 (``csrc/``, built on first use by ``ops/_build.py``): ``stage_tail``,
 ``stem_tail`` (one kernel for both TPU stem kernels), ``nms_cellmax``,
-``fused_attention``, ``bidirectional_attention`` and ``flash_attention``.
+``fused_attention``, ``bidirectional_attention``, ``flash_attention`` and
+``qtiled_attention`` (the ViT blocks' bf16 attention).
 The JAX package ``imcui_tpu`` stays the reference; this package imports
 nothing of it.
 

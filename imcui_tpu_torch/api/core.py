@@ -1,11 +1,12 @@
 """Programmatic matching API. Counterpart of ``imcui_tpu/api/core.py``:
 same conf schema, same output keys, same ``extract``/``forward`` methods,
-for the sparse (extractor + matcher) branch.
+for both branches: sparse (an extractor and a matcher) and dense
+(``standalone``: one matcher that takes the two images, through
+``pipeline/match_dense.py``).
 
 Models are constructed once on ``device`` (``"cuda"`` raises without a
 card); geometric verification is the batched RANSAC of ``ops/ransac.py``
-on that device. The dense (``standalone``) branch and ``visualize`` are
-not ported yet.
+on that device. ``visualize`` is not ported.
 """
 
 from typing import Any, Dict
@@ -13,15 +14,9 @@ from typing import Any, Dict
 import numpy as np
 
 from .. import logger, resolve_device
-from ..pipeline import extract_features, match_features
+from ..pipeline import extract_features, match_dense, match_features
 from ..ui.utils import (DEFAULT_RANSAC_METHOD, filter_matches, get_model,
                         get_feature_model)
-
-
-def _no_standalone():
-    raise NotImplementedError(
-        "standalone (dense) matchers are not ported yet: "
-        "pipeline/match_dense.py comes with the dense tier (ROADMAP A9)")
 
 
 class ImageMatchingAPI:
@@ -50,7 +45,13 @@ class ImageMatchingAPI:
     def parse_match_config(self, conf):
         """Model names in ``conf`` → the registry's conf dicts."""
         if conf["standalone"]:
-            _no_standalone()
+            return {
+                **conf,
+                "matcher": match_dense.confs.get(
+                    conf["matcher"]["model"]["name"]
+                ),
+                "standalone": True,
+            }
         return {
             **conf,
             "feature": extract_features.confs.get(
@@ -66,20 +67,30 @@ class ImageMatchingAPI:
                        match_threshold=0.2):
         self.standalone = self.conf["standalone"]
         if self.standalone:
-            _no_standalone()
-        self.conf["feature"]["model"]["max_keypoints"] = max_keypoints
-        self.conf["feature"]["model"]["keypoint_threshold"] = \
-            detect_threshold
-        self.extract_conf = self.conf["feature"]
+            self.conf["matcher"]["model"]["match_threshold"] = \
+                match_threshold
+        else:
+            self.conf["feature"]["model"]["max_keypoints"] = max_keypoints
+            self.conf["feature"]["model"]["keypoint_threshold"] = \
+                detect_threshold
+            self.extract_conf = self.conf["feature"]
         self.match_conf = self.conf["matcher"]
 
     def _init_models(self):
         self.matcher = get_model(self.match_conf, self.device)
+        if self.standalone:
+            self.extractor = None
+            logger.info(f"matcher weights: {self.matcher.meta}")
+            return
         self.extractor = get_feature_model(self.conf["feature"], self.device)
         logger.info(f"extractor weights: {self.extractor.meta}; matcher "
                     f"weights: {self.matcher.meta}")
 
     def _forward(self, img0, img1):
+        if self.standalone:
+            return match_dense.match_images(
+                self.matcher, img0, img1,
+                self.match_conf.get("preprocessing", {}))
         pred0 = extract_features.extract(
             self.extractor, img0, self.extract_conf["preprocessing"]
         )
@@ -94,7 +105,13 @@ class ImageMatchingAPI:
     def extract(self, img0: np.ndarray, **kwargs) -> Dict[str, np.ndarray]:
         """Single-image extraction: the valid keypoints, their scores and
         descriptors, and keypoints_orig at the original resolution;
-        ``binarize`` turns the descriptors into (N, D) sign bits."""
+        ``binarize`` turns the descriptors into (N, D) sign bits. A
+        standalone (dense) matcher has no extractor and raises."""
+        if self.extractor is None:
+            raise RuntimeError(
+                "extract() needs an extractor, and this API serves the "
+                f"standalone matcher {self.match_conf['model']['name']!r}, "
+                "which takes the two images itself: use forward()")
         self.extractor.conf["max_keypoints"] = kwargs.get("max_keypoints", 512)
         self.extractor.conf["keypoint_threshold"] = kwargs.get(
             "keypoint_threshold", 0.0

@@ -1,6 +1,9 @@
-"""Attention primitives for LightGlue, and kernels K3 and K4
-(``csrc/attention.cu``) and K5 (``csrc/flash_attention.cu``). Counterpart
-of ``imcui_tpu/ops/attention.py``.
+"""Attention primitives for LightGlue and for the ViT backbones (DINOv2,
+the CroCo-style blocks), with kernels K3 and K4 (``csrc/attention.cu``),
+K5 (``csrc/flash_attention.cu``) and K14 (``csrc/qtiled_attention.cu``).
+Counterpart of ``imcui_tpu/ops/attention.py`` and of the q-tiled kernel of
+``tools/try_vit_attn.py``. ``mha_auto`` is the ViTs' entry: unmasked
+attention, sent to one of the kernels by type and shape.
 
 Masks are the finite ``NEG_INF = -1e9`` on logits, never ``-inf``: a
 query whose keys are all masked then attends uniformly (the mean of V),
@@ -73,7 +76,10 @@ def fused_attention(q, k, v, mask, heads):
         return fused_attention_plain(q, k, v, mask, heads)
     if dh != 64 or s % heads:
         raise ValueError(f"fused_attention takes Dh = 64 and S divisible by "
-                         f"heads; got {tuple(q.shape)}, heads {heads}")
+                         f"heads; got {tuple(q.shape)}, heads {heads} "
+                         f"(unmasked ViT attention of other shapes goes "
+                         f"through mha_auto, which pads nothing and picks "
+                         f"the kernel by shape)")
     for name, t in (("q", q), ("k", k), ("v", v)):
         _build.require(t, name, torch.float32, (s, n, 64))
     _build.require(mask, "mask", torch.bool, (s // heads, n))
@@ -175,3 +181,90 @@ def flash_attention(q, k, v, mask, heads):
 
 
 flash_attention.launches = 0
+
+
+def qtiled_attention_plain(q, k, v):
+    """Plain version of K14: unmasked softmax attention of bfloat16
+    (H, Nq, 64) queries over (H, Nk, 64) keys and values, one pass over
+    all keys. Inputs are widened to float32; logits, the row maximum
+    (never below -1e9), the exponentials, their sum (never below 1e-20) and
+    the readout are float32; the output is rounded once to bfloat16."""
+    dh = q.shape[-1]
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) / (dh ** 0.5)
+    m = s.amax(-1, keepdim=True).clamp_min(NEG_INF)
+    p = torch.exp(s - m)
+    out = torch.matmul(p, v.float()) / p.sum(-1, keepdim=True).clamp_min(
+        1e-20)
+    return out.to(q.dtype)
+
+
+def qtiled_attention(q, k, v):
+    """Kernel K14 on CUDA tensors; the plain version on CPU tensors.
+    q: (H, Nq, 64), k/v: (H, Nk, 64), bfloat16, contiguous; Nq and Nk are
+    independent and need not be multiples of anything. Returns (H, Nq, 64)
+    bfloat16."""
+    h, nq, dh = q.shape
+    nk = k.shape[1]
+    if q.device.type == "cpu":
+        return qtiled_attention_plain(q, k, v)
+    if dh != 64 or nk > QTILED_MAX_KEYS or nk < 1:
+        raise ValueError(f"qtiled_attention takes Dh = 64 and 1 to "
+                         f"{QTILED_MAX_KEYS} keys (a query tile's whole "
+                         f"logit row lives in shared memory); got "
+                         f"{tuple(q.shape)} over {tuple(k.shape)}")
+    _build.require(q, "q", torch.bfloat16, (h, nq, 64))
+    _build.require(k, "k", torch.bfloat16, (h, nk, 64))
+    _build.require(v, "v", torch.bfloat16, (h, nk, 64))
+    out = torch.empty_like(q)
+    code = _build.library().qtiled_attention_bf16(
+        _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out), h, nq,
+        nk, _build.stream_of(q))
+    _build.check(code, "qtiled_attention")
+    qtiled_attention.launches += 1
+    return out
+
+
+qtiled_attention.launches = 0
+# keys whose f32 logits a 16-query tile holds in one block's shared memory
+# (csrc/qtiled_attention.cu; up to 1744 keys the kernel takes 32-query tiles)
+QTILED_MAX_KEYS = 2048
+
+
+def mha_wide(q, k, v):
+    """Plain unmasked attention with float32 logits and sums whatever the
+    inputs' dtype: the weights are rounded to q's dtype before the readout
+    and the result is in q's dtype (the JAX package's ``mha`` on bf16)."""
+    dh = q.shape[-1]
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) / (
+        dh ** 0.5)
+    attn = torch.softmax(logits, -1).to(q.dtype)
+    return torch.matmul(attn.float(), v.float()).to(q.dtype)
+
+
+def mha_auto(q, k, v):
+    """Unmasked multi-head attention for ViT blocks. q: (H, Nq, Dh),
+    k/v: (H, Nk, Dh), contiguous; returns (H, Nq, Dh) in q's dtype.
+
+    The JAX function pads both token axes to a multiple of 128 and masks
+    the padded keys before its kernel; that is the TPU's layout, not the
+    contract, and nothing is padded here. The route, by type and shape
+    (each wrapper counts its launches, and uses its plain version only for
+    CPU tensors):
+
+    - bfloat16, Dh = 64, Nk <= 2048: K14 ``qtiled_attention``;
+    - float32, Dh = 64, Nq = Nk <= 2048: K3 ``fused_attention`` without a
+      mask;
+    - any other float32 or bfloat16 shape with Dh = 64: K5
+      ``flash_attention`` without a mask;
+    - any other Dh: the plain ``mha_wide``, as the JAX gate ``dh % 64``
+      does.
+    """
+    h, nq, dh = q.shape
+    nk = k.shape[1]
+    if dh != 64 or q.dtype not in (torch.float32, torch.bfloat16):
+        return mha_wide(q, k, v)
+    if q.dtype == torch.bfloat16 and nk <= QTILED_MAX_KEYS:
+        return qtiled_attention(q, k, v)
+    if q.dtype == torch.float32 and nq == nk and nk <= 2048:
+        return fused_attention(q, k, v, None, h)
+    return flash_attention(q, k, v, None, h)

@@ -1,0 +1,74 @@
+"""Image resize with the semantics the JAX package gets from
+``jax.image.resize``: what DINOv2's position grid (bicubic) and RoMa's
+warp, certainty and input images (bilinear) go through.
+
+It is not ``torch.nn.functional.interpolate``: that one uses the cubic
+kernel with a = −0.75 and does not antialias by default. Here, as in
+``jax.image.resize``:
+
+- sample centres are half-pixel: output i reads the input at
+  ``(i + 0.5) · n_in / n_out − 0.5``;
+- ``"bilinear"`` is the triangle kernel, ``"bicubic"`` the Keys cubic with
+  a = −0.5;
+- when an axis shrinks, the kernel is widened by ``n_in / n_out``
+  (antialiasing); when it grows, it is not;
+- each output's weights are renormalised to sum to 1, which is what
+  happens at the edges, where part of the kernel falls outside the input.
+
+Each axis is one (n_out, n_in) weight matrix, built in float32 and cast
+to the input's dtype; an axis whose size does not change is left alone.
+"""
+
+import torch
+
+
+def _triangle(x):
+    return (1.0 - x).clamp_min(0.0)
+
+
+def _keys_cubic(x):
+    out = ((1.5 * x - 2.5) * x) * x + 1.0
+    out = torch.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
+    return torch.where(x >= 2.0, torch.zeros_like(x), out)
+
+
+KERNELS = {"bilinear": _triangle, "bicubic": _keys_cubic}
+
+
+def weight_matrix(n_in, n_out, method="bilinear", device="cpu"):
+    """(n_out, n_in) float32 resampling weights of one axis."""
+    kernel = KERNELS[method]
+    inv_scale = n_in / n_out
+    kernel_scale = max(inv_scale, 1.0)
+    sample = (torch.arange(n_out, dtype=torch.float32, device=device) + 0.5
+              ) * inv_scale - 0.5
+    x = (sample[:, None] - torch.arange(n_in, dtype=torch.float32,
+                                        device=device)[None, :]).abs()
+    w = kernel(x / kernel_scale)
+    total = w.sum(1, keepdim=True)
+    eps = 1000.0 * torch.finfo(torch.float32).eps
+    w = torch.where(total.abs() > eps,
+                    w / torch.where(total != 0, total, torch.ones_like(total)),
+                    torch.zeros_like(w))
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return torch.where(inside[:, None], w, torch.zeros_like(w))
+
+
+def resize(x, size, method="bilinear", dims=(-2, -1)):
+    """Resize the two axes ``dims`` of ``x`` to ``size`` = (h, w). The
+    default takes (..., H, W) tensors; ``dims=(0, 1)`` takes (H, W, ...).
+    float32 or bfloat16; the result has ``x``'s dtype (bf16: float32 sums,
+    one rounding per axis)."""
+    if method not in KERNELS:
+        raise ValueError(f"unknown resize method {method!r}")
+    for dim, n_out in zip(dims, size):
+        dim = dim % x.dim()
+        n_in = x.shape[dim]
+        if n_in == n_out:
+            continue
+        w = weight_matrix(n_in, n_out, method, x.device).to(x.dtype)
+        moved = x.movedim(dim, -1)
+        # the weights are rounded to x's dtype, the sum is taken in float32
+        out = torch.matmul(moved.float(), w.float().t()).to(x.dtype)
+        x = out.movedim(-1, dim)
+    return x

@@ -282,3 +282,123 @@ def test_image_matching_api_on_card(gen):
                                      res["mmkeypoints1_orig"])
     assert len(err) >= chip_smoke.GATE_MIN_INLIERS
     assert np.median(err) <= chip_smoke.GATE_MEDIAN_PX
+
+
+@pytest.mark.parametrize("h,nq,nk", [
+    (16, 1601, 1601), (12, 1024, 1024), (3, 50, 77), (2, 197, 197),
+    (1, 1, 1), (2, 33, 2048), (4, 1024, 16)])
+def test_qtiled_attention_kernel_matches_plain(gen, h, nq, nk):
+    """bf16 in and out. One bf16 rounding of the output, 2^-7 * max(1,
+    |plain|), plus 2^-9 * max|v| for the weights the kernel rounds to bf16
+    before its tensor-core readout."""
+    q, k, v = ((torch.randn((h, n, 64), generator=gen, device="cuda") * 1.5
+                ).to(torch.bfloat16) for n in (nq, nk, nk))
+    before = attention.qtiled_attention.launches
+    got = attention.qtiled_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert attention.qtiled_attention.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    want = attention.qtiled_attention_plain(q, k, v).float()
+    tol = 2.0 ** -7 * want.abs().clamp_min(1.0) \
+        + 2.0 ** -9 * v.float().abs().max()
+    assert bool(((got.float() - want).abs() <= tol).all())
+
+
+def test_qtiled_attention_peaked_rows_and_refusals(gen):
+    """Rows whose softmax is one-hot return that key's v exactly; shapes
+    the kernel does not take raise before any launch."""
+    q = torch.zeros((2, 40, 64), device="cuda", dtype=torch.bfloat16)
+    k = torch.zeros((2, 100, 64), device="cuda", dtype=torch.bfloat16)
+    q[:, :, 0] = 64.0
+    k[:, 37, 0] = 64.0           # logit 512 at key 37, 0 elsewhere
+    v = torch.randn((2, 100, 64), generator=gen, device="cuda"
+                    ).to(torch.bfloat16)
+    got = attention.qtiled_attention(q, k, v)
+    assert torch.equal(got, v[:, 37:38].expand(-1, 40, -1))
+    with pytest.raises(ValueError):
+        attention.qtiled_attention(q[..., :32].contiguous(),
+                                   k[..., :32].contiguous(),
+                                   v[..., :32].contiguous())
+    with pytest.raises(ValueError):
+        attention.qtiled_attention(q.float(), k.float(), v.float())
+    with pytest.raises(ValueError):
+        attention.qtiled_attention(q.transpose(0, 1), k, v)
+    big = torch.zeros((1, 4096, 64), device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        attention.qtiled_attention(big, big, big)
+
+
+@pytest.mark.parametrize("dtype,n,kernel", [
+    (torch.float32, 1601, "fused_attention"),
+    (torch.bfloat16, 1601, "qtiled_attention"),
+    (torch.float32, 2304, "flash_attention")])
+def test_mha_auto_on_card_counts_its_kernel(gen, dtype, n, kernel):
+    """Each route of mha_auto launches its kernel once and agrees with the
+    plain attention: f32 1e-5 * max(1, |plain|), bf16 as above."""
+    q, k, v = (torch.randn((16, n, 64), generator=gen, device="cuda"
+                           ).to(dtype) for _ in range(3))
+    fn = getattr(attention, kernel)
+    before = fn.launches
+    with full_fp32():
+        got = attention.mha_auto(q, k, v).float()
+        want = attention.mha(q.float(), k.float(), v.float())
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    tol = 1e-5 if dtype == torch.float32 else 2.0 ** -7 + 2.0 ** -9 * float(
+        v.float().abs().max())
+    assert float((got - want).abs().max()) <= tol * max(
+        1.0, float(want.abs().max()))
+
+
+@pytest.mark.parametrize("precision,kernel,tol", [
+    (None, "fused_attention", 1e-4), ("bf16", "qtiled_attention", 2.0 ** -4)])
+def test_dinov2_on_card_matches_cpu(gen, precision, kernel, tol):
+    """A two-block DINOv2 with Dh = 64 at a ragged 8 x 11 grid: the card
+    (K3 in f32, K14 in bf16) against the CPU's plain versions on the same
+    weights, LayerScale drawn near 1. f32: 1e-4 of normed tokens of order
+    1; bf16: 2^-4, as the CPU test against the JAX package."""
+    from imcui_tpu_torch.models import layers
+    from imcui_tpu_torch.models.backbones import dinov2
+    from imcui_tpu_torch.utils.weights import to_device
+
+    cfg = {"dim": 128, "depth": 2, "num_heads": 2, "mlp_ratio": 4,
+           "patch": 14, "pretrain_grid": 37}
+    cpu_gen = torch.Generator().manual_seed(1)
+    params = dinov2.init_params(cpu_gen, cfg)
+    for blk in params["blocks"]:
+        for ls in ("ls1", "ls2"):
+            blk[ls]["gamma"] = torch.rand(128, generator=cpu_gen) + 0.5
+    params = layers.apply_precision(params, precision)
+    img = torch.rand((3, 112, 154), generator=cpu_gen)
+    if precision:
+        img = img.to(torch.bfloat16)
+    fn = getattr(attention, kernel)
+    before = fn.launches
+    with full_fp32():
+        got, grid = dinov2.apply(to_device(params, "cuda"), img.cuda(), cfg)
+        want, _ = dinov2.apply(params, img, cfg)
+    assert grid == (8, 11) and fn.launches == before + 2
+    err = float((got.float().cpu() - want.float()).abs().max())
+    assert err <= tol * max(1.0, float(want.float().abs().max()))
+
+
+def test_roma_tiny_on_card_matches_cpu(gen):
+    """The whole of RoMa (tiny DINOv2, published widths elsewhere) at
+    112 x 112 in f32: warp and certainty on the card against the CPU, 1e-3
+    of warps that reach a few units (cuDNN and cuBLAS sum in another
+    order through six stages)."""
+    from imcui_tpu_torch.models.matchers import roma
+    from imcui_tpu_torch.utils.weights import to_device
+
+    conf = {"dinov2_variant": "test", "gp_dim": 512}
+    cpu_gen = torch.Generator().manual_seed(2)
+    params = roma.init_params(cpu_gen, conf)
+    img0, img1 = (torch.rand((3, 112, 112), generator=cpu_gen)
+                  for _ in range(2))
+    with torch.inference_mode(), full_fp32():
+        want_w, want_c = roma.match_gp(params, img0, img1, conf)
+        got_w, got_c = roma.match_gp(to_device(params, "cuda"), img0.cuda(),
+                                     img1.cuda(), conf)
+    assert got_w.shape == (112, 112, 2)
+    assert float((got_w.cpu() - want_w).abs().max()) <= 1e-3
+    assert float((got_c.cpu() - want_c).abs().max()) <= 1e-3
