@@ -32,7 +32,12 @@ Phases, each of which passes or ends the run with a non-zero exit:
      shape, 48 launches of the q-tiled attention kernel per bf16 request
      and 48 of the fused one per f32 request, the GP posterior of an
      identical pair, the card against the CPU on a cut DINOv2 and one
-     refiner scale, bf16 against f32, per-stage times and the idle share.
+     refiner scale, bf16 against f32, per-stage times and the idle share;
+  6. the stage-tail probes (imcui_tpu_torch.tools.tail_probes, the port of
+     the JAX package's tools/ scripts of kernels K8-K13) at the scripts'
+     full shapes through the tap-sum kernel, bf16 and int8: every probe
+     held against its plain version, timed beside its bound and one
+     cuBLAS call of the same function.
 Near the end it prints one JSON line {"timing": ...}, one {"kernels":
 [...]} and the card's name and power limit; the last line is {"ok": true,
 "device": {...}}. Without a CUDA device, or without the rest of the
@@ -52,11 +57,12 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
 # Published dense peaks (NVIDIA data sheets): bf16 tensor-core FLOP/s,
-# float32 non-tensor FLOP/s, HBM bytes/s.
+# float32 non-tensor FLOP/s, int8 tensor-core OP/s (half of each sheet's
+# figure with sparsity), HBM bytes/s.
 PEAKS = {
-    "sxm": {"bf16": 989e12, "fp32": 67e12, "bw": 3.35e12},
-    "pcie": {"bf16": 756e12, "fp32": 51e12, "bw": 2.0e12},
-    "nvl": {"bf16": 835e12, "fp32": 60e12, "bw": 3.9e12},
+    "sxm": {"bf16": 989e12, "fp32": 67e12, "int8": 1979e12, "bw": 3.35e12},
+    "pcie": {"bf16": 756e12, "fp32": 51e12, "int8": 1513e12, "bw": 2.0e12},
+    "nvl": {"bf16": 835e12, "fp32": 60e12, "int8": 1671e12, "bw": 3.9e12},
 }
 
 # Serving configuration (the flagship) and bench.py's operating point.
@@ -93,6 +99,8 @@ D_GP_BOUND = 0.15            # identical pair: max |posterior - target|
 # measured 0.16).
 D_CPU_TOL = 5e-5
 D_BF16_MEDIAN_WARP = 0.25
+# The stage-tail probes (phase 6): inputs from this seed.
+P_SEED = 0
 
 
 def fail(msg):
@@ -178,22 +186,11 @@ def transfer_errors(hm, mk0, mk1):
 # --------------------------------------------------------------------------
 
 def cuda_ms(fn, iters=20, warmup=3):
-    """Median device time of ``fn`` in ms (CUDA events, one per run)."""
-    import torch
+    """Median device time of ``fn`` in ms (CUDA events, one per run): the
+    probes' own timer, so that every phase times the same way."""
+    from imcui_tpu_torch.tools.tail_probes import event_ms
 
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(iters):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
+    return event_ms(fn, iters, warmup)
 
 
 def card_peaks(name):
@@ -1411,6 +1408,130 @@ def phase5():
     return result
 
 
+def _probe_library(x, w, probe):
+    """One cuBLAS call of the probe's function on the same inputs, with
+    what it needs built outside the timed call: x @ w_0 for one tap, else
+    the K = 128 R concatenation of x against the taps stacked to
+    (128 R, N) (the concatK form of try_tail_mini2.py); torch.matmul in
+    bf16, torch._int_mm (int32 out) in int8."""
+    import torch
+
+    from imcui_tpu_torch.ops import tap_matmul as tm
+
+    taps = tm._taps(w, probe.layout)
+    a = x if probe.taps == 1 else torch.cat([x] * probe.taps, -1)
+    b = taps.reshape(probe.taps * 128, probe.n).contiguous()
+    mm = torch.matmul if probe.dtype == "bf16" else torch._int_mm
+    return lambda: mm(a, b)
+
+
+def phase6(peaks):
+    """The stage-tail probes at the scripts' shapes. The path is
+    tail_probes.run_all, which runs every probe through tap_matmul and
+    times the first of each group; then each probe's output is held
+    against its plain version, and each group is timed in its plain
+    version and in one cuBLAS call, beside its bound."""
+    import torch
+
+    from imcui_tpu_torch.ops import tap_matmul as tm
+    from imcui_tpu_torch.tools import tail_probes as tp
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    tm.tap_matmul.launches = 0
+    results = tp.run_all("cuda", P_SEED)
+    total = tm.tap_matmul.launches
+    if total == 0 or total != sum(r["launches"] for r in results):
+        fail(f"tap_matmul: {total} launches on the probes' path, "
+             f"{[r['launches'] for r in results]} by probe")
+    variants, yardsticks = [], {}
+    for p, res in zip(tp.PROBES, results):
+        got = res.pop("out")
+        x, w = tp.make_inputs(p, P_SEED, "cuda")
+        want = tm.tap_matmul_plain(x, w, layout=p.layout)
+        torch.cuda.synchronize()
+        diff = (got.float() - want.float()).abs()
+        err = diff.max().item()
+        below = None
+        if p.dtype == "int8":
+            tol_text = "exact"
+            ok = torch.equal(got, want)
+        else:
+            # one bf16 step of the output; the floor is the size of one
+            # product term (1 for unit-scale inputs), below which an output
+            # is a cancellation of f32 partial sums up to 1e5 times larger
+            # (K11's x·50, w·20), rounded in another order
+            floor = p.x_scale * p.w_scale
+            tol_text = f"2^-7*max({floor:g},|plain|)"
+            ok = bool((diff <= 2.0 ** -7 * want.float().abs().clamp_min(
+                floor)).all())
+            # the room the floor leaves: the largest error where it applies
+            below = torch.where(want.float().abs() < floor, diff,
+                                0.0).max().item()
+        ok = ok and bool(torch.isfinite(got.float()).all())
+        top = want.float().abs().max().item()
+        del got, want, diff
+        if p.group not in yardsticks:  # the first probe of its shape
+            y = dict(zip(("bound_ms", "bound_by"), bound(
+                *p.work(), peaks[p.dtype], peaks)))
+            y["plain_ms"] = cuda_ms(lambda: tm.tap_matmul_plain(
+                x, w, layout=p.layout))
+            lib = _probe_library(x, w, p)
+            try:
+                y["library_ms"] = cuda_ms(lib)
+            except RuntimeError as exc:
+                log(f"  library call refused for {p.kernel} {p.label}: "
+                    f"{str(exc).splitlines()[0]}")
+                y["library_ms"] = None
+            del lib
+            yardsticks[p.group] = y
+        v = {"kernel": p.kernel, "label": p.label, "body": p.body,
+             "launches": res["launches"], "max_abs_err": err,
+             "max_plain": top, "tolerance": tol_text,
+             "max_abs_err_below_floor": below, "ms": res["ms"],
+             "tflops": res["tflops"], **yardsticks[p.group]}
+        if "timed_with" in res:
+            v["timed_with"] = res["timed_with"]
+        del x, w
+        torch.cuda.empty_cache()
+        variants.append(v)
+        log(f"  {p.kernel:3s} {p.label:24s} [{p.rows} x 128 -> {p.n}, "
+            f"{p.taps} taps, {p.dtype}, {p.layout}]: err {err:.3g} (max|plain| "
+            f"{top:.3g}, {tol_text}"
+            + ("" if below is None else f"; below the floor {below:.3g}")
+            + f"), launches {res['launches']}, "
+            f"{res['ms']:.3f} ms, {res['tflops']:.1f} T/s"
+            + (f" (timed with {v['timed_with']})" if "timed_with" in v else
+               "") + f"; bound {v['bound_ms']:.3f} ({v['bound_by']}), plain "
+            f"{v['plain_ms']:.3f}, library {v['library_ms']}")
+        if not ok:
+            fail(f"tap_matmul [{p.kernel} {p.label}] differs from its "
+                 f"plain version")
+    # one row per TPU kernel: the numbers of its first variant, all
+    # variants beside them; ``timed_with`` names the launch whose time the
+    # first variant shares
+    rows = []
+    for kernel in dict.fromkeys(p.kernel for p in tp.PROBES):
+        mine = [v for v in variants if v["kernel"] == kernel]
+        first = mine[0]
+        p = next(p for p in tp.PROBES if p.kernel == kernel)
+        rows.append({
+            "name": f"tap_matmul {kernel}", "route": "cuda",
+            "source": "imcui_tpu_torch/csrc/tap_matmul.cu",
+            "replaces": p.site,
+            "launches": sum(v["launches"] for v in mine),
+            "max_abs_err": max(v["max_abs_err"] for v in mine),
+            **{k: first[k] for k in ("ms", "plain_ms", "bound_ms",
+                                     "bound_by", "library_ms")},
+            "per": f"launch of {kernel} {first['label'].strip()} "
+                   f"({p.rows} x 128 -> {p.n}, {p.taps} taps, {p.dtype})",
+            **({"timed_with": first["timed_with"]}
+               if "timed_with" in first else {}),
+            "variants": mine})
+    log(f"  phase 6: {total} launches, {time.perf_counter() - t0:.1f} s")
+    return rows, {r["name"]: r["launches"] for r in rows}
+
+
 def main():
     import torch
 
@@ -1442,13 +1563,17 @@ def main():
     log(f"phase 5: the dense path (ImageMatchingAPI, {D_MATCHER} at full "
         "width, f32 and bf16)")
     timing["dense"] = phase5()
+    log("phase 6: the stage-tail probes (K8-K13) at the scripts' shapes")
+    probe_rows, launches_probes = phase6(peaks)
+    rows += probe_rows
     for r in rows:
         by_path = {
             "turbo": launches.get(r["name"], 0),
             "general": launches_general.get(r["name"], 0),
             "dense f32": timing["dense"]["f32"]["launches"].get(r["name"], 0),
             "dense bf16": timing["dense"]["bf16"]["launches"].get(
-                r["name"], 0)}
+                r["name"], 0),
+            "probes": launches_probes.get(r["name"], 0)}
         r["launches_by_path"] = by_path
         r["launches"] = sum(by_path.values())
         if r["launches"] == 0:

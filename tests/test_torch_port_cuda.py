@@ -10,7 +10,7 @@ import pytest
 import torch
 
 from imcui_tpu_torch.models.layers import full_fp32
-from imcui_tpu_torch.ops import attention, cuda_nms, cuda_stage1
+from imcui_tpu_torch.ops import attention, cuda_nms, cuda_stage1, tap_matmul
 
 
 @pytest.fixture
@@ -402,3 +402,63 @@ def test_roma_tiny_on_card_matches_cpu(gen):
     assert got_w.shape == (112, 112, 2)
     assert float((got_w.cpu() - want_w).abs().max()) <= 1e-3
     assert float((got_c.cpu() - want_c).abs().max()) <= 1e-3
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "int8"])
+@pytest.mark.parametrize("r", [1, 2, 9])
+@pytest.mark.parametrize("n, layout", [(128, "taps"), (512, "taps"),
+                                       (1152, "taps"), (2048, "taps"),
+                                       (128, "wide")])
+@pytest.mark.parametrize("m", [1000, 4097])
+def test_tap_matmul_kernel_matches_plain(gen, m, n, layout, r, dtype):
+    """Ragged row counts (the last 128-row tile part empty), every N and
+    tap count of the probes, both layouts of w (the wide one at K13's N =
+    128). int8: exact (the integer sums stay far below 2^24, so both
+    round the same integer once); bf16: 2^-7 * max(1, |plain|), one bf16
+    step of the output (the f32 partials are summed in another order)."""
+    if dtype == "int8":
+        x = torch.randint(-128, 128, (m, 128), generator=gen, device="cuda",
+                          dtype=torch.int8)
+        w = torch.randint(-128, 128, (r, 128, n), generator=gen,
+                          device="cuda", dtype=torch.int8)
+    else:
+        x = torch.randn((m, 128), generator=gen, device="cuda"
+                        ).to(torch.bfloat16)
+        w = (torch.randn((r, 128, n), generator=gen, device="cuda") * 0.1
+             ).to(torch.bfloat16)
+    if layout == "wide":   # w_wide[k, t * n + j] = w[t, k, j]
+        w = w.permute(1, 0, 2).reshape(128, r * n).contiguous()
+    before = tap_matmul.tap_matmul.launches
+    got = tap_matmul.tap_matmul(x, w, layout=layout)
+    want = tap_matmul.tap_matmul_plain(x, w, layout=layout)
+    torch.cuda.synchronize()
+    assert tap_matmul.tap_matmul.launches == before + 1
+    assert got.shape == (m, n) and got.dtype == torch.bfloat16
+    if dtype == "int8":
+        assert torch.equal(got, want)
+    else:
+        tol = 2.0 ** -7 * want.float().abs().clamp_min(1.0)
+        assert bool(((got.float() - want.float()).abs() <= tol).all())
+
+
+def test_tap_matmul_one_row_leading_axes_and_refusals(gen):
+    """One row (a block of 127 empty rows); x with the scripts' leading
+    axes; and what the kernel does not take raises on the card."""
+    w = (torch.randn((9, 128, 128), generator=gen, device="cuda") * 0.1
+         ).to(torch.bfloat16)
+    for shape in ((1, 128), (2, 3, 40, 128)):
+        x = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+        got = tap_matmul.tap_matmul(x, w)
+        want = tap_matmul.tap_matmul_plain(x, w)
+        assert got.shape == shape[:-1] + (128,)
+        tol = 2.0 ** -7 * want.float().abs().clamp_min(1.0)
+        assert bool(((got.float() - want.float()).abs() <= tol).all())
+    x = torch.randn((64, 128), generator=gen, device="cuda").to(torch.bfloat16)
+    with pytest.raises(ValueError):   # not contiguous
+        tap_matmul.tap_matmul(x, w.transpose(1, 2))
+    with pytest.raises(ValueError):   # float32
+        tap_matmul.tap_matmul(x.float(), w.float())
+    with pytest.raises(ValueError):   # N = 192
+        tap_matmul.tap_matmul(x, w[..., :64].repeat(1, 1, 3).contiguous())
+    with pytest.raises(RuntimeError):  # 16-byte alignment
+        tap_matmul.tap_matmul(x.view(-1)[4:4 + 63 * 128].view(63, 128), w)
