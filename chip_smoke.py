@@ -35,9 +35,11 @@ Phases, each of which passes or ends the run with a non-zero exit:
      refiner scale, bf16 against f32, per-stage times and the idle share;
   6. the stage-tail probes (imcui_tpu_torch.tools.tail_probes, the port of
      the JAX package's tools/ scripts of kernels K8-K13) at the scripts'
-     full shapes through the tap-sum kernel, bf16 and int8: every probe
-     held against its plain version, timed beside its bound and one
-     cuBLAS call of the same function.
+     full shapes through the tap-sum kernel, bf16 and int8: its SASS must
+     hold wgmma and TMA loads and stores (cuobjdump); every probe held
+     against its plain version, timed beside its bound and one cuBLAS call
+     of the same function; the log names the kernel's first design's time
+     (a constant from commit 35980e0, kept out of the kernels line).
 Near the end it prints one JSON line {"timing": ...}, one {"kernels":
 [...]} and the card's name and power limit; the last line is {"ok": true,
 "device": {...}}. Without a CUDA device, or without the rest of the
@@ -101,6 +103,22 @@ D_CPU_TOL = 5e-5
 D_BF16_MEDIAN_WARP = 0.25
 # The stage-tail probes (phase 6): inputs from this seed.
 P_SEED = 0
+# The times of the tap-sum kernel's first design (WMMA with cp.async,
+# commit 35980e0), chip_smoke.py phase 6 of its run 3 on an NVIDIA H100
+# 80GB HBM3 at 700.00 W, by probe shape (rows, N, taps, type, layout of w).
+P_PREVIOUS_MS = {
+    (524288, 128, 9, "bf16", "taps"): 0.924,
+    (524288, 512, 2, "bf16", "taps"): 0.947,
+    (524288, 1152, 1, "bf16", "taps"): 1.286,
+    (524288, 2048, 1, "bf16", "taps"): 2.254,
+    (4194304, 128, 9, "bf16", "taps"): 6.370,
+    (4194304, 128, 9, "int8", "taps"): 7.238,
+    (4194304, 128, 9, "bf16", "wide"): 6.420,
+}
+# SASS instructions that each tap-sum kernel must hold, by type: its wgmma
+# (HGMMA bf16, IGMMA int8), TMA loads and TMA stores.
+P_SASS = {"bf16": ("HGMMA", "UTMALDG", "UTMASTG"),
+          "int8": ("IGMMA", "UTMALDG", "UTMASTG")}
 
 
 def fail(msg):
@@ -1425,6 +1443,37 @@ def _probe_library(x, w, probe):
     return lambda: mm(a, b)
 
 
+def tap_matmul_sass():
+    """Counts of the P_SASS instructions in each tap_matmul kernel of the
+    built library (cuobjdump -sass), by type; fails the run if a kernel
+    lacks one of its type's, or a type has no kernel."""
+    import re
+    from pathlib import Path
+
+    from imcui_tpu_torch.ops import _build
+
+    _build.library()
+    tool = Path(_build._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(_build.library_path())],
+                          capture_output=True, text=True, check=True).stdout
+    ops = sorted(set(sum(P_SASS.values(), ())))
+    counts = {}
+    for part in sass.split("Function : ")[1:]:
+        name = part.split("\n", 1)[0].strip()
+        if "tap_matmul_kernel" not in name:
+            continue
+        dtype = "bf16" if "bfloat16" in name else "int8"
+        counts[dtype] = {op: len(re.findall(rf"\b{op}\b", part))
+                         for op in ops}
+    log(f"  tap_matmul SASS: {counts}")
+    for dtype, needed in P_SASS.items():
+        missing = [op for op in needed if not counts.get(dtype, {}).get(op)]
+        if missing:
+            fail(f"tap_matmul {dtype} kernel: no {', '.join(missing)} in "
+                 f"its SASS")
+    return counts
+
+
 def phase6(peaks):
     """The stage-tail probes at the scripts' shapes. The path is
     tail_probes.run_all, which runs every probe through tap_matmul and
@@ -1436,6 +1485,7 @@ def phase6(peaks):
     from imcui_tpu_torch.ops import tap_matmul as tm
     from imcui_tpu_torch.tools import tail_probes as tp
 
+    sass = tap_matmul_sass()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     tm.tap_matmul.launches = 0
@@ -1486,7 +1536,8 @@ def phase6(peaks):
             del lib
             yardsticks[p.group] = y
         v = {"kernel": p.kernel, "label": p.label, "body": p.body,
-             "launches": res["launches"], "max_abs_err": err,
+             "dtype": p.dtype, "launches": res["launches"],
+             "max_abs_err": err,
              "max_plain": top, "tolerance": tol_text,
              "max_abs_err_below_floor": below, "ms": res["ms"],
              "tflops": res["tflops"], **yardsticks[p.group]}
@@ -1500,7 +1551,9 @@ def phase6(peaks):
             f"{top:.3g}, {tol_text}"
             + ("" if below is None else f"; below the floor {below:.3g}")
             + f"), launches {res['launches']}, "
-            f"{res['ms']:.3f} ms, {res['tflops']:.1f} T/s"
+            f"{res['ms']:.3f} ms (first design, 35980e0 run 3: "
+            f"{P_PREVIOUS_MS[p.group]:.3f}), "
+            f"{res['tflops']:.1f} T/s"
             + (f" (timed with {v['timed_with']})" if "timed_with" in v else
                "") + f"; bound {v['bound_ms']:.3f} ({v['bound_by']}), plain "
             f"{v['plain_ms']:.3f}, library {v['library_ms']}")
@@ -1523,6 +1576,7 @@ def phase6(peaks):
             "max_abs_err": max(v["max_abs_err"] for v in mine),
             **{k: first[k] for k in ("ms", "plain_ms", "bound_ms",
                                      "bound_by", "library_ms")},
+            "sass": sass[first["dtype"]],
             "per": f"launch of {kernel} {first['label'].strip()} "
                    f"({p.rows} x 128 -> {p.n}, {p.taps} taps, {p.dtype})",
             **({"timed_with": first["timed_with"]}

@@ -42,8 +42,8 @@ SIGNATURES = {
     "flash_attention_fwd": [P, P, P, P, P, I, I, I, I, I, I, P],
     "stem_tail_fwd": [P, P, P, P, P, P, I, I, I, I, P],
     "qtiled_attention_bf16": [P, P, P, P, I, I, I, P],
-    "tap_matmul_bf16": [P, P, P, I, I, I, I, I, P],
-    "tap_matmul_s8": [P, P, P, I, I, I, I, I, P],
+    "tap_matmul_bf16": [P, P, P, I, I, I, P],
+    "tap_matmul_s8": [P, P, P, I, I, I, P],
 }
 
 _lock = threading.Lock()
@@ -105,14 +105,18 @@ def _compile(out):
     build_seconds = time.perf_counter() - t0
 
 
+def library_path():
+    """Where the shared library of the present sources is (or will be)."""
+    return BUILD_DIR / f"libimcui_kernels_{_sources()[1]}.so"
+
+
 def library():
     """The kernels' shared library, built on first use."""
     global _lib
     with _lock:
         if _lib is None:
             BUILD_DIR.mkdir(exist_ok=True)
-            _, digest = _sources()
-            so = BUILD_DIR / f"libimcui_kernels_{digest}.so"
+            so = library_path()
             if not so.exists():
                 _compile(so)
             lib = ctypes.CDLL(str(so))

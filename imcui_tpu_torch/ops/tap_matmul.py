@@ -14,8 +14,8 @@ conv are ignored there (``try_tail_variants.py:1-3``), so every tap reads
 the same x.
 
 Two layouts of w: ``"taps"``, (R, 128, N); ``"wide"``, K13's ``k_wide``
-shape (128, R·128) with ``w_wide[k, r·128 + n] = w_r[k, n]`` (N = 128),
-read in place by the kernel.
+shape (128, R·128) with ``w_wide[k, r·128 + n] = w_r[k, n]`` (N = 128).
+The kernel reads either as the K-major taps of ``_k_major``.
 """
 
 import torch
@@ -65,6 +65,13 @@ def _taps(w, layout):
     return w.reshape(K, -1, K).permute(1, 0, 2)
 
 
+def _k_major(w, layout):
+    """w as K-major taps, a new contiguous (R, N, 128) tensor with
+    ``[r, n, k] = w_r[k, n]``: the one layout the kernel reads (wgmma takes
+    an int8 B only K-major). One copy of R·N·128 elements."""
+    return _taps(w, layout).transpose(1, 2).contiguous()
+
+
 def tap_matmul_plain(x, w, *, layout="taps"):
     """Plain version. bfloat16: Σ_r x.float() @ w_r.float() in full float32
     (no TF32), rounded once to bfloat16. int8: the exact integer sums (int64
@@ -101,12 +108,12 @@ def tap_matmul(x, w, *, layout="taps"):
                          f"exceed the kernel's 32-bit sizes")
     out = torch.empty((*x.shape[:-1], n), dtype=torch.bfloat16,
                       device=x.device)
-    tap_stride, ldw = (K * n, n) if layout == "taps" else (n, r * n)
+    wt = _k_major(w, layout)
     lib = _build.library()
     fn = lib.tap_matmul_bf16 if x.dtype == torch.bfloat16 else \
         lib.tap_matmul_s8
-    code = fn(_build.ptr(x), _build.ptr(w), _build.ptr(out), m, n, r,
-              tap_stride, ldw, _build.stream_of(x))
+    code = fn(_build.ptr(x), _build.ptr(wt), _build.ptr(out), m, n, r,
+              _build.stream_of(x))
     _build.check(code, "tap_matmul")
     tap_matmul.launches += 1
     return out

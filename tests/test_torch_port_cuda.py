@@ -404,18 +404,7 @@ def test_roma_tiny_on_card_matches_cpu(gen):
     assert float((got_c.cpu() - want_c).abs().max()) <= 1e-3
 
 
-@pytest.mark.parametrize("dtype", ["bf16", "int8"])
-@pytest.mark.parametrize("r", [1, 2, 9])
-@pytest.mark.parametrize("n, layout", [(128, "taps"), (512, "taps"),
-                                       (1152, "taps"), (2048, "taps"),
-                                       (128, "wide")])
-@pytest.mark.parametrize("m", [1000, 4097])
-def test_tap_matmul_kernel_matches_plain(gen, m, n, layout, r, dtype):
-    """Ragged row counts (the last 128-row tile part empty), every N and
-    tap count of the probes, both layouts of w (the wide one at K13's N =
-    128). int8: exact (the integer sums stay far below 2^24, so both
-    round the same integer once); bf16: 2^-7 * max(1, |plain|), one bf16
-    step of the output (the f32 partials are summed in another order)."""
+def _tap_inputs(gen, m, n, r, dtype, layout="taps"):
     if dtype == "int8":
         x = torch.randint(-128, 128, (m, 128), generator=gen, device="cuda",
                           dtype=torch.int8)
@@ -428,12 +417,14 @@ def test_tap_matmul_kernel_matches_plain(gen, m, n, layout, r, dtype):
              ).to(torch.bfloat16)
     if layout == "wide":   # w_wide[k, t * n + j] = w[t, k, j]
         w = w.permute(1, 0, 2).reshape(128, r * n).contiguous()
-    before = tap_matmul.tap_matmul.launches
-    got = tap_matmul.tap_matmul(x, w, layout=layout)
-    want = tap_matmul.tap_matmul_plain(x, w, layout=layout)
-    torch.cuda.synchronize()
-    assert tap_matmul.tap_matmul.launches == before + 1
-    assert got.shape == (m, n) and got.dtype == torch.bfloat16
+    return x, w
+
+
+def _assert_tap_close(got, want, dtype):
+    """int8: exact (the integer sums stay far below 2^24, so both round
+    the same integer once); bf16: 2^-7 * max(1, |plain|), one bf16 step of
+    the output (the f32 partials are summed in another order)."""
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
     if dtype == "int8":
         assert torch.equal(got, want)
     else:
@@ -441,8 +432,65 @@ def test_tap_matmul_kernel_matches_plain(gen, m, n, layout, r, dtype):
         assert bool(((got.float() - want.float()).abs() <= tol).all())
 
 
+@pytest.mark.parametrize("dtype", ["bf16", "int8"])
+@pytest.mark.parametrize("r", [1, 2, 9])
+@pytest.mark.parametrize("n, layout", [(128, "taps"), (256, "taps"),
+                                       (384, "taps"), (512, "taps"),
+                                       (1152, "taps"), (2048, "taps"),
+                                       (128, "wide")])
+@pytest.mark.parametrize("m", [1, 255, 257, 1000, 4097,
+                               132 * 256 * 3 + 77])
+def test_tap_matmul_kernel_matches_plain(gen, m, n, layout, r, dtype):
+    """Row counts at the kernel's edges: one row, one short of and one past
+    a 256-row item (the second consumer warpgroup's rows partly or wholly
+    past M), ragged counts, and one where every CTA of a 132-SM grid walks
+    several items; N of one to sixteen 128-column tiles; every tap count
+    of the probes; both layouts of w (the wide one at K13's N = 128)."""
+    x, w = _tap_inputs(gen, m, n, r, dtype, layout)
+    before = tap_matmul.tap_matmul.launches
+    got = tap_matmul.tap_matmul(x, w, layout=layout)
+    want = tap_matmul.tap_matmul_plain(x, w, layout=layout)
+    torch.cuda.synchronize()
+    assert tap_matmul.tap_matmul.launches == before + 1
+    assert got.shape == (m, n)
+    _assert_tap_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("xs, ws, r", [((0, 128), (0, 128), 8),
+                                       ((100, 128), (100, 128), 9),
+                                       ((-128, -100), (100, 128), 9)])
+def test_tap_matmul_int8_sums_past_float_mantissa(gen, xs, ws, r):
+    """The int8 epilogue rounds sums below 2^22 in magnitude through float
+    and larger ones through double: sums that straddle 2^22 (the first
+    case), and sums of about +-1.5e7, match exactly."""
+    x = torch.randint(*xs, (5000, 128), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    w = torch.randint(*ws, (r, 128, 256), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    got = tap_matmul.tap_matmul(x, w)
+    want = tap_matmul.tap_matmul_plain(x, w)
+    large = float((want.float().abs() >= 2 ** 22).float().mean())
+    assert (0.05 < large < 0.95) if xs == (0, 128) else large == 1.0
+    _assert_tap_close(got, want, "int8")
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "int8"])
+def test_tap_matmul_back_to_back_calls_on_one_stream(gen, dtype):
+    """Two launches queued on one stream before either is read, at other
+    shapes (so other tensor maps, grids and item runs): both match."""
+    x1, w1 = _tap_inputs(gen, 70_001, 1152, 1, dtype)
+    x2, w2 = _tap_inputs(gen, 3_001, 256, 9, dtype)
+    before = tap_matmul.tap_matmul.launches
+    got1 = tap_matmul.tap_matmul(x1, w1)
+    got2 = tap_matmul.tap_matmul(x2, w2)
+    torch.cuda.synchronize()
+    assert tap_matmul.tap_matmul.launches == before + 2
+    _assert_tap_close(got1, tap_matmul.tap_matmul_plain(x1, w1), dtype)
+    _assert_tap_close(got2, tap_matmul.tap_matmul_plain(x2, w2), dtype)
+
+
 def test_tap_matmul_one_row_leading_axes_and_refusals(gen):
-    """One row (a block of 127 empty rows); x with the scripts' leading
+    """One row (an item of 255 empty rows); x with the scripts' leading
     axes; and what the kernel does not take raises on the card."""
     w = (torch.randn((9, 128, 128), generator=gen, device="cuda") * 0.1
          ).to(torch.bfloat16)
@@ -460,5 +508,5 @@ def test_tap_matmul_one_row_leading_axes_and_refusals(gen):
         tap_matmul.tap_matmul(x.float(), w.float())
     with pytest.raises(ValueError):   # N = 192
         tap_matmul.tap_matmul(x, w[..., :64].repeat(1, 1, 3).contiguous())
-    with pytest.raises(RuntimeError):  # 16-byte alignment
+    with pytest.raises(RuntimeError, match="tap_matmul"):  # 16-byte alignment
         tap_matmul.tap_matmul(x.view(-1)[4:4 + 63 * 128].view(63, 128), w)

@@ -360,3 +360,21 @@ def test_tap_matmul_plain_wide_equals_taps_and_keeps_leading_axes():
     assert torch.equal(got, tm.tap_matmul(x, w))
     ref = sum(x.double() @ w[i].double() for i in range(2))
     _close_bf16(got, ref)
+
+
+@pytest.mark.parametrize("layout", tm.LAYOUTS)
+@pytest.mark.parametrize("r", [1, 9])
+def test_k_major_taps_of_both_layouts(layout, r):
+    """The kernel's one layout of w: (R, N, 128) with [t, n, k] =
+    w_t[k, n], contiguous, a copy that leaves w as it was."""
+    g = torch.Generator().manual_seed(r)
+    n = 256 if layout == "taps" else 128
+    taps = torch.randn((r, 128, n), generator=g).to(torch.bfloat16)
+    w = taps if layout == "taps" else \
+        taps.permute(1, 0, 2).reshape(128, r * n).contiguous()
+    keep = w.clone()
+    got = tm._k_major(w, layout)
+    assert got.shape == (r, n, 128) and got.is_contiguous()
+    assert torch.equal(got, tm._taps(w, layout).transpose(1, 2))
+    assert torch.equal(got, taps.transpose(1, 2))
+    assert got.data_ptr() != w.data_ptr() and torch.equal(w, keep)
