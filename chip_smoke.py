@@ -211,6 +211,15 @@ def cuda_ms(fn, iters=20, warmup=3):
     return event_ms(fn, iters, warmup)
 
 
+def cuda_ms_queued(fn):
+    """Device ms of one call of ``fn``, from 20 calls queued between two
+    CUDA events: without the host time of each call's wrapper, which
+    cuda_ms counts when a launch finds the card idle."""
+    from imcui_tpu_torch.tools.attention_times import queued_ms
+
+    return queued_ms(fn)
+
+
 def card_peaks(name):
     low = name.lower()
     if "pcie" in low:
@@ -226,6 +235,41 @@ def bound(flops, nbytes, peak_flops, peaks):
     t_ops = flops / peak_flops * 1e3
     t_mem = nbytes / peaks["bw"] * 1e3
     return max(t_ops, t_mem), ("operations" if t_ops >= t_mem else "bytes")
+
+
+def attention_ptxas():
+    """Registers and spill bytes of each f32 attention kernel (K3, K4) at
+    each query-tile height, from the build's ptxas log: {"fused<8>":
+    {"registers": r, "spill_bytes": b}, ...}."""
+    import re
+
+    from imcui_tpu_torch.ops import _build
+
+    text = _build.library_path().with_suffix(".log").read_text()
+    text = text.split("== attention.cu", 1)[1].split("\n== ", 1)[0]
+    out, name = {}, None
+    for line in text.splitlines():
+        hit = re.search(r"(fused|bidir)_attention_kernelILi(\d+)E", line)
+        if "Compiling entry function" in line and hit:
+            name = f"{hit.group(1)}<{hit.group(2)}>"
+            out[name] = {"registers": None, "spill_bytes": 0}
+        elif name and "spill stores" in line:
+            out[name]["spill_bytes"] = sum(
+                int(x) for x in re.findall(r"(\d+) bytes spill", line))
+        elif name and "registers" in line:
+            out[name]["registers"] = int(
+                re.search(r"Used (\d+) registers", line).group(1))
+    return out
+
+
+def attention_launch(kind, s, n, m=None):
+    """K3's or K4's launch plan at this shape (query tile, blocks, blocks
+    an SM holds, rounds) with its kernel's registers and spills."""
+    from imcui_tpu_torch.ops import attention
+
+    plan = attention.attention_plan(s, n, m)
+    plan.update(attention_ptxas()[f"{kind}<{plan['query_tile'] // 16}>"])
+    return plan
 
 
 # --------------------------------------------------------------------------
@@ -380,6 +424,8 @@ def phase1(params, peaks):
                    [attention.fused_attention_plain(q, k, v, mask_img, HEADS)])
         ms3 = cuda_ms(lambda: attention.fused_attention(q, k, v, mask_img,
                                                         HEADS))
+        dev3 = cuda_ms_queued(lambda: attention.fused_attention(
+            q, k, v, mask_img, HEADS))
         plain3 = cuda_ms(lambda: attention.fused_attention_plain(
             q, k, v, mask_img, HEADS))
     add3 = torch.where(mask_img.repeat_interleave(HEADS, 0), 0.0, -1e9
@@ -396,7 +442,9 @@ def phase1(params, peaks):
         "launches_per_step": N_LAYERS, "tolerance": "1e-5*max(1,|plain|)",
         "max_abs_err": e3, "rel_err": rel3, "ms": N_LAYERS * ms3,
         "plain_ms": N_LAYERS * plain3, "library_ms": N_LAYERS * lib3,
-        "bound_ms": N_LAYERS * t3, "bound_by": by3})
+        "bound_ms": N_LAYERS * t3, "bound_by": by3,
+        "device_ms": N_LAYERS * dev3,
+        "launch": attention_launch("fused", s, n)})
     del q, k, v, add3
 
     s = BATCH * HEADS
@@ -409,6 +457,8 @@ def phase1(params, peaks):
                    attention.bidirectional_attention_plain(a0, a1, v0, v1,
                                                            m0, m1, HEADS))
         ms4 = cuda_ms(lambda: attention.bidirectional_attention(
+            a0, a1, v0, v1, m0, m1, HEADS))
+        dev4 = cuda_ms_queued(lambda: attention.bidirectional_attention(
             a0, a1, v0, v1, m0, m1, HEADS))
         plain4 = cuda_ms(lambda: attention.bidirectional_attention_plain(
             a0, a1, v0, v1, m0, m1, HEADS))
@@ -431,13 +481,18 @@ def phase1(params, peaks):
         "plain_ms": N_LAYERS * plain4, "library_ms": N_LAYERS * lib4,
         "bound_ms": N_LAYERS * t4, "bound_by": by4,
         "bound_ms_with_recompute": N_LAYERS * bound(
-            flops4 * 4 / 3, bytes4, peaks["fp32"], peaks)[0]})
+            flops4 * 4 / 3, bytes4, peaks["fp32"], peaks)[0],
+        "device_ms": N_LAYERS * dev4,
+        "launch": attention_launch("bidir", s, n, n)})
     for r in rows:
         r["per"] = "step of the serving path"
         log(f"  {r['name']}: err {r['max_abs_err']:.3g} (relative "
             f"{r['rel_err']:.3g}; tolerance {r['tolerance']}), "
             f"{r['ms']:.3f} ms/step vs plain {r['plain_ms']:.3f}, library "
             f"{r['library_ms']}, bound {r['bound_ms']:.4f} ({r['bound_by']})")
+        if "launch" in r:
+            log(f"    {r['device_ms']:.3f} ms/step queued (no host time); "
+                f"launch: {r['launch']}")
     return rows
 
 
@@ -641,19 +696,42 @@ def phase1_general(params, peaks):
         err = max((g - t).abs().max().item() for g, t in zip(got, want))
         ms4 = cuda_ms(lambda: attention.bidirectional_attention(
             a0, a1, v0, v1, m0, m1, HEADS))
+        dev4 = cuda_ms_queued(lambda: attention.bidirectional_attention(
+            a0, a1, v0, v1, m0, m1, HEADS))
+        plain4 = cuda_ms(lambda: attention.bidirectional_attention_plain(
+            a0, a1, v0, v1, m0, m1, HEADS), 5, 1)
+    add01 = torch.where(m1.repeat_interleave(HEADS, 0), 0.0, -1e9
+                        )[:, None, :].expand(s, n, n)
+    lib4 = cuda_ms(lambda: (
+        F.scaled_dot_product_attention(a0, a1, v1, attn_mask=add01),
+        F.scaled_dot_product_attention(a1, a0, v0)))
+    flops4 = s * 3 * 2.0 * n * n * 64          # minimal work
+    bytes4 = 6 * s * n * 64 * 4 + 2 * n
+    t4, by4 = bound(flops4, bytes4, peaks["fp32"], peaks)
+    t4r = bound(flops4 * 4 / 3, bytes4, peaks["fp32"], peaks)[0]
+    launch4 = attention_launch("bidir", s, n, n)
     # f32 sums over four times the keys of the serving shape: their
     # rounding error grows with the root of the count, so twice its bound
     tol = 2e-5 * max(1.0, top)
     log(f"  bidirectional_attention [{s} x {n} x {n}]: err {err:.3g} "
-        f"(tolerance {tol:.3g}), {ms4:.3f} ms")
+        f"(tolerance {tol:.3g}), {ms4:.3f} ms ({dev4:.3f} queued) vs plain "
+        f"{plain4:.3f}, two "
+        f"SDPA calls {lib4:.3f}, bound {t4:.4f} ({by4}; {t4r:.4f} with the "
+        f"recompute); launch {launch4}")
     if not err <= tol:
         fail("bidirectional_attention differs from its plain version at 4096")
+    del add01
     for r in rows:
         log(f"  {r['name']}: {r['ms']:.3f} ms per {r['per']} vs plain "
             f"{r['plain_ms']:.3f}, library {r['library_ms']:.3f}, bound "
             f"{r['bound_ms']:.4f} ({r['bound_by']})")
     return rows, {"stem_decision": decision, "bf16_default": default,
-                  "bidir_4096_ms": ms4}
+                  "bidir_4096": {
+                      "ms": ms4, "device_ms": dev4, "plain_ms": plain4,
+                      "library_ms": lib4,
+                      "bound_ms": t4, "bound_by": by4,
+                      "bound_ms_with_recompute": t4r, "max_abs_err": err,
+                      "launch": launch4}}
 
 
 def phase2():
@@ -1155,19 +1233,31 @@ def phase1_dense(peaks):
             fail("mha_auto did not send f32 x 1601 x 64 to fused_attention")
         err = (got - want).abs().max().item()
         top = want.abs().max().item()
+        # both plain versions in one run: the unmasked mha (what mha_auto
+        # computes) and K3's own plain version with an all-valid mask
+        ones = torch.ones((1, D_TOKENS), dtype=torch.bool, device=dev)
         ms3 = cuda_ms(lambda: attention.mha_auto(q, k, v))
         plain3 = cuda_ms(lambda: attention.mha(q, k, v))
+        plain3_masked = cuda_ms(lambda: attention.fused_attention_plain(
+            q, k, v, ones, D_HEADS))
+        ms3 = (ms3 + cuda_ms(lambda: attention.mha_auto(q, k, v))) / 2
+        dev3 = cuda_ms_queued(lambda: attention.mha_auto(q, k, v))
     lib3 = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v))
     t3, by3 = bound(4.0 * D_HEADS * D_TOKENS ** 2 * 64,
                     4 * D_HEADS * D_TOKENS * 64 * 4, peaks["fp32"], peaks)
+    launch3 = attention_launch("fused", D_HEADS, D_TOKENS)
     log(f"  fused_attention through mha_auto [{D_HEADS} x {D_TOKENS} x 64 "
         f"f32]: err {err:.3g} (tolerance 1e-5*max(1,|plain|), max|plain| "
-        f"{top:.3g}), {ms3:.3f} ms vs plain {plain3:.3f}, SDPA {lib3:.3f}, "
-        f"bound {t3:.4f} ({by3})")
+        f"{top:.3g}), {ms3:.3f} ms ({dev3:.3f} queued) vs plain mha "
+        f"{plain3:.3f} and "
+        f"fused_attention_plain {plain3_masked:.3f}, SDPA {lib3:.3f}, "
+        f"bound {t3:.4f} ({by3}); launch {launch3}")
     if not err <= 1e-5 * max(1.0, top):
         fail("fused_attention at 1601 tokens differs from the plain mha")
-    k3_at_1601 = {"max_abs_err": err, "ms": ms3, "plain_ms": plain3,
-                  "library_ms": lib3, "bound_ms": t3, "bound_by": by3}
+    k3_at_1601 = {"max_abs_err": err, "ms": ms3, "device_ms": dev3,
+                  "plain_ms": plain3,
+                  "plain_masked_ms": plain3_masked, "library_ms": lib3,
+                  "bound_ms": t3, "bound_by": by3, "launch": launch3}
     return row, k3_at_1601
 
 

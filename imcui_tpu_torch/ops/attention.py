@@ -14,6 +14,8 @@ the batch index of head-sequence ``s`` being ``s // heads``; key masks
 are (batch, N) bool.
 """
 
+import ctypes
+
 import torch
 
 from . import _build
@@ -59,6 +61,26 @@ def _head_mask(mask, s, n, device):
     return mask
 
 
+def _mask_ptr(mask):
+    """K3's and K4's key mask for the kernel: a null pointer when every key
+    is valid, so an unmasked call allocates nothing."""
+    return None if mask is None else _build.ptr(mask)
+
+
+def attention_plan(s, n, m=None):
+    """The launch K3 (``m`` None) or K4 takes on the current card for S
+    head-sequences of N (and M) rows: query-tile height, blocks, blocks an
+    SM holds at that height, SMs, and the rounds that makes."""
+    out = (ctypes.c_int * 4)()
+    code = _build.library().attention_f32_plan(
+        s, n, n if m is None else m, int(m is not None),
+        ctypes.cast(out, ctypes.c_void_p))
+    _build.check(code, "attention_f32_plan")
+    tile, blocks, per_sm, sms = out
+    return {"query_tile": tile, "blocks": blocks, "blocks_per_sm": per_sm,
+            "sms": sms, "rounds": blocks / (per_sm * sms)}
+
+
 def fused_attention_plain(q, k, v, mask, heads):
     """Plain version of K3 (``_fused_attn_xla``). q/k/v: (S, N, Dh)
     float32; mask: (S // heads, N) bool key validity."""
@@ -71,9 +93,9 @@ def fused_attention(q, k, v, mask, heads):
     Self-attention over (S, N, 64) float32 head-sequences; mask (S/heads,
     N) bool, or None for all valid."""
     s, n, dh = q.shape
-    mask = _head_mask(mask, s // heads, n, q.device)
     if q.device.type == "cpu":
-        return fused_attention_plain(q, k, v, mask, heads)
+        return fused_attention_plain(
+            q, k, v, _head_mask(mask, s // heads, n, q.device), heads)
     if dh != 64 or s % heads:
         raise ValueError(f"fused_attention takes Dh = 64 and S divisible by "
                          f"heads; got {tuple(q.shape)}, heads {heads} "
@@ -82,10 +104,11 @@ def fused_attention(q, k, v, mask, heads):
                          f"the kernel by shape)")
     for name, t in (("q", q), ("k", k), ("v", v)):
         _build.require(t, name, torch.float32, (s, n, 64))
-    _build.require(mask, "mask", torch.bool, (s // heads, n))
+    if mask is not None:
+        _build.require(mask, "mask", torch.bool, (s // heads, n))
     out = torch.empty_like(q)
     code = _build.library().fused_attention_f32(
-        _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(mask),
+        _build.ptr(q), _build.ptr(k), _build.ptr(v), _mask_ptr(mask),
         _build.ptr(out), s, n, heads, _build.stream_of(q))
     _build.check(code, "fused_attention")
     fused_attention.launches += 1
@@ -116,24 +139,24 @@ def bidirectional_attention(a0, a1, v0, v1, mask0, mask1, heads):
     Returns (O0 (S, N, Dh), O1 (S, M, Dh)); masks may be None."""
     s, n, dh = a0.shape
     m = a1.shape[1]
-    mask0 = _head_mask(mask0, s // heads, n, a0.device)
-    mask1 = _head_mask(mask1, s // heads, m, a0.device)
     if a0.device.type == "cpu":
-        return bidirectional_attention_plain(a0, a1, v0, v1, mask0, mask1,
-                                             heads)
+        return bidirectional_attention_plain(
+            a0, a1, v0, v1, _head_mask(mask0, s // heads, n, a0.device),
+            _head_mask(mask1, s // heads, m, a0.device), heads)
     if dh != 64 or s % heads:
         raise ValueError(f"bidirectional_attention takes Dh = 64 and S "
                          f"divisible by heads; got {tuple(a0.shape)}")
     for name, t, rows in (("a0", a0, n), ("a1", a1, m), ("v0", v0, n),
                           ("v1", v1, m)):
         _build.require(t, name, torch.float32, (s, rows, 64))
-    _build.require(mask0, "mask0", torch.bool, (s // heads, n))
-    _build.require(mask1, "mask1", torch.bool, (s // heads, m))
+    for name, t, rows in (("mask0", mask0, n), ("mask1", mask1, m)):
+        if t is not None:
+            _build.require(t, name, torch.bool, (s // heads, rows))
     o0 = torch.empty_like(a0)
     o1 = torch.empty_like(a1)
     code = _build.library().bidir_attention_f32(
         _build.ptr(a0), _build.ptr(a1), _build.ptr(v0), _build.ptr(v1),
-        _build.ptr(mask0), _build.ptr(mask1), _build.ptr(o0), _build.ptr(o1),
+        _mask_ptr(mask0), _mask_ptr(mask1), _build.ptr(o0), _build.ptr(o1),
         s, n, m, heads, _build.stream_of(a0))
     _build.check(code, "bidirectional_attention")
     bidirectional_attention.launches += 1

@@ -1,13 +1,18 @@
 """Attention of the port (imcui_tpu_torch/ops/attention.py): the plain
 versions of kernels K3, K4 and K5 against the JAX package's XLA
-restatements of its Pallas kernels, and the rotary helpers. float32
-unless a test says otherwise; tolerance 1e-5 (the same arithmetic, summed
-in another order)."""
+restatements of its Pallas kernels and against the Pallas kernel bodies
+of K3 and K4 themselves (``pl.pallas_call(..., interpret=True)``), and the
+rotary helpers. float32 unless a test says otherwise; tolerance 1e-5 (the
+same arithmetic, summed in another order)."""
 
+import functools
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.experimental import pallas as pl
 
 from imcui_tpu.ops import attention as ja
 from imcui_tpu_torch.ops import attention as ta
@@ -74,6 +79,91 @@ def test_bidirectional_attention_plain_matches_jax():
                                    atol=1e-5, rtol=1e-5)
 
 
+def _fused_pallas(q, k, v, maskf):
+    """``_fused_attn_pallas`` (attention.py:263) in interpret mode: its
+    kernel body ``_fused_attn_kernel`` (:244) and the BlockSpecs of :267,
+    restated without the TPU memory space. q/k/v (H, N, Dh), maskf (H, 1,
+    N) float {0, 1}."""
+    h, nq, dh = q.shape
+    nk = k.shape[1]
+    return pl.pallas_call(
+        functools.partial(ja._fused_attn_kernel, scale=1.0 / dh ** 0.5),
+        out_shape=jax.ShapeDtypeStruct(q.shape, q.dtype),
+        grid=(h,),
+        in_specs=[pl.BlockSpec((1, nq, dh), lambda i: (i, 0, 0)),
+                  pl.BlockSpec((1, nk, dh), lambda i: (i, 0, 0)),
+                  pl.BlockSpec((1, nk, dh), lambda i: (i, 0, 0)),
+                  pl.BlockSpec((1, 1, nk), lambda i: (i, 0, 0))],
+        out_specs=pl.BlockSpec((1, nq, dh), lambda i: (i, 0, 0)),
+        interpret=True)(q, k, v, maskf)
+
+
+def _bidir_pallas(a0, a1, v0, v1, mk0, mk1):
+    """``_bidir_pallas`` (attention.py:385) in interpret mode: the body
+    ``_bidir_attn_kernel`` (:339) and the BlockSpecs of :389 without the
+    TPU memory space. mk0 (H, N, 1), mk1 (H, 1, M) float {0, 1}."""
+    h, n, dh = a0.shape
+    m = a1.shape[1]
+
+    def spec(*shape):
+        return pl.BlockSpec((1, *shape), lambda i: (i, 0, 0))
+
+    return pl.pallas_call(
+        functools.partial(ja._bidir_attn_kernel, scale=1.0 / dh ** 0.5),
+        out_shape=(jax.ShapeDtypeStruct((h, n, dh), a0.dtype),
+                   jax.ShapeDtypeStruct((h, m, dh), a1.dtype)),
+        grid=(h,),
+        in_specs=[spec(n, dh), spec(m, dh), spec(n, dh), spec(m, dh),
+                  spec(n, 1), spec(1, m)],
+        out_specs=(spec(n, dh), spec(m, dh)),
+        interpret=True)(a0, a1, v0, v1, mk0, mk1)
+
+
+def _edge_masks(b, n, rng):
+    """Image 0 all valid, image 1 every key masked, the rest random."""
+    m = rng.uniform(size=(b, n)) < 0.7
+    m[0, :] = True
+    m[1, :] = False
+    return m
+
+
+@pytest.mark.parametrize("n", [1, 65, 130])
+def test_fused_attention_plain_matches_pallas_kernel(n):
+    """K3's plain version against the Pallas body at the sizes the CUDA
+    tile's edges hit (one row, one past a 64-row tile, two tiles and a
+    part), with an image whose keys are all masked."""
+    rng = np.random.default_rng(10 + n)
+    b, dh = 3, 64
+    q, k, v = (_rand(rng, b * HEADS, n, dh) for _ in range(3))
+    mask = _edge_masks(b, n, rng)
+    got = ta.fused_attention(*(torch.from_numpy(a) for a in (q, k, v)),
+                             torch.from_numpy(mask), HEADS).numpy()
+    maskf = np.repeat(mask.astype(np.float32), HEADS, 0)[:, None, :]
+    want = np.asarray(_fused_pallas(q, k, v, maskf))
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("n,m", [(1, 65), (130, 70)])
+def test_bidirectional_attention_plain_matches_pallas_kernel(n, m):
+    """K4's plain version against the Pallas body, both directions, with
+    a pair whose keys are all masked on one side."""
+    rng = np.random.default_rng(20 + n + m)
+    b, dh = 3, 64
+    a0, v0 = _rand(rng, b * HEADS, n, dh), _rand(rng, b * HEADS, n, dh)
+    a1, v1 = _rand(rng, b * HEADS, m, dh), _rand(rng, b * HEADS, m, dh)
+    m0, m1 = _edge_masks(b, n, rng), _edge_masks(b, m, rng)
+    m1[1, :] = True            # pair 1: view 0 all masked, view 1 valid
+    o0, o1 = ta.bidirectional_attention(
+        *(torch.from_numpy(x) for x in (a0, a1, v0, v1, m0, m1)), HEADS)
+    mk0 = np.repeat(m0.astype(np.float32), HEADS, 0)[:, :, None]
+    mk1 = np.repeat(m1.astype(np.float32), HEADS, 0)[:, None, :]
+    w0, w1 = _bidir_pallas(a0, a1, v0, v1, mk0, mk1)
+    np.testing.assert_allclose(o0.numpy(), np.asarray(w0), atol=1e-5,
+                               rtol=1e-5)
+    np.testing.assert_allclose(o1.numpy(), np.asarray(w1), atol=1e-5,
+                               rtol=1e-5)
+
+
 def test_rotary_helpers_match_jax():
     rng = np.random.default_rng(2)
     kpts = rng.uniform(-1, 1, size=(50, 2)).astype(np.float32)
@@ -133,3 +223,12 @@ def test_flash_attention_without_mask_is_plain_mha():
     q, k, v = (torch.from_numpy(_rand(rng, HEADS, 40, 64)) for _ in range(3))
     got = ta.flash_attention(q, k, v, None, HEADS)
     torch.testing.assert_close(got, ta.mha(q, k, v), atol=1e-6, rtol=0)
+
+
+def test_attention_times_refuses_without_a_card():
+    """The K3/K4 timing tool measures on a card or not at all."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the tool would time it")
+    from imcui_tpu_torch.tools import attention_times
+    with pytest.raises(SystemExit, match="needs a CUDA device"):
+        attention_times.main([])

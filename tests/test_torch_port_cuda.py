@@ -57,10 +57,17 @@ def _masks(b, n):
     return m
 
 
-def test_fused_attention_kernel_matches_plain(gen):
+@pytest.mark.parametrize("b,n", [
+    (3, 100),
+    # the new tile's edges, at 12 head-sequences so that the last round of
+    # blocks is partial: one query, one key tile short, exact, one over
+    (3, 1), (3, 63), (3, 64), (3, 65),
+    (3, 1601),                 # DINOv2 at 560^2 (the f32 dense path)
+    (3, 2048)])                # mha_auto's largest K3 shape
+def test_fused_attention_kernel_matches_plain(gen, b, n):
     """1e-5 · max(1, max|plain|): the same f32 arithmetic, summed in
     another order."""
-    b, n, heads = 3, 100, 4
+    heads = 4
     q, k, v = (torch.randn((b * heads, n, 64), generator=gen, device="cuda")
                * 2 for _ in range(3))
     mask = _masks(b, n)
@@ -71,8 +78,14 @@ def test_fused_attention_kernel_matches_plain(gen):
     assert (got - want).abs().max().item() <= 1e-5 * scale
 
 
-def test_bidirectional_attention_kernel_matches_plain(gen):
-    b, n, m, heads = 2, 100, 70, 4
+@pytest.mark.parametrize("b,n,m,tol", [
+    (2, 100, 70, 1e-5),
+    (3, 1, 1024, 1e-5),
+    (3, 130, 70, 1e-5),
+    # f32 sums over 4096 keys: the bound chip_smoke.py holds this size to
+    (3, 4096, 4096, 2e-5)])
+def test_bidirectional_attention_kernel_matches_plain(gen, b, n, m, tol):
+    heads = 4
     a0, v0 = (torch.randn((b * heads, n, 64), generator=gen, device="cuda")
               * 2 for _ in range(2))
     a1, v1 = (torch.randn((b * heads, m, 64), generator=gen, device="cuda")
@@ -84,7 +97,53 @@ def test_bidirectional_attention_kernel_matches_plain(gen):
                                                        heads)
     for g, w in zip(got, want):
         scale = max(1.0, w.abs().max().item())
-        assert (g - w).abs().max().item() <= 1e-5 * scale
+        assert (g - w).abs().max().item() <= tol * scale
+
+
+def test_attention_without_mask_equals_all_valid_mask(gen):
+    """K3 and K4 with a null mask and with an all-ones mask: bit-identical
+    outputs (the kernel reads no mask when none is given)."""
+    b, n, m, heads = 2, 300, 200, 4
+    x = [torch.randn((b * heads, r, 64), generator=gen, device="cuda")
+         for r in (n, m, n, m)]     # a0, a1, v0, v1
+    ones_n = torch.ones((b, n), dtype=torch.bool, device="cuda")
+    ones_m = torch.ones((b, m), dtype=torch.bool, device="cuda")
+    assert torch.equal(attention.fused_attention(x[0], x[0], x[2], None, heads),
+                       attention.fused_attention(x[0], x[0], x[2], ones_n,
+                                                 heads))
+    for g, w in zip(
+            attention.bidirectional_attention(*x, None, None, heads),
+            attention.bidirectional_attention(*x, ones_n, ones_m, heads)):
+        assert torch.equal(g, w)
+
+
+def test_attention_launches_back_to_back(gen):
+    """Two launches of each kernel queued on one stream before either
+    output is read agree with their plain versions (1e-5 · max(1,
+    max|plain|))."""
+    heads = 4
+    x = [torch.randn((2 * heads, n, 64), generator=gen, device="cuda") * 2
+         for n in (1024, 777, 1024, 777)]
+    m = [_masks(2, 1024), _masks(2, 777)]
+    calls = [(attention.fused_attention, attention.fused_attention_plain,
+              (x[0], x[0], x[2], m[0])),
+             (attention.fused_attention, attention.fused_attention_plain,
+              (x[1], x[1], x[3], m[1])),
+             (attention.bidirectional_attention,
+              attention.bidirectional_attention_plain,
+              (x[0], x[1], x[2], x[3], m[0], m[1])),
+             (attention.bidirectional_attention,
+              attention.bidirectional_attention_plain,
+              (x[1], x[0], x[3], x[2], m[1], m[0]))]
+    with full_fp32():
+        got = [kernel(*args, heads) for kernel, _, args in calls]
+        torch.cuda.synchronize()
+        for g, (_, plain, args) in zip(got, calls):
+            want = plain(*args, heads)
+            for gg, w in zip(g if isinstance(g, tuple) else (g,),
+                             want if isinstance(want, tuple) else (want,)):
+                assert (gg - w).abs().max().item() <= 1e-5 * max(
+                    1.0, w.abs().max().item())
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(gen):
