@@ -7,8 +7,10 @@ Phases, each of which passes or ends the run with a non-zero exit:
   0. the card's name and power limit, the versions, the kernels' build;
   1. every CUDA kernel at the shapes the three paths below give it, held
      against its plain PyTorch version, timed beside it, beside a PyTorch
-     library call of the same function where one exists, and beside the
-     least time the card could take (its bound);
+     library call of the same function where one exists (for attention,
+     SDPA on a 4-D view on the fused backend that takes it), and beside the
+     least time the card could take (its bound); K14's SASS must hold wgmma
+     and TMA loads (cuobjdump);
   2. serving: TurboMatcher(device="cuda") at the flagship configuration
      answers concurrent requests (synthetic textured images and their
      warps under known homographies); the kernels' launch counters must
@@ -119,6 +121,8 @@ P_PREVIOUS_MS = {
 # (HGMMA bf16, IGMMA int8), TMA loads and TMA stores.
 P_SASS = {"bf16": ("HGMMA", "UTMALDG", "UTMASTG"),
           "int8": ("IGMMA", "UTMALDG", "UTMASTG")}
+# SASS instructions that each K14 kernel must hold: wgmma and TMA loads.
+Q_SASS = ("HGMMA", "UTMALDG")
 
 
 def fail(msg):
@@ -237,21 +241,24 @@ def bound(flops, nbytes, peak_flops, peaks):
     return max(t_ops, t_mem), ("operations" if t_ops >= t_mem else "bytes")
 
 
-def attention_ptxas():
-    """Registers and spill bytes of each f32 attention kernel (K3, K4) at
-    each query-tile height, from the build's ptxas log: {"fused<8>":
-    {"registers": r, "spill_bytes": b}, ...}."""
+def attention_ptxas(source="attention.cu",
+                    pattern=r"(fused|bidir)_attention_kernelILi(\d+)E"):
+    """Registers and spill bytes of each kernel of ``source`` whose name
+    matches ``pattern`` (groups: the name, then any template argument),
+    from the build's ptxas log: for K3 and K4 at each query-tile height
+    {"fused<8>": {"registers": r, "spill_bytes": b}, ...}; for K14
+    {"qtiled_attention": ...}."""
     import re
 
     from imcui_tpu_torch.ops import _build
 
     text = _build.library_path().with_suffix(".log").read_text()
-    text = text.split("== attention.cu", 1)[1].split("\n== ", 1)[0]
+    text = text.split(f"== {source}", 1)[1].split("\n== ", 1)[0]
     out, name = {}, None
     for line in text.splitlines():
-        hit = re.search(r"(fused|bidir)_attention_kernelILi(\d+)E", line)
+        hit = re.search(pattern, line)
         if "Compiling entry function" in line and hit:
-            name = f"{hit.group(1)}<{hit.group(2)}>"
+            name = hit.group(1) + "".join(f"<{g}>" for g in hit.groups()[1:])
             out[name] = {"registers": None, "spill_bytes": 0}
         elif name and "spill stores" in line:
             out[name]["spill_bytes"] = sum(
@@ -260,6 +267,30 @@ def attention_ptxas():
             out[name]["registers"] = int(
                 re.search(r"Used (\d+) registers", line).group(1))
     return out
+
+
+def qtiled_launch(h, nq, nk):
+    """K14's launch plan at this shape (query rows a CTA, CTAs, CTAs an SM
+    holds, rounds, the busiest SM's rows) with its kernel's registers and
+    spills."""
+    from imcui_tpu_torch.ops import attention
+
+    plan = attention.qtiled_plan(h, nq, nk)
+    plan.update(attention_ptxas("qtiled_attention.cu",
+                                r"(qtiled_attention)_kernel")[
+        "qtiled_attention"])
+    return plan
+
+
+def library_sdpa(*calls):
+    """One PyTorch SDPA call per (q, k, v, key_mask, heads) on its 4-D
+    view, on the fused backend that takes it, timed as cuda_ms times the
+    kernels: {"ms", "backend", "ms_3d"} (tools/attention_times.time_sdpa;
+    ``ms_3d`` is the 3-D call, which only the math path takes, as the
+    library time was taken before the 4-D views)."""
+    from imcui_tpu_torch.tools.attention_times import time_sdpa
+
+    return time_sdpa(cuda_ms, *calls)
 
 
 def attention_launch(kind, s, n, m=None):
@@ -428,10 +459,7 @@ def phase1(params, peaks):
             q, k, v, mask_img, HEADS))
         plain3 = cuda_ms(lambda: attention.fused_attention_plain(
             q, k, v, mask_img, HEADS))
-    add3 = torch.where(mask_img.repeat_interleave(HEADS, 0), 0.0, -1e9
-                       )[:, None, :].expand(s, n, n)
-    lib3 = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v,
-                                                          attn_mask=add3))
+    lib3 = library_sdpa((q, k, v, mask_img, HEADS))
     flops3 = 4.0 * s * n * n * dh
     bytes3 = 4 * s * n * dh * 4 + b * n
     t3, by3 = bound(flops3, bytes3, peaks["fp32"], peaks)
@@ -441,11 +469,13 @@ def phase1(params, peaks):
         "replaces": "imcui_tpu/ops/attention.py:263",
         "launches_per_step": N_LAYERS, "tolerance": "1e-5*max(1,|plain|)",
         "max_abs_err": e3, "rel_err": rel3, "ms": N_LAYERS * ms3,
-        "plain_ms": N_LAYERS * plain3, "library_ms": N_LAYERS * lib3,
+        "plain_ms": N_LAYERS * plain3, "library_ms": N_LAYERS * lib3["ms"],
+        "library_backend": lib3["backend"],
+        "library_3d_ms": N_LAYERS * lib3["ms_3d"],
         "bound_ms": N_LAYERS * t3, "bound_by": by3,
         "device_ms": N_LAYERS * dev3,
         "launch": attention_launch("fused", s, n)})
-    del q, k, v, add3
+    del q, k, v
 
     s = BATCH * HEADS
     m0, m1 = mask_img[:BATCH], mask_img[BATCH:]
@@ -462,13 +492,7 @@ def phase1(params, peaks):
             a0, a1, v0, v1, m0, m1, HEADS))
         plain4 = cuda_ms(lambda: attention.bidirectional_attention_plain(
             a0, a1, v0, v1, m0, m1, HEADS))
-    add01 = torch.where(m1.repeat_interleave(HEADS, 0), 0.0, -1e9
-                        )[:, None, :].expand(s, n, n)
-    add10 = torch.where(m0.repeat_interleave(HEADS, 0), 0.0, -1e9
-                        )[:, None, :].expand(s, n, n)
-    lib4 = cuda_ms(lambda: (
-        F.scaled_dot_product_attention(a0, a1, v1, attn_mask=add01),
-        F.scaled_dot_product_attention(a1, a0, v0, attn_mask=add10)))
+    lib4 = library_sdpa((a0, a1, v1, m1, HEADS), (a1, a0, v0, m0, HEADS))
     flops4 = s * (2.0 * n * n * dh + 2 * 2.0 * n * n * dh)   # minimal work
     bytes4 = 6 * s * n * dh * 4 + 2 * BATCH * n
     t4, by4 = bound(flops4, bytes4, peaks["fp32"], peaks)
@@ -478,7 +502,9 @@ def phase1(params, peaks):
         "replaces": "imcui_tpu/ops/attention.py:385",
         "launches_per_step": N_LAYERS, "tolerance": "1e-5*max(1,|plain|)",
         "max_abs_err": e4, "rel_err": rel4, "ms": N_LAYERS * ms4,
-        "plain_ms": N_LAYERS * plain4, "library_ms": N_LAYERS * lib4,
+        "plain_ms": N_LAYERS * plain4, "library_ms": N_LAYERS * lib4["ms"],
+        "library_backend": lib4["backend"],
+        "library_3d_ms": N_LAYERS * lib4["ms_3d"],
         "bound_ms": N_LAYERS * t4, "bound_by": by4,
         "bound_ms_with_recompute": N_LAYERS * bound(
             flops4 * 4 / 3, bytes4, peaks["fp32"], peaks)[0],
@@ -489,7 +515,9 @@ def phase1(params, peaks):
         log(f"  {r['name']}: err {r['max_abs_err']:.3g} (relative "
             f"{r['rel_err']:.3g}; tolerance {r['tolerance']}), "
             f"{r['ms']:.3f} ms/step vs plain {r['plain_ms']:.3f}, library "
-            f"{r['library_ms']}, bound {r['bound_ms']:.4f} ({r['bound_by']})")
+            f"{r['library_ms']} ({r.get('library_backend')}; 3-D call "
+            f"{r.get('library_3d_ms')}), bound {r['bound_ms']:.4f} "
+            f"({r['bound_by']})")
         if "launch" in r:
             log(f"    {r['device_ms']:.3f} ms/step queued (no host time); "
                 f"launch: {r['launch']}")
@@ -552,10 +580,7 @@ def phase1_general(params, peaks):
                                                            HEADS))
             plain = cuda_ms(lambda: attention.flash_attention_plain(
                 q, k, v, mask, HEADS))
-        add = torch.where(mask.repeat_interleave(HEADS, 0), 0.0, -1e9
-                          )[:, None, :].expand(s, nq, nk)
-        lib = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v,
-                                                             attn_mask=add))
+        lib = library_sdpa((q, k, v, mask, HEADS))
         flops = 4.0 * s * nq * nk * dh
         nbytes = (2 * s * nq * dh + 2 * s * nk * dh) * 4 + mask.numel()
         t, by = bound(flops, nbytes, peaks["fp32"], peaks)
@@ -565,10 +590,10 @@ def phase1_general(params, peaks):
             "replaces": "imcui_tpu/ops/attention.py:155",
             "tolerance": "1e-5*max(1,|plain|) f32, 2^-7*max(1,|plain|) bf16",
             "max_abs_err": err, "rel_err": err / top, "ms": ms,
-            "plain_ms": plain, "library_ms": lib, "bound_ms": t,
-            "bound_by": by,
+            "plain_ms": plain, "library_ms": lib["ms"],
+            "library_backend": lib["backend"], "library_3d_ms": lib["ms_3d"],
+            "bound_ms": t, "bound_by": by,
             "per": f"launch at {s} x {nq} x {nk} x {dh} f32 (one pair)"})
-        del add
     del q, k, v, got, want
     torch.cuda.empty_cache()
 
@@ -700,11 +725,7 @@ def phase1_general(params, peaks):
             a0, a1, v0, v1, m0, m1, HEADS))
         plain4 = cuda_ms(lambda: attention.bidirectional_attention_plain(
             a0, a1, v0, v1, m0, m1, HEADS), 5, 1)
-    add01 = torch.where(m1.repeat_interleave(HEADS, 0), 0.0, -1e9
-                        )[:, None, :].expand(s, n, n)
-    lib4 = cuda_ms(lambda: (
-        F.scaled_dot_product_attention(a0, a1, v1, attn_mask=add01),
-        F.scaled_dot_product_attention(a1, a0, v0)))
+    lib4 = library_sdpa((a0, a1, v1, m1, HEADS), (a1, a0, v0))
     flops4 = s * 3 * 2.0 * n * n * 64          # minimal work
     bytes4 = 6 * s * n * 64 * 4 + 2 * n
     t4, by4 = bound(flops4, bytes4, peaks["fp32"], peaks)
@@ -716,19 +737,22 @@ def phase1_general(params, peaks):
     log(f"  bidirectional_attention [{s} x {n} x {n}]: err {err:.3g} "
         f"(tolerance {tol:.3g}), {ms4:.3f} ms ({dev4:.3f} queued) vs plain "
         f"{plain4:.3f}, two "
-        f"SDPA calls {lib4:.3f}, bound {t4:.4f} ({by4}; {t4r:.4f} with the "
+        f"SDPA calls {lib4['ms']:.3f} ({lib4['backend']}; 3-D "
+        f"{lib4['ms_3d']:.3f}), bound {t4:.4f} ({by4}; {t4r:.4f} with the "
         f"recompute); launch {launch4}")
     if not err <= tol:
         fail("bidirectional_attention differs from its plain version at 4096")
-    del add01
     for r in rows:
         log(f"  {r['name']}: {r['ms']:.3f} ms per {r['per']} vs plain "
-            f"{r['plain_ms']:.3f}, library {r['library_ms']:.3f}, bound "
+            f"{r['plain_ms']:.3f}, library {r['library_ms']:.3f} "
+            f"({r.get('library_backend', 'cuDNN')}), bound "
             f"{r['bound_ms']:.4f} ({r['bound_by']})")
     return rows, {"stem_decision": decision, "bf16_default": default,
                   "bidir_4096": {
                       "ms": ms4, "device_ms": dev4, "plain_ms": plain4,
-                      "library_ms": lib4,
+                      "library_ms": lib4["ms"],
+                      "library_backend": lib4["backend"],
+                      "library_3d_ms": lib4["ms_3d"],
                       "bound_ms": t4, "bound_by": by4,
                       "bound_ms_with_recompute": t4r, "max_abs_err": err,
                       "launch": launch4}}
@@ -1147,15 +1171,18 @@ def phase4():
 
 
 def phase1_dense(peaks):
-    """K14 (the q-tiled attention of the ViT blocks) against its plain
-    version at the dense path's shapes, timed beside K5 on the same bf16
-    inputs and one SDPA call; K3 through mha_auto at 1601 tokens."""
+    """K14 (the q-tiled attention of the ViT blocks): its SASS must hold
+    wgmma and TMA loads; against its plain version at the dense path's
+    shapes, with its launch plan, registers and spills; timed beside K5 on
+    the same bf16 inputs and SDPA's flash backend on the 4-D view. K3
+    through mha_auto at 1601 tokens."""
     import torch
-    import torch.nn.functional as F
 
     from imcui_tpu_torch.models.layers import full_fp32
     from imcui_tpu_torch.ops import attention
+    from imcui_tpu_torch.tools.attention_times import time_sdpa
 
+    sass = qtiled_sass()
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(5)
 
@@ -1182,20 +1209,26 @@ def phase1_dense(peaks):
             + 2.0 ** -9 * v.float().abs().max()
         over = int((diff > tol).sum())
         err, top = diff.max().item(), want.abs().max().item()
+        launch = qtiled_launch(h, nq, nk)
         log(f"  qtiled_attention [{name}: {h} x {nq} x {nk} x 64 bf16]: err "
             f"{err:.3g} (max|plain| {top:.3g}; {over} over 2^-7*max(1,|plain|)"
-            f" + 2^-9*max|v|)")
+            f" + 2^-9*max|v|); launch {launch}")
         if over or not torch.isfinite(got).all():
             fail(f"qtiled_attention [{name}] differs from its plain version")
         if nq != nk or h != 16:
             continue
         t = {"ms": cuda_ms(lambda: attention.qtiled_attention(q, k, v)),
+             "queued_ms": cuda_ms_queued(
+                 lambda: attention.qtiled_attention(q, k, v)),
              "plain_ms": cuda_ms(
                  lambda: attention.qtiled_attention_plain(q, k, v)),
              "k5_bf16_ms": cuda_ms(
-                 lambda: attention.flash_attention(q, k, v, None, h)),
-             "library_ms": cuda_ms(
-                 lambda: F.scaled_dot_product_attention(q, k, v))}
+                 lambda: attention.flash_attention(q, k, v, None, h))}
+        lib = library_sdpa((q, k, v))
+        t.update(library_ms=lib["ms"], library_backend=lib["backend"],
+                 library_3d_ms=lib["ms_3d"],
+                 library_queued_ms=time_sdpa(cuda_ms_queued, (q, k, v),
+                                             with_3d=False)["ms"])
         # once more in the other order: K5, K14
         t["k5_bf16_ms"] = (t["k5_bf16_ms"] + cuda_ms(
             lambda: attention.flash_attention(q, k, v, None, h))) / 2
@@ -1205,10 +1238,13 @@ def phase1_dense(peaks):
         nbytes = (2 * h * nq * 64 + 2 * h * nk * 64) * 2
         t["bound_ms"], t["bound_by"] = bound(flops, nbytes, peaks["bf16"],
                                              peaks)
+        t["launch"] = launch
         timed[name] = t
-        log(f"    {t['ms']:.3f} ms vs K5 on the same bf16 inputs "
-            f"{t['k5_bf16_ms']:.3f}, SDPA {t['library_ms']:.3f}, plain "
-            f"{t['plain_ms']:.3f}, bound {t['bound_ms']:.4f} "
+        log(f"    {t['ms']:.3f} ms ({t['queued_ms']:.4f} queued) vs K5 on the "
+            f"same bf16 inputs {t['k5_bf16_ms']:.3f}, SDPA "
+            f"{t['library_ms']:.4f} ({t['library_queued_ms']:.4f} queued; "
+            f"{t['library_backend']}; 3-D call {t['library_3d_ms']:.3f}), "
+            f"plain {t['plain_ms']:.3f}, bound {t['bound_ms']:.4f} "
             f"({t['bound_by']})")
         if name == "dinov2-560":
             main = {"max_abs_err": err, "rel_err": err / top, **t}
@@ -1217,7 +1253,7 @@ def phase1_dense(peaks):
         "source": "imcui_tpu_torch/csrc/qtiled_attention.cu",
         "replaces": "tools/try_vit_attn.py:27",
         "tolerance": "2^-7*max(1,|plain|) + 2^-9*max|v| (bf16)", **main,
-        "at_16x1024": timed["vit 16 x 1024"],
+        "sass": sass, "at_16x1024": timed["vit 16 x 1024"],
         "per": f"launch at {D_HEADS} x {D_TOKENS} x {D_TOKENS} x 64 bf16 "
                f"(one DINOv2 block of one view)"}
 
@@ -1242,7 +1278,7 @@ def phase1_dense(peaks):
             q, k, v, ones, D_HEADS))
         ms3 = (ms3 + cuda_ms(lambda: attention.mha_auto(q, k, v))) / 2
         dev3 = cuda_ms_queued(lambda: attention.mha_auto(q, k, v))
-    lib3 = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+    lib3 = library_sdpa((q, k, v))
     t3, by3 = bound(4.0 * D_HEADS * D_TOKENS ** 2 * 64,
                     4 * D_HEADS * D_TOKENS * 64 * 4, peaks["fp32"], peaks)
     launch3 = attention_launch("fused", D_HEADS, D_TOKENS)
@@ -1250,13 +1286,16 @@ def phase1_dense(peaks):
         f"f32]: err {err:.3g} (tolerance 1e-5*max(1,|plain|), max|plain| "
         f"{top:.3g}), {ms3:.3f} ms ({dev3:.3f} queued) vs plain mha "
         f"{plain3:.3f} and "
-        f"fused_attention_plain {plain3_masked:.3f}, SDPA {lib3:.3f}, "
+        f"fused_attention_plain {plain3_masked:.3f}, SDPA {lib3['ms']:.3f} "
+        f"({lib3['backend']}; 3-D call {lib3['ms_3d']:.3f}), "
         f"bound {t3:.4f} ({by3}); launch {launch3}")
     if not err <= 1e-5 * max(1.0, top):
         fail("fused_attention at 1601 tokens differs from the plain mha")
     k3_at_1601 = {"max_abs_err": err, "ms": ms3, "device_ms": dev3,
                   "plain_ms": plain3,
-                  "plain_masked_ms": plain3_masked, "library_ms": lib3,
+                  "plain_masked_ms": plain3_masked,
+                  "library_ms": lib3["ms"], "library_backend": lib3["backend"],
+                  "library_3d_ms": lib3["ms_3d"],
                   "bound_ms": t3, "bound_by": by3, "launch": launch3}
     return row, k3_at_1601
 
@@ -1533,10 +1572,10 @@ def _probe_library(x, w, probe):
     return lambda: mm(a, b)
 
 
-def tap_matmul_sass():
-    """Counts of the P_SASS instructions in each tap_matmul kernel of the
-    built library (cuobjdump -sass), by type; fails the run if a kernel
-    lacks one of its type's, or a type has no kernel."""
+def kernel_sass(fragment, ops):
+    """Counts of each SASS instruction of ``ops`` in every kernel of the
+    built library whose name holds ``fragment`` (cuobjdump -sass):
+    {mangled name: {op: count}}."""
     import re
     from pathlib import Path
 
@@ -1546,15 +1585,22 @@ def tap_matmul_sass():
     tool = Path(_build._nvcc()).parent / "cuobjdump"
     sass = subprocess.run([str(tool), "-sass", str(_build.library_path())],
                           capture_output=True, text=True, check=True).stdout
-    ops = sorted(set(sum(P_SASS.values(), ())))
     counts = {}
     for part in sass.split("Function : ")[1:]:
         name = part.split("\n", 1)[0].strip()
-        if "tap_matmul_kernel" not in name:
-            continue
-        dtype = "bf16" if "bfloat16" in name else "int8"
-        counts[dtype] = {op: len(re.findall(rf"\b{op}\b", part))
-                         for op in ops}
+        if fragment in name:
+            counts[name] = {op: len(re.findall(rf"\b{op}\b", part))
+                            for op in ops}
+    return counts
+
+
+def tap_matmul_sass():
+    """Counts of the P_SASS instructions in each tap_matmul kernel of the
+    built library, by type; fails the run if a kernel lacks one of its
+    type's, or a type has no kernel."""
+    ops = sorted(set(sum(P_SASS.values(), ())))
+    counts = {"bf16" if "bfloat16" in name else "int8": c for name, c in
+              kernel_sass("tap_matmul_kernel", ops).items()}
     log(f"  tap_matmul SASS: {counts}")
     for dtype, needed in P_SASS.items():
         missing = [op for op in needed if not counts.get(dtype, {}).get(op)]
@@ -1562,6 +1608,19 @@ def tap_matmul_sass():
             fail(f"tap_matmul {dtype} kernel: no {', '.join(missing)} in "
                  f"its SASS")
     return counts
+
+
+def qtiled_sass():
+    """Counts of the Q_SASS instructions in the K14 kernel; fails the run if
+    the library holds none, or it lacks wgmma or TMA loads."""
+    found = list(kernel_sass("qtiled_attention_kernel", Q_SASS).values())
+    log(f"  qtiled_attention SASS: {found}")
+    if len(found) != 1:
+        fail(f"qtiled_attention: {len(found)} kernels in the built library")
+    missing = [op for op in Q_SASS if not found[0][op]]
+    if missing:
+        fail(f"qtiled_attention: no {', '.join(missing)} in its SASS")
+    return found[0]
 
 
 def phase6(peaks):

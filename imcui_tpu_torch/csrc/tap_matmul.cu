@@ -69,8 +69,10 @@
 //   warpgroup measured no faster, and two w stages slowed the tail.
 //
 // The C entry points encode the three tensor maps on every call, with
-// cuTensorMapEncodeTiled taken from the driver at run time (no -lcuda),
-// and pass them as __grid_constant__ parameters.
+// cuTensorMapEncodeTiled taken from the driver at run time (no -lcuda,
+// hopper.cuh), and pass them as __grid_constant__ parameters. The mbarrier,
+// TMA-load and wgmma helpers are hopper.cuh's, shared with
+// qtiled_attention.cu.
 
 #include <cuda.h>
 #include <cudaTypedefs.h>
@@ -81,6 +83,7 @@
 #include <mutex>
 
 #include "errors.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -125,50 +128,6 @@ static_assert(Smem<__nv_bfloat16>::BYTES <= 232448, "bf16 shared memory");
 static_assert(Smem<int8_t>::BYTES <= 232448, "int8 shared memory");
 
 // ---------------------------------------------------------------- PTX
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-// Until the phase of parity `parity` has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@!p bra WAIT;\n"
-      "}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         int c0, int c1, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
-      : "memory");
-}
 
 // The same box into L2 only, ahead of its load.
 __device__ __forceinline__ void tma_prefetch(const CUtensorMap* map, int c0,
@@ -221,65 +180,6 @@ __device__ __forceinline__ void st_shared(uint32_t addr, uint32_t v) {
   asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
 }
 
-// wgmma descriptor of a K-major tile with 128-byte swizzle: 8-row groups
-// 1024 B apart; the start address moves along K inside the swizzle atom.
-__device__ __forceinline__ uint64_t desc(uint32_t addr) {
-  return (uint64_t(1) << 62) | (uint64_t(1024 >> 4) << 32) |
-         (uint64_t(1) << 16) | uint64_t((addr & 0x3FFFF) >> 4);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Keeps the compiler from moving accumulator accesses across the
-// asynchronous products.
-__device__ __forceinline__ void fence_acc(float (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-__device__ __forceinline__ void fence_acc(int (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+r"(d[i])::"memory");
-}
-
-#define ACC8(C, d, i)                                                  \
-  C(d[i]), C(d[i + 1]), C(d[i + 2]), C(d[i + 3]), C(d[i + 4]),         \
-      C(d[i + 5]), C(d[i + 6]), C(d[i + 7])
-#define ACC64(C, d)                                                    \
-  ACC8(C, d, 0), ACC8(C, d, 8), ACC8(C, d, 16), ACC8(C, d, 24),        \
-      ACC8(C, d, 32), ACC8(C, d, 40), ACC8(C, d, 48), ACC8(C, d, 56)
-#define REGS64                                                         \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "  \
-  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "   \
-  "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "   \
-  "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "   \
-  "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
-
-// d (+)= A (64 x 16, K-major) * B (16 x 128, K-major); scale 0 drops d.
-__device__ __forceinline__ void mma(float (&d)[64], uint64_t a, uint64_t b,
-                                    int scale) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " REGS64
-      ", %64, %65, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : ACC64("+f", d)
-      : "l"(a), "l"(b), "r"(scale));
-}
-
 // d (+)= A (64 x 32, K-major) * B (32 x 128, K-major), int8 in, int32 sums.
 __device__ __forceinline__ void mma(int (&d)[64], uint64_t a, uint64_t b,
                                     int scale) {
@@ -292,12 +192,6 @@ __device__ __forceinline__ void mma(int (&d)[64], uint64_t a, uint64_t b,
       "}\n"
       : ACC64("+r", d)
       : "l"(a), "l"(b), "r"(scale));
-}
-
-// Two neighbouring outputs as bf16x2, the lower column in the low half.
-__device__ __forceinline__ uint32_t pack(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
 // |v| <= 2^22 as a float, exactly and without a conversion instruction:
@@ -479,41 +373,6 @@ __global__ void __launch_bounds__(THREADS, 1)
 }
 
 // ---------------------------------------------------------------- host
-
-static_assert(CUDART_VERSION >= 12050,
-              "tap_matmul needs CUDA 12.5 or later "
-              "(cudaGetDriverEntryPointByVersion)");
-
-PFN_cuTensorMapEncodeTiled encoder() {
-  static const PFN_cuTensorMapEncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-    return e == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<PFN_cuTensorMapEncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// A row-major (rows, cols) tensor read or written in (box_rows, box_cols)
-// boxes of 128-byte rows, 128-byte swizzle; rows past `rows` zero-filled
-// on load and clipped on store.
-bool encode(CUtensorMap* map, CUtensorMapDataType type, const void* ptr,
-            uint64_t rows, uint64_t cols, uint64_t row_bytes,
-            uint32_t box_rows, uint32_t box_cols) {
-  const PFN_cuTensorMapEncodeTiled fn = encoder();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[2] = {cols, rows};
-  const cuuint64_t strides[1] = {row_bytes};
-  const cuuint32_t box[2] = {box_cols, box_rows};
-  const cuuint32_t step[2] = {1, 1};
-  return fn(map, type, 2, const_cast<void*>(ptr), dims, strides, box, step,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
 
 // SMs of `device`, after the kernel's shared-memory limit is raised there
 // (once per device); a negative cudaError_t on failure.

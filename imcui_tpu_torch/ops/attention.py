@@ -232,9 +232,8 @@ def qtiled_attention(q, k, v):
         return qtiled_attention_plain(q, k, v)
     if dh != 64 or nk > QTILED_MAX_KEYS or nk < 1:
         raise ValueError(f"qtiled_attention takes Dh = 64 and 1 to "
-                         f"{QTILED_MAX_KEYS} keys (a query tile's whole "
-                         f"logit row lives in shared memory); got "
-                         f"{tuple(q.shape)} over {tuple(k.shape)}")
+                         f"{QTILED_MAX_KEYS} keys (mha_auto's route to it); "
+                         f"got {tuple(q.shape)} over {tuple(k.shape)}")
     _build.require(q, "q", torch.bfloat16, (h, nq, 64))
     _build.require(k, "k", torch.bfloat16, (h, nk, 64))
     _build.require(v, "v", torch.bfloat16, (h, nk, 64))
@@ -248,9 +247,24 @@ def qtiled_attention(q, k, v):
 
 
 qtiled_attention.launches = 0
-# keys whose f32 logits a 16-query tile holds in one block's shared memory
-# (csrc/qtiled_attention.cu; up to 1744 keys the kernel takes 32-query tiles)
+# the most keys mha_auto sends to K14 (the JAX gate's bound; the kernel's
+# online softmax itself has no limit on the keys)
 QTILED_MAX_KEYS = 2048
+
+
+def qtiled_plan(h, nq, nk):
+    """The launch K14 takes on the current card for H heads of Nq queries
+    over Nk keys: query rows a CTA (one consumer warpgroup), CTAs, CTAs an
+    SM holds, SMs, the rounds that makes, and the query rows the busiest SM
+    walks."""
+    out = (ctypes.c_int * 4)()
+    code = _build.library().qtiled_attention_plan(
+        h, nq, nk, ctypes.cast(out, ctypes.c_void_p))
+    _build.check(code, "qtiled_attention_plan")
+    rows, ctas, per_sm, sms = out
+    return {"rows_per_cta": rows, "ctas": ctas, "ctas_per_sm": per_sm,
+            "sms": sms, "rounds": ctas / (per_sm * sms),
+            "busiest_sm_rows": -(-ctas // sms) * rows}
 
 
 def mha_wide(q, k, v):

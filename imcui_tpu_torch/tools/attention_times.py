@@ -1,24 +1,31 @@
-"""Times of the f32 attention kernels K3 (``fused_attention``) and K4
-(``bidirectional_attention``, both ``csrc/attention.cu``) on the card, at
-the shapes the serving paths give them:
+"""Times of the attention kernels on the card, at the shapes the serving
+paths give them:
 
-    python -m imcui_tpu_torch.tools.attention_times [--plain]
+    python -m imcui_tpu_torch.tools.attention_times [--plain] [--only K14]
 
-- K3 at 16 x 1601 x 64 through ``mha_auto`` (a DINOv2 block at 560², the
-  f32 dense path), unmasked;
+- K3 (``fused_attention``, ``csrc/attention.cu``) at 16 x 1601 x 64
+  through ``mha_auto`` (a DINOv2 block at 560², the f32 dense path),
+  unmasked;
 - K3 at 32 x 1024 x 64 with key masks (LightGlue self-attention on the
   turbo path: 8 images x 4 heads);
-- K4 at 16 x 1024 x 1024 (turbo cross-attention: 4 pairs x 4 heads) and at
-  4 x 4096 x 4096 (the general path: one pair), with key masks.
+- K4 (``bidirectional_attention``, the same source) at 16 x 1024 x 1024
+  (turbo cross-attention: 4 pairs x 4 heads) and at 4 x 4096 x 4096 (the
+  general path: one pair), with key masks;
+- K14 (``qtiled_attention``, ``csrc/qtiled_attention.cu``) at 16 x 1601 x
+  64 (a DINOv2 block at 560², the bf16 dense path) and 16 x 1024 x 64,
+  bf16.
 
 Each shape is timed two ways, in ms: ``ms`` is the median of 20 launches
 each between its own pair of CUDA events, as ``chip_smoke.py`` times every
 kernel (it counts the wrapper's host time, since each launch finds the
-card idle); ``queued_ms`` is 20 launches queued between one pair of
-events, over 20 (the kernel alone). ``--plain`` adds the plain versions
-and one SDPA call. Prints one JSON object: the card and its power limit,
-then a record per shape with the launch plan where the package has one.
-Use it to time one build against another in one call, in turns.
+card idle); ``queued_ms`` is 20 launches queued behind a spin kernel
+between one pair of events, over 20 (the kernel alone). ``--plain`` adds the plain versions
+and the library call: SDPA on a 4-D view of the same inputs on the fused
+backend that takes it (``time_sdpa``), beside the 3-D call earlier records
+timed, which only SDPA's unfused math path takes. Prints one JSON object:
+the card and its power limit, then a record per shape with the launch plan.
+``--only PREFIX`` keeps the shapes whose name starts with PREFIX. Use it to
+time one build against another in one call, in turns.
 """
 
 import json
@@ -37,17 +44,88 @@ ITERS = 20
 
 def queued_ms(fn, iters=ITERS, warmup=3):
     """Device ms of one call of ``fn`` from ``iters`` calls queued between
-    two CUDA events."""
+    two CUDA events behind a spin kernel (``torch.cuda._sleep``) that lasts
+    until the host has queued them all, so that a kernel shorter than its
+    wrapper's host time is timed alone too; the spin doubles until it does
+    (the start event still pending once the last call is queued)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
+    cycles = 1 << 21
+    while True:
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        behind = not start.query()
+        end.synchronize()
+        if behind or cycles >= 1 << 28:
+            return start.elapsed_time(end) / iters
+        cycles *= 2
+
+
+def sdpa_views(q, k, v, key_mask=None, heads=1):
+    """The arguments of one SDPA call that computes the port's attention of
+    (S, N, Dh) head-sequences: a 4-D view, (1, S, N, Dh) without a mask,
+    else (B, heads, N, Dh) with ``key_mask`` (B, Nk) bool as an additive
+    mask (B, 1, 1, Nk) of 0 and -1e9 in q's dtype. PyTorch's fused SDPA
+    backends take only 4-D inputs."""
+    if key_mask is None:
+        return q[None], k[None], v[None], None
+    b = key_mask.shape[0]
+    views = (t.view(b, heads, *t.shape[1:]) for t in (q, k, v))
+    add = torch.zeros(key_mask.shape, dtype=q.dtype, device=q.device)
+    add.masked_fill_(~key_mask, attention.NEG_INF)
+    return (*views, add[:, None, None, :])
+
+
+def _sdpa_3d(q, k, v, key_mask=None, heads=1):
+    """The 3-D form of the same call, with the mask expanded to (S, Nq,
+    Nk): what the records timed before the 4-D views."""
+    if key_mask is None:
+        return F.scaled_dot_product_attention(q, k, v)
+    add = torch.where(key_mask.repeat_interleave(heads, 0), 0.0,
+                      attention.NEG_INF)[:, None, :].to(q.dtype)
+    return F.scaled_dot_product_attention(
+        q, k, v, attn_mask=add.expand(q.shape[0], q.shape[1], k.shape[1]))
+
+
+def time_sdpa(timer, *calls, with_3d=True):
+    """The library time of a kernel launch: ``calls`` are the (q, k, v,
+    key_mask, heads) of the SDPA calls that compute it, each on its 4-D
+    view, timed together by ``timer`` under the fused backend that takes
+    them: flash for unmasked bf16/fp16, memory-efficient for float32 and
+    masked calls. Where that backend refuses one, the math path is timed
+    and named. Returns {"ms", "backend", "ms_3d"}, ``ms_3d`` being the
+    3-D calls' time (SDPA's math path; None unless ``with_3d``)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    views = [sdpa_views(*c) for c in calls]
+    fused = {SDPBackend.FLASH_ATTENTION
+             if add is None and q.dtype in (torch.float16, torch.bfloat16)
+             else SDPBackend.EFFICIENT_ATTENTION
+             for q, _, _, add in views}
+    fused = sorted(fused, key=lambda b: b.name)
+
+    def run():
+        return [F.scaled_dot_product_attention(q, k, v, attn_mask=add)
+                for q, k, v, add in views]
+
+    try:
+        with sdpa_kernel(fused):
+            run()
+            torch.cuda.synchronize()
+            ms = timer(run)
+        backend = "+".join(b.name.lower() for b in fused)
+    except RuntimeError as exc:
+        with sdpa_kernel([SDPBackend.MATH]):
+            ms = timer(run)
+        backend = (f"math ({'+'.join(b.name.lower() for b in fused)} "
+                   f"refused: {str(exc).splitlines()[0][:80]})")
+    ms_3d = timer(lambda: [_sdpa_3d(*c) for c in calls]) if with_3d else None
+    return {"ms": ms, "backend": backend, "ms_3d": ms_3d}
 
 
 def _masks(b, n, dev):
@@ -59,39 +137,38 @@ def _masks(b, n, dev):
 
 
 def cases(dev, gen):
-    """(name, kernel call, plain call, SDPA call, plan arguments)."""
-    def rnd(s, n, scale=2.0):
-        return torch.randn((s, n, 64), generator=gen, device=dev) * scale
+    """(name, kernel call, plain call, SDPA calls, launch plan thunk)."""
+    def rnd(s, n, scale=2.0, dtype=torch.float32):
+        return (torch.randn((s, n, 64), generator=gen, device=dev) * scale
+                ).to(dtype)
 
     q, k, v = (rnd(16, 1601, 1.0) for _ in range(3))
     yield ("K3 16x1601 mha_auto", lambda: attention.mha_auto(q, k, v),
-           lambda: attention.mha(q, k, v),
-           lambda: F.scaled_dot_product_attention(q, k, v), (16, 1601))
+           lambda: attention.mha(q, k, v), [(q, k, v)],
+           lambda: attention.attention_plan(16, 1601))
     m8 = _masks(8, 1024, dev)
-    add = torch.where(m8.repeat_interleave(4, 0), 0.0, -1e9)[:, None, :]
     q3, k3, v3 = (rnd(32, 1024) for _ in range(3))
     yield ("K3 32x1024 turbo",
            lambda: attention.fused_attention(q3, k3, v3, m8, 4),
            lambda: attention.fused_attention_plain(q3, k3, v3, m8, 4),
-           lambda: F.scaled_dot_product_attention(
-               q3, k3, v3, attn_mask=add.expand(32, 1024, 1024)),
-           (32, 1024))
+           [(q3, k3, v3, m8, 4)], lambda: attention.attention_plan(32, 1024))
     for s, n in ((16, 1024), (4, 4096)):
         b = s // 4
         m0, m1 = _masks(b, n, dev), _masks(b, n, dev).flip(1)
         a0, a1, v0, v1 = (rnd(s, n) for _ in range(4))
-        add01 = torch.where(m1.repeat_interleave(4, 0), 0.0, -1e9)[:, None, :]
-        add10 = torch.where(m0.repeat_interleave(4, 0), 0.0, -1e9)[:, None, :]
         yield (f"K4 {s}x{n}x{n}",
                lambda: attention.bidirectional_attention(a0, a1, v0, v1, m0,
                                                          m1, 4),
                lambda: attention.bidirectional_attention_plain(
                    a0, a1, v0, v1, m0, m1, 4),
-               lambda: (F.scaled_dot_product_attention(
-                   a0, a1, v1, attn_mask=add01.expand(s, n, n)),
-                   F.scaled_dot_product_attention(
-                       a1, a0, v0, attn_mask=add10.expand(s, n, n))),
-               (s, n, n))
+               [(a0, a1, v1, m1, 4), (a1, a0, v0, m0, 4)],
+               lambda: attention.attention_plan(s, n, n))
+    for n in (1601, 1024):
+        qb, kb, vb = (rnd(16, n, 1.5, torch.bfloat16) for _ in range(3))
+        yield (f"K14 16x{n} bf16",
+               lambda: attention.qtiled_attention(qb, kb, vb),
+               lambda: attention.qtiled_attention_plain(qb, kb, vb),
+               [(qb, kb, vb)], lambda: attention.qtiled_plan(16, n, n))
 
 
 def main(argv=None):
@@ -107,14 +184,21 @@ def main(argv=None):
     gen = torch.Generator(device=dev).manual_seed(1)
     out = {"card": smi, "cases": {}}
     with full_fp32():
-        for name, kernel, plain, sdpa, plan in cases(dev, gen):
+        only = argv[argv.index("--only") + 1] if "--only" in argv else ""
+        for name, kernel, plain, sdpa_calls, plan in cases(dev, gen):
+            if not name.startswith(only):
+                continue
             rec = {"ms": event_ms(kernel, ITERS, 3),
                    "queued_ms": queued_ms(kernel)}
             if "--plain" in argv:
                 rec["plain_ms"] = event_ms(plain, ITERS, 3)
-                rec["library_ms"] = event_ms(sdpa, ITERS, 3)
-            if hasattr(attention, "attention_plan"):
-                rec["plan"] = attention.attention_plan(*plan)
+                lib = time_sdpa(lambda f: event_ms(f, ITERS, 3), *sdpa_calls)
+                rec.update(library_ms=lib["ms"],
+                           library_backend=lib["backend"],
+                           library_3d_ms=lib["ms_3d"],
+                           library_queued_ms=time_sdpa(
+                               queued_ms, *sdpa_calls, with_3d=False)["ms"])
+            rec["plan"] = plan()
             out["cases"][name] = rec
     print(json.dumps(out), flush=True)
 

@@ -232,3 +232,56 @@ def test_attention_times_refuses_without_a_card():
     from imcui_tpu_torch.tools import attention_times
     with pytest.raises(SystemExit, match="needs a CUDA device"):
         attention_times.main([])
+
+
+@pytest.mark.parametrize("kernel", ["fused", "bidirectional", "flash",
+                                    "qtiled"])
+def test_sdpa_views_compute_each_kernels_function(kernel):
+    """The library yardstick of K3, K4, K5 and K14 (tools/attention_times:
+    one SDPA call per product on the 4-D views ``sdpa_views`` makes, which
+    the fused backends take) computes the kernel's function: against its
+    plain version, here through SDPA's math path on the CPU, 1e-5 of
+    max(1, |plain|), including an image whose keys are all masked. K14's
+    bf16 inputs go through SDPA widened to float32, against K14's rounded
+    output: 2⁻⁷·max(1, |plain|), one bf16 step."""
+    from imcui_tpu_torch.tools.attention_times import sdpa_views
+    import torch.nn.functional as F
+
+    rng = np.random.default_rng(11)
+    b, n, m = 3, 40, 56
+    t = lambda *shape: torch.from_numpy(_rand(rng, *shape))  # noqa: E731
+    mask_n, mask_m = (torch.from_numpy(_masks(b, r, rng)) for r in (n, m))
+
+    def sdpa(q, k, v, key_mask):
+        views = sdpa_views(q, k, v, key_mask, HEADS)
+        assert all(x.dim() == 4 for x in views)
+        return F.scaled_dot_product_attention(*views[:3], attn_mask=views[3]
+                                              ).reshape(q.shape)
+
+    if kernel == "fused":
+        q, k, v = t(b * HEADS, n, 64), t(b * HEADS, n, 64), t(b * HEADS, n, 64)
+        pairs = [(sdpa(q, k, v, mask_n),
+                  ta.fused_attention_plain(q, k, v, mask_n, HEADS))]
+    elif kernel == "bidirectional":
+        a0, v0 = t(b * HEADS, n, 64), t(b * HEADS, n, 64)
+        a1, v1 = t(b * HEADS, m, 64), t(b * HEADS, m, 64)
+        want = ta.bidirectional_attention_plain(a0, a1, v0, v1, mask_n,
+                                                mask_m, HEADS)
+        pairs = [(sdpa(a0, a1, v1, mask_m), want[0]),
+                 (sdpa(a1, a0, v0, mask_n), want[1])]
+    elif kernel == "flash":
+        q, k, v = t(b * HEADS, n, 64), t(b * HEADS, m, 64), t(b * HEADS, m, 64)
+        pairs = [(sdpa(q, k, v, mask_m),
+                  ta.flash_attention_plain(q, k, v, mask_m, HEADS))]
+    else:
+        q, k, v = (t(16, r, 64).to(torch.bfloat16) for r in (n, m, m))
+        views = sdpa_views(q.float(), k.float(), v.float())
+        assert all(x.dim() == 4 for x in views[:3]) and views[3] is None
+        got = F.scaled_dot_product_attention(*views[:3])[0]
+        want = ta.qtiled_attention_plain(q, k, v).float()
+        assert bool(((got - want).abs()
+                     <= 2.0 ** -7 * want.abs().clamp_min(1.0)).all())
+        return
+    for got, want in pairs:
+        assert float((got - want).abs().max()) <= 1e-5 * max(
+            1.0, float(want.abs().max()))

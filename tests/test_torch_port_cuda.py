@@ -343,24 +343,101 @@ def test_image_matching_api_on_card(gen):
     assert np.median(err) <= chip_smoke.GATE_MEDIAN_PX
 
 
-@pytest.mark.parametrize("h,nq,nk", [
+# K14's shapes: the dense path's; one key (tile) and one query; keys on
+# both sides of the 64- and 128-key edges and at the route's limit; queries
+# on both sides of the 64-row CTA's edges, and ragged against the 128- and
+# 192-row multiples; and heads enough for several rounds of CTAs (64 x 1000:
+# 1024 CTAs, two an SM on 132 SMs).
+QTILED_SHAPES = [
     (16, 1601, 1601), (12, 1024, 1024), (3, 50, 77), (2, 197, 197),
-    (1, 1, 1), (2, 33, 2048), (4, 1024, 16)])
+    (1, 1, 1), (2, 33, 2048), (4, 1024, 16),
+    (3, 65, 63), (3, 129, 64), (3, 191, 65), (5, 127, 127), (5, 255, 128),
+    (5, 257, 129), (2, 1000, 2048), (16, 4607, 129), (16, 4609, 65),
+    (64, 1000, 63)]
+
+
+def _qtiled_inputs(gen, h, nq, nk):
+    """bf16 q, k, v whose heads differ in scale: the logits by up to 4x and
+    v by 16x from head to head, so that a read across a head boundary
+    shows against the head's own tolerance."""
+    g = torch.tensor([0.5, 1.0, 2.0], device="cuda")[torch.arange(h) % 3]
+    gv = torch.tensor([1.0, 16.0, 1 / 16], device="cuda")[torch.arange(h) % 3]
+    q, k, v = (torch.randn((h, n, 64), generator=gen, device="cuda") * 1.5
+               for n in (nq, nk, nk))
+    return ((q * g[:, None, None]).to(torch.bfloat16),
+            (k * g[:, None, None]).to(torch.bfloat16),
+            (v * gv[:, None, None]).to(torch.bfloat16))
+
+
+def _assert_qtiled_close(got, q, k, v):
+    """One bf16 rounding of the output, 2^-7 * max(1, |plain|), plus 2^-9 *
+    max|v| of the head for the weights the kernel rounds to bf16 before its
+    tensor-core readout."""
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    want = attention.qtiled_attention_plain(q, k, v).float()
+    tol = 2.0 ** -7 * want.abs().clamp_min(1.0) \
+        + 2.0 ** -9 * v.float().abs().amax((1, 2), keepdim=True)
+    assert bool(((got.float() - want).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("h,nq,nk", QTILED_SHAPES)
 def test_qtiled_attention_kernel_matches_plain(gen, h, nq, nk):
-    """bf16 in and out. One bf16 rounding of the output, 2^-7 * max(1,
-    |plain|), plus 2^-9 * max|v| for the weights the kernel rounds to bf16
-    before its tensor-core readout."""
-    q, k, v = ((torch.randn((h, n, 64), generator=gen, device="cuda") * 1.5
-                ).to(torch.bfloat16) for n in (nq, nk, nk))
+    """bf16 in and out, within _assert_qtiled_close's tolerance."""
+    q, k, v = _qtiled_inputs(gen, h, nq, nk)
     before = attention.qtiled_attention.launches
     got = attention.qtiled_attention(q, k, v)
     torch.cuda.synchronize()
     assert attention.qtiled_attention.launches == before + 1
-    assert got.dtype == torch.bfloat16 and got.shape == q.shape
-    want = attention.qtiled_attention_plain(q, k, v).float()
-    tol = 2.0 ** -7 * want.abs().clamp_min(1.0) \
-        + 2.0 ** -9 * v.float().abs().max()
-    assert bool(((got.float() - want).abs() <= tol).all())
+    _assert_qtiled_close(got, q, k, v)
+
+
+def test_qtiled_attention_plan_covers_every_row(gen):
+    """The launch plan: CTAs of 64 query rows covering every row of every
+    head, two of them an SM (the design's occupancy, which the registers
+    and shared memory of the built kernel must allow)."""
+    for h, nq, nk in QTILED_SHAPES:
+        plan = attention.qtiled_plan(h, nq, nk)
+        assert plan["rows_per_cta"] == 64
+        assert plan["ctas"] == h * -(-nq // 64)
+        assert plan["ctas_per_sm"] == 2
+        assert plan["busiest_sm_rows"] == -(-plan["ctas"] // plan["sms"]) * 64
+
+
+@pytest.mark.parametrize("where", ["first", "last"])
+@pytest.mark.parametrize("nk", [129, 1601])
+def test_qtiled_attention_peak_in_first_or_last_key_tile(gen, where, nk):
+    """Rows whose largest logit lies in the first key tile, and rows whose
+    largest lies in the last (ragged) one, where the running maximum jumps
+    and the sum and the output are rescaled. The first 64 rows of each head
+    lie near one direction u and the peak key is along u, with a logit of
+    ~12 against ~N(0, 2.25) for the others, so the rest still weigh in."""
+    h, nq = 3, 200
+    q, k, v = (torch.randn((h, n, 64), generator=gen, device="cuda") * 1.5
+               for n in (nq, nk, nk))
+    u = torch.randn((h, 1, 64), generator=gen, device="cuda") * 1.5
+    key = 0 if where == "first" else nk - 1
+    q[:, :64] = u + 0.1 * q[:, :64]
+    k[:, key] = (96.0 / (u * u).sum(-1)) * u[:, 0]
+    q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+    logits = torch.matmul(q.float(), k.float().transpose(1, 2)) / 8
+    assert bool((logits[:, :64].argmax(-1) == key).all())
+    got = attention.qtiled_attention(q, k, v)
+    torch.cuda.synchronize()
+    _assert_qtiled_close(got, q, k, v)
+
+
+def test_qtiled_attention_back_to_back_launches(gen):
+    """Two launches at different shapes (other plans and tensor maps)
+    queued on one stream before either output is read: both match."""
+    a = _qtiled_inputs(gen, 16, 1601, 1601)
+    b = _qtiled_inputs(gen, 5, 257, 129)
+    before = attention.qtiled_attention.launches
+    got_a = attention.qtiled_attention(*a)
+    got_b = attention.qtiled_attention(*b)
+    torch.cuda.synchronize()
+    assert attention.qtiled_attention.launches == before + 2
+    _assert_qtiled_close(got_a, *a)
+    _assert_qtiled_close(got_b, *b)
 
 
 def test_qtiled_attention_peaked_rows_and_refusals(gen):

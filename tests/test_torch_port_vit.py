@@ -58,18 +58,21 @@ def _f32(x):
 # K14: the q-tiled attention
 # --------------------------------------------------------------------------
 
-def _pallas_qtiled(q, k, v, nk_valid, blk_q=64):
+def _pallas_qtiled(q, k, v, nk_valid, blk_q=64, blk_k=None):
     """The kernel body K14 replaces (``_flash_attn_kernel`` with
     blk_k = nk, n_k = 1), built as tools/try_vit_attn.py builds it and run
     in interpret mode; keys from ``nk_valid`` on are masked, as
-    ``mha_auto`` masks its padding."""
+    ``mha_auto`` masks its padding. With ``blk_k`` the same body walks
+    nk / blk_k key blocks with its online softmax, the form the CUDA
+    kernel computes over 128-key tiles."""
     h, nq, dh = q.shape
     nk = k.shape[1]
+    blk_k = blk_k or nk
     maskf = jnp.broadcast_to(
         (jnp.arange(nk) < nk_valid).astype(jnp.float32)[None, None],
         (h, 1, nk))
-    kernel = functools.partial(ja._flash_attn_kernel, blk_k=nk, n_k=1,
-                               scale=1.0 / dh ** 0.5)
+    kernel = functools.partial(ja._flash_attn_kernel, blk_k=blk_k,
+                               n_k=nk // blk_k, scale=1.0 / dh ** 0.5)
     return pl.pallas_call(
         kernel, out_shape=jax.ShapeDtypeStruct(q.shape, q.dtype),
         grid=(h, nq // blk_q),
@@ -100,6 +103,35 @@ def test_qtiled_attention_plain_matches_pallas_and_mha(h, n):
     for ref in (want, want_mha):
         tol = 2.0 ** -7 * np.maximum(1.0, np.abs(ref))
         assert (np.abs(got - ref) <= tol).all(), np.abs(got - ref).max()
+
+
+@pytest.mark.parametrize("blk_k", [64, 128])
+@pytest.mark.parametrize("h,n", [(2, 197), (2, 256)])
+def test_online_softmax_over_key_blocks_keeps_the_contract(h, n, blk_k):
+    """K14's CUDA kernel runs the softmax online over key tiles. The JAX
+    body run with several key blocks (n_k = 256 / blk_k, keys past n
+    masked as ``mha_auto`` masks its padding) is that computation, and
+    stays within K14's tolerance of the one-pass plain version:
+    2⁻⁷·max(1, |plain|) + 2⁻⁹·max|v|. Query 0 of each head has its
+    largest logit, ~12 against ~N(0, 2.25), in the last key block, so its
+    running maximum jumps there and the sum and the output are rescaled;
+    query 1 has it in the first block."""
+    rng = np.random.default_rng(n + blk_k)
+    q, k, v = ((rng.normal(size=(h, n, 64)) * 1.5).astype(np.float32)
+               for _ in range(3))
+    for row, key in ((0, n - 1), (1, 0)):
+        k[:, key] = 96.0 / (q[:, row] ** 2).sum(-1, keepdims=True) * q[:, row]
+    (jq, tq), (jk, tk), (jv, tv) = _bf16(q), _bf16(k), _bf16(v)
+    logits = _f32(jq) @ _f32(jk).transpose(0, 2, 1) / 8
+    assert (logits[:, 0].argmax(-1) == n - 1).all()
+    assert (logits[:, 1].argmax(-1) == 0).all()
+    pad = ((0, 0), (0, 256 - n), (0, 0))
+    got = _f32(_pallas_qtiled(jnp.pad(jq, pad), jnp.pad(jk, pad),
+                              jnp.pad(jv, pad), n, blk_k=blk_k))[:, :n]
+    want = _f32(ta.qtiled_attention_plain(tq, tk, tv))
+    tol = 2.0 ** -7 * np.maximum(1.0, np.abs(want)) \
+        + 2.0 ** -9 * np.abs(_f32(tv)).max()
+    assert (np.abs(got - want) <= tol).all(), np.abs(got - want).max()
 
 
 def test_qtiled_attention_plain_cross_shape():
