@@ -9,8 +9,9 @@ Phases, each of which passes or ends the run with a non-zero exit:
      against its plain PyTorch version, timed beside it, beside a PyTorch
      library call of the same function where one exists (for attention,
      SDPA on a 4-D view on the fused backend that takes it), and beside the
-     least time the card could take (its bound); K14's SASS must hold wgmma
-     and TMA loads (cuobjdump);
+     least time the card could take (its bound); the SASS of K5's float32
+     kernels must hold cp.async copies, and that of K14 and K5's bf16
+     kernels wgmma and TMA loads (cuobjdump);
   2. serving: TurboMatcher(device="cuda") at the flagship configuration
      answers concurrent requests (synthetic textured images and their
      warps under known homographies); the kernels' launch counters must
@@ -121,8 +122,15 @@ P_PREVIOUS_MS = {
 # (HGMMA bf16, IGMMA int8), TMA loads and TMA stores.
 P_SASS = {"bf16": ("HGMMA", "UTMALDG", "UTMASTG"),
           "int8": ("IGMMA", "UTMALDG", "UTMASTG")}
-# SASS instructions that each K14 kernel must hold: wgmma and TMA loads.
+# SASS instructions that each instance of the TMA attention template must
+# hold: wgmma and TMA loads. Its instances: K14's and K5's bf16 ones.
 Q_SASS = ("HGMMA", "UTMALDG")
+QTILED_INSTANCES = {"<64><128><0>": "qtiled_attention",
+                    "<64><128><1>": "flash_attention bf16, head dim 64",
+                    "<128><64><1>": "flash_attention bf16, head dim 128"}
+# ... and each float32 kernel of K5 (attention.cu's tile): cp.async copies.
+F_SASS = ("LDGSTS",)
+F_INSTANCES = ("<8><64><64>", "<7><64><64>", "<4><64><64>", "<4><128><32>")
 
 
 def fail(msg):
@@ -242,12 +250,14 @@ def bound(flops, nbytes, peak_flops, peaks):
 
 
 def attention_ptxas(source="attention.cu",
-                    pattern=r"(fused|bidir)_attention_kernelILi(\d+)E"):
+                    pattern=r"\d(attention|bidir_attention)_kernel"
+                            r"ILi(\d+)E(?:Li(\d+)ELi(\d+)E)?"):
     """Registers and spill bytes of each kernel of ``source`` whose name
-    matches ``pattern`` (groups: the name, then any template argument),
-    from the build's ptxas log: for K3 and K4 at each query-tile height
-    {"fused<8>": {"registers": r, "spill_bytes": b}, ...}; for K14
-    {"qtiled_attention": ...}."""
+    matches ``pattern`` (groups: the name, then its template arguments),
+    from the build's ptxas log: for K3, K4 and K5's float32 kernels
+    {"attention<8><64><64>": {"registers": r, "spill_bytes": b,
+    "stack_bytes": s}, "bidir_attention<8>": ..., ...}; for K14 and K5's
+    bf16 kernels {"qtiled_attention<64><128><0>": ...}."""
     import re
 
     from imcui_tpu_torch.ops import _build
@@ -258,15 +268,22 @@ def attention_ptxas(source="attention.cu",
     for line in text.splitlines():
         hit = re.search(pattern, line)
         if "Compiling entry function" in line and hit:
-            name = hit.group(1) + "".join(f"<{g}>" for g in hit.groups()[1:])
-            out[name] = {"registers": None, "spill_bytes": 0}
+            name = hit.group(1) + "".join(
+                f"<{g}>" for g in hit.groups()[1:] if g is not None)
+            out[name] = {"registers": None, "spill_bytes": 0,
+                         "stack_bytes": 0}
         elif name and "spill stores" in line:
             out[name]["spill_bytes"] = sum(
                 int(x) for x in re.findall(r"(\d+) bytes spill", line))
+            out[name]["stack_bytes"] = int(
+                re.search(r"(\d+) bytes stack frame", line).group(1))
         elif name and "registers" in line:
             out[name]["registers"] = int(
                 re.search(r"Used (\d+) registers", line).group(1))
     return out
+
+
+QTILED_PATTERN = r"(qtiled_attention)_kernelILi(\d+)ELi(\d+)ELb(\d)E"
 
 
 def qtiled_launch(h, nq, nk):
@@ -276,21 +293,47 @@ def qtiled_launch(h, nq, nk):
     from imcui_tpu_torch.ops import attention
 
     plan = attention.qtiled_plan(h, nq, nk)
-    plan.update(attention_ptxas("qtiled_attention.cu",
-                                r"(qtiled_attention)_kernel")[
-        "qtiled_attention"])
+    plan.update(attention_ptxas("qtiled_attention.cu", QTILED_PATTERN)[
+        "qtiled_attention<64><128><0>"])
+    return plan
+
+
+def flash_launch(s, nq, dh, dtype):
+    """K5's launch plan at this shape (query rows a block, blocks, blocks an
+    SM holds, rounds) with its kernel's registers and spills: float32 on
+    attention.cu's tile, bf16 on qtiled_attention.cu's body."""
+    import torch
+
+    from imcui_tpu_torch.ops import attention
+
+    plan = attention.flash_plan(s, nq, dh, dtype)
+    if dtype == torch.float32:
+        key = f"attention<{plan['query_tile'] // 16}><{dh}><" \
+              f"{64 if dh == 64 else 32}>"
+        plan.update(attention_ptxas()[key])
+    else:
+        key = f"qtiled_attention<{dh}><{128 if dh == 64 else 64}><1>"
+        plan.update(attention_ptxas("qtiled_attention.cu",
+                                    QTILED_PATTERN)[key])
+    plan["kernel"] = key
     return plan
 
 
 def library_sdpa(*calls):
     """One PyTorch SDPA call per (q, k, v, key_mask, heads) on its 4-D
     view, on the fused backend that takes it, timed as cuda_ms times the
-    kernels: {"ms", "backend", "ms_3d"} (tools/attention_times.time_sdpa;
-    ``ms_3d`` is the 3-D call, which only the math path takes, as the
-    library time was taken before the 4-D views)."""
+    kernels: {"ms", "backend"} (tools/attention_times.time_sdpa)."""
     from imcui_tpu_torch.tools.attention_times import time_sdpa
 
     return time_sdpa(cuda_ms, *calls)
+
+
+def library_queued_sdpa(*calls):
+    """The same SDPA calls' time queued as cuda_ms_queued times the
+    kernels."""
+    from imcui_tpu_torch.tools.attention_times import time_sdpa
+
+    return time_sdpa(cuda_ms_queued, *calls)["ms"]
 
 
 def attention_launch(kind, s, n, m=None):
@@ -299,7 +342,10 @@ def attention_launch(kind, s, n, m=None):
     from imcui_tpu_torch.ops import attention
 
     plan = attention.attention_plan(s, n, m)
-    plan.update(attention_ptxas()[f"{kind}<{plan['query_tile'] // 16}>"])
+    qr = plan["query_tile"] // 16
+    plan.update(attention_ptxas()[
+        f"attention<{qr}><64><64>" if kind == "fused"
+        else f"bidir_attention<{qr}>"])
     return plan
 
 
@@ -471,7 +517,6 @@ def phase1(params, peaks):
         "max_abs_err": e3, "rel_err": rel3, "ms": N_LAYERS * ms3,
         "plain_ms": N_LAYERS * plain3, "library_ms": N_LAYERS * lib3["ms"],
         "library_backend": lib3["backend"],
-        "library_3d_ms": N_LAYERS * lib3["ms_3d"],
         "bound_ms": N_LAYERS * t3, "bound_by": by3,
         "device_ms": N_LAYERS * dev3,
         "launch": attention_launch("fused", s, n)})
@@ -504,7 +549,6 @@ def phase1(params, peaks):
         "max_abs_err": e4, "rel_err": rel4, "ms": N_LAYERS * ms4,
         "plain_ms": N_LAYERS * plain4, "library_ms": N_LAYERS * lib4["ms"],
         "library_backend": lib4["backend"],
-        "library_3d_ms": N_LAYERS * lib4["ms_3d"],
         "bound_ms": N_LAYERS * t4, "bound_by": by4,
         "bound_ms_with_recompute": N_LAYERS * bound(
             flops4 * 4 / 3, bytes4, peaks["fp32"], peaks)[0],
@@ -515,8 +559,8 @@ def phase1(params, peaks):
         log(f"  {r['name']}: err {r['max_abs_err']:.3g} (relative "
             f"{r['rel_err']:.3g}; tolerance {r['tolerance']}), "
             f"{r['ms']:.3f} ms/step vs plain {r['plain_ms']:.3f}, library "
-            f"{r['library_ms']} ({r.get('library_backend')}; 3-D call "
-            f"{r.get('library_3d_ms')}), bound {r['bound_ms']:.4f} "
+            f"{r['library_ms']} ({r.get('library_backend')}), bound "
+            f"{r['bound_ms']:.4f} "
             f"({r['bound_by']})")
         if "launch" in r:
             log(f"    {r['device_ms']:.3f} ms/step queued (no host time); "
@@ -545,13 +589,17 @@ def phase1_general(params, peaks):
 
     # K5: flash_attention. The first case is the main path's launch: both
     # views of one pair, 4 heads each, 4096 keypoint slots, f32.
+    sass = flash_sass()
     cases = [  # name, S, Nq, Nk, Dh, dtype
         ("self 4096", 2 * HEADS, G_KPTS, G_KPTS, 64, torch.float32),
         ("Nq 1024, Nk 4096", 2 * HEADS, 1024, G_KPTS, 64, torch.float32),
         ("ragged 4000", 2 * HEADS, 4000, 4000, 64, torch.float32),
         ("Dh 128", 2 * HEADS, 2048, 2048, 128, torch.float32),
         ("bf16", 2 * HEADS, G_KPTS, G_KPTS, 64, torch.bfloat16),
+        ("bf16 ragged 4000", 2 * HEADS, 4000, 4000, 64, torch.bfloat16),
+        ("bf16 Dh 128", 2 * HEADS, 2048, 2048, 128, torch.bfloat16),
     ]
+    timed = {}
     for name, s, nq, nk, dh, dtype in cases:
         q, k, v = rnd(s, nq, dh, dtype), rnd(s, nk, dh, dtype), \
             rnd(s, nk, dh, dtype)
@@ -569,31 +617,46 @@ def phase1_general(params, peaks):
         tol = (1e-5 if dtype == torch.float32 else 2.0 ** -7) * max(1.0, top)
         mean_v = v[HEADS:].float().mean(1, keepdim=True).expand(-1, nq, -1)
         err_mean = (got[HEADS:].float() - mean_v).abs().max().item()
+        launch = flash_launch(s, nq, dh, dtype)
         log(f"  flash_attention [{name}]: err {err:.3g} (tolerance {tol:.3g}),"
-            f" masked view vs mean of V {err_mean:.3g}")
+            f" masked view vs mean of V {err_mean:.3g}; launch {launch}")
         if not err <= tol or not err_mean <= tol:
             fail(f"flash_attention [{name}] differs from its plain version")
-        if name != "self 4096":
+        if name not in ("self 4096", "bf16"):
             continue
         with full_fp32():
-            ms = cuda_ms(lambda: attention.flash_attention(q, k, v, mask,
-                                                           HEADS))
-            plain = cuda_ms(lambda: attention.flash_attention_plain(
-                q, k, v, mask, HEADS))
+            t = {"ms": cuda_ms(lambda: attention.flash_attention(
+                     q, k, v, mask, HEADS)),
+                 "queued_ms": cuda_ms_queued(lambda: attention.flash_attention(
+                     q, k, v, mask, HEADS)),
+                 "plain_ms": cuda_ms(lambda: attention.flash_attention_plain(
+                     q, k, v, mask, HEADS))}
         lib = library_sdpa((q, k, v, mask, HEADS))
         flops = 4.0 * s * nq * nk * dh
-        nbytes = (2 * s * nq * dh + 2 * s * nk * dh) * 4 + mask.numel()
-        t, by = bound(flops, nbytes, peaks["fp32"], peaks)
-        rows.append({
-            "name": "flash_attention", "route": "cuda",
-            "source": "imcui_tpu_torch/csrc/flash_attention.cu",
-            "replaces": "imcui_tpu/ops/attention.py:155",
-            "tolerance": "1e-5*max(1,|plain|) f32, 2^-7*max(1,|plain|) bf16",
-            "max_abs_err": err, "rel_err": err / top, "ms": ms,
-            "plain_ms": plain, "library_ms": lib["ms"],
-            "library_backend": lib["backend"], "library_3d_ms": lib["ms_3d"],
-            "bound_ms": t, "bound_by": by,
-            "per": f"launch at {s} x {nq} x {nk} x {dh} f32 (one pair)"})
+        nbytes = (2 * s * nq * dh + 2 * s * nk * dh) * q.element_size() \
+            + mask.numel()
+        t["bound_ms"], t["bound_by"] = bound(
+            flops, nbytes,
+            peaks["fp32" if dtype == torch.float32 else "bf16"], peaks)
+        t.update(library_ms=lib["ms"], library_backend=lib["backend"],
+                 library_queued_ms=library_queued_sdpa((q, k, v, mask, HEADS)),
+                 launch=launch, max_abs_err=err, rel_err=err / top)
+        timed[name] = t
+        log(f"    {t['ms']:.3f} ms ({t['queued_ms']:.4f} queued) vs plain "
+            f"{t['plain_ms']:.3f}, SDPA {t['library_ms']:.3f} "
+            f"({t['library_queued_ms']:.4f} queued; {t['library_backend']}), "
+            f"bound {t['bound_ms']:.4f} ({t['bound_by']})")
+    rows.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": "imcui_tpu_torch/csrc/attention.cu",
+        "replaces": "imcui_tpu/ops/attention.py:155",
+        "tolerance": "1e-5*max(1,|plain|) f32, 2^-7*max(1,|plain|) bf16",
+        **timed["self 4096"], "device_ms": timed["self 4096"]["queued_ms"],
+        "sass": sass,
+        "bf16_at_4096": {"source": "imcui_tpu_torch/csrc/qtiled_attention.cu",
+                         **timed["bf16"]},
+        "per": f"launch at {2 * HEADS} x {G_KPTS} x {G_KPTS} x 64 f32 "
+               f"(one pair)"})
     del q, k, v, got, want
     torch.cuda.empty_cache()
 
@@ -737,8 +800,8 @@ def phase1_general(params, peaks):
     log(f"  bidirectional_attention [{s} x {n} x {n}]: err {err:.3g} "
         f"(tolerance {tol:.3g}), {ms4:.3f} ms ({dev4:.3f} queued) vs plain "
         f"{plain4:.3f}, two "
-        f"SDPA calls {lib4['ms']:.3f} ({lib4['backend']}; 3-D "
-        f"{lib4['ms_3d']:.3f}), bound {t4:.4f} ({by4}; {t4r:.4f} with the "
+        f"SDPA calls {lib4['ms']:.3f} ({lib4['backend']}), "
+        f"bound {t4:.4f} ({by4}; {t4r:.4f} with the "
         f"recompute); launch {launch4}")
     if not err <= tol:
         fail("bidirectional_attention differs from its plain version at 4096")
@@ -752,7 +815,6 @@ def phase1_general(params, peaks):
                       "ms": ms4, "device_ms": dev4, "plain_ms": plain4,
                       "library_ms": lib4["ms"],
                       "library_backend": lib4["backend"],
-                      "library_3d_ms": lib4["ms_3d"],
                       "bound_ms": t4, "bound_by": by4,
                       "bound_ms_with_recompute": t4r, "max_abs_err": err,
                       "launch": launch4}}
@@ -1180,9 +1242,8 @@ def phase1_dense(peaks):
 
     from imcui_tpu_torch.models.layers import full_fp32
     from imcui_tpu_torch.ops import attention
-    from imcui_tpu_torch.tools.attention_times import time_sdpa
 
-    sass = qtiled_sass()
+    sass = qtiled_sass()["<64><128><0>"]
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(5)
 
@@ -1226,9 +1287,7 @@ def phase1_dense(peaks):
                  lambda: attention.flash_attention(q, k, v, None, h))}
         lib = library_sdpa((q, k, v))
         t.update(library_ms=lib["ms"], library_backend=lib["backend"],
-                 library_3d_ms=lib["ms_3d"],
-                 library_queued_ms=time_sdpa(cuda_ms_queued, (q, k, v),
-                                             with_3d=False)["ms"])
+                 library_queued_ms=library_queued_sdpa((q, k, v)))
         # once more in the other order: K5, K14
         t["k5_bf16_ms"] = (t["k5_bf16_ms"] + cuda_ms(
             lambda: attention.flash_attention(q, k, v, None, h))) / 2
@@ -1243,7 +1302,7 @@ def phase1_dense(peaks):
         log(f"    {t['ms']:.3f} ms ({t['queued_ms']:.4f} queued) vs K5 on the "
             f"same bf16 inputs {t['k5_bf16_ms']:.3f}, SDPA "
             f"{t['library_ms']:.4f} ({t['library_queued_ms']:.4f} queued; "
-            f"{t['library_backend']}; 3-D call {t['library_3d_ms']:.3f}), "
+            f"{t['library_backend']}), "
             f"plain {t['plain_ms']:.3f}, bound {t['bound_ms']:.4f} "
             f"({t['bound_by']})")
         if name == "dinov2-560":
@@ -1287,7 +1346,7 @@ def phase1_dense(peaks):
         f"{top:.3g}), {ms3:.3f} ms ({dev3:.3f} queued) vs plain mha "
         f"{plain3:.3f} and "
         f"fused_attention_plain {plain3_masked:.3f}, SDPA {lib3['ms']:.3f} "
-        f"({lib3['backend']}; 3-D call {lib3['ms_3d']:.3f}), "
+        f"({lib3['backend']}), "
         f"bound {t3:.4f} ({by3}); launch {launch3}")
     if not err <= 1e-5 * max(1.0, top):
         fail("fused_attention at 1601 tokens differs from the plain mha")
@@ -1295,7 +1354,6 @@ def phase1_dense(peaks):
                   "plain_ms": plain3,
                   "plain_masked_ms": plain3_masked,
                   "library_ms": lib3["ms"], "library_backend": lib3["backend"],
-                  "library_3d_ms": lib3["ms_3d"],
                   "bound_ms": t3, "bound_by": by3, "launch": launch3}
     return row, k3_at_1601
 
@@ -1611,16 +1669,48 @@ def tap_matmul_sass():
 
 
 def qtiled_sass():
-    """Counts of the Q_SASS instructions in the K14 kernel; fails the run if
-    the library holds none, or it lacks wgmma or TMA loads."""
-    found = list(kernel_sass("qtiled_attention_kernel", Q_SASS).values())
+    """Counts of the Q_SASS instructions in each instance of the TMA
+    attention template (K14 and K5's two bf16 kernels); fails the run if
+    one is missing from the library or lacks wgmma or TMA loads."""
+    import re
+
+    found = {}
+    for name, counts in kernel_sass("qtiled_attention_kernel", Q_SASS).items():
+        hit = re.search(QTILED_PATTERN, name)
+        found["<{}><{}><{}>".format(*hit.groups()[1:])] = counts
     log(f"  qtiled_attention SASS: {found}")
-    if len(found) != 1:
-        fail(f"qtiled_attention: {len(found)} kernels in the built library")
-    missing = [op for op in Q_SASS if not found[0][op]]
-    if missing:
-        fail(f"qtiled_attention: no {', '.join(missing)} in its SASS")
-    return found[0]
+    for inst, kernel in QTILED_INSTANCES.items():
+        counts = found.get(inst)
+        if counts is None:
+            fail(f"{kernel}: no qtiled_attention_kernel{inst} in the built "
+                 f"library")
+        missing = [op for op in Q_SASS if not counts[op]]
+        if missing:
+            fail(f"{kernel} (qtiled_attention_kernel{inst}): no "
+                 f"{', '.join(missing)} in its SASS")
+    return found
+
+
+def flash_sass():
+    """K5's SASS: each float32 kernel (attention.cu's tile at every height
+    K5 launches) must hold cp.async copies (LDGSTS), each bf16 one wgmma
+    and TMA loads (qtiled_sass). Returns the counts; fails the run
+    otherwise."""
+    import re
+
+    f32 = {}
+    for name, counts in kernel_sass("attention_kernel", F_SASS).items():
+        hit = re.search(r"\d(attention)_kernelILi(\d+)ELi(\d+)ELi(\d+)E",
+                        name)
+        if hit:
+            f32["<{}><{}><{}>".format(*hit.groups()[1:])] = counts
+    log(f"  flash_attention float32 SASS: {f32}")
+    for inst in F_INSTANCES:
+        if not f32.get(inst, {}).get("LDGSTS"):
+            fail(f"flash_attention float32 (attention_kernel{inst}): no "
+                 f"LDGSTS in its SASS")
+    bf16 = {k: v for k, v in qtiled_sass().items() if k.endswith("<1>")}
+    return {"float32": f32, "bf16": bf16}
 
 
 def phase6(peaks):

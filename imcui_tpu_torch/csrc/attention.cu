@@ -12,6 +12,11 @@
 //                        both share the tile code; S is recomputed per
 //                        direction (a third more flops than the minimum) and
 //                        never written to memory.
+//   flash_attention_f32  the float32 variants of K5, imcui_tpu/ops/
+//                        attention.py:_flash_pallas (kernel
+//                        _flash_attn_kernel), through flash_attention.cu's
+//                        entry point: self-attention's kernel with Nq and Nk
+//                        independent, at a head dim of 64 or 128.
 //
 // Masked logits are -1e9, not -inf (attention.py:22): a query whose keys are
 // all masked gets the mean of V, as jax.nn.softmax gives on a -1e9 row. Keys
@@ -53,10 +58,15 @@
 //     K3 32 x 1024 (turbo):          BQ 128, 8 x 32 = 256 blocks
 //     K4 16 x 1024^2 (turbo):        BQ 128, (8 + 8) x 16 = 256 blocks
 //     K4 4 x 4096^2 (general):       BQ 128, (32 + 32) x 4 = 256 blocks
+//     K5 8 x 4096^2 (general, f32):  BQ 128, 32 x 8 = 256 blocks
 //   and 64 rows serve launches of fewer than 132 taller tiles (the general
 //   path at 1024 keypoints: 128 blocks).
 // - The shared-memory limits are raised and the SM count read once per
 //   device, not per launch.
+//
+// - A head dim of 128 (K5 only) doubles each thread's output columns (16)
+//   and every row: at 64-row query tiles and 32-key K/V tiles the shared
+//   memory (77 824 B) still holds two blocks an SM.
 //
 // What bounds this design (imcui_tpu_torch/tools/attention_times.py on
 // builds that skip one part; PERF.md): the two product loops, each alone
@@ -69,23 +79,26 @@
 #include <cstdint>
 #include <initializer_list>
 #include <mutex>
+#include <type_traits>
 
 namespace {
 
-constexpr int D = 64;         // head dim
-constexpr int BK = 64;        // keys per tile
 constexpr int THREADS = 128;  // 4 warps of 4 query groups x 8 key groups
-constexpr int LDQ = D + 4;    // padded row of Q, K and V
-constexpr int LDP = BK + 8;   // padded row of P
 constexpr float LOG2E = 1.4426950408889634f;
-constexpr float SCALE2 = 0.125f * LOG2E;  // log2(e) / sqrt(64)
 constexpr float NEG2 = -1e9f * LOG2E;     // the masked logit, in base 2
 constexpr int NQR = 3;
-constexpr int QRS[NQR] = {8, 7, 4};  // query rows per thread
+constexpr int QRS[NQR] = {8, 7, 4};  // query rows per thread, head dim 64
+constexpr int BK128 = 32;            // keys per tile at head dim 128
+constexpr int QR128 = 4;             // query rows per thread at head dim 128
 
-template <int QR>
+// A block's tiles at QR query rows a thread, head dim D and BK keys a tile.
+template <int QR, int D, int BK>
 struct Tile {
   static constexpr int BQ = 16 * QR;
+  static constexpr int LDQ = D + 4;   // padded row of Q, K and V
+  static constexpr int LDP = BK + 8;  // padded row of P
+  // log2(e) / sqrt(D)
+  static constexpr float SCALE2 = LOG2E * (D == 64 ? 0.125f : 0.08838834764831845f);
   static constexpr size_t SMEM =
       (size_t(BQ) * LDQ + 2 * size_t(BK) * LDQ + size_t(BQ) * LDP) *
       sizeof(float);
@@ -111,14 +124,25 @@ __device__ __forceinline__ float lane_of(const float4& f, int i) {
 
 // out[q0 : q0+BQ] = attention of q[q0 : q0+BQ] over (k, v) with key mask
 // (null: all valid).
-template <int QR>
+//
+// The running maximum starts at -inf, where K5's contract starts it at the
+// finite -1e9: the two give the same result. Key k0 exists, so after the
+// first tile m >= that tile's largest logit, which is at least -1e9 (a
+// masked logit; a real logit below -1e9 needs inputs of norm ~1e5), and
+// the first tile's rescale exp2(-inf - m) = 0 meets l = 0 and o = 0 either
+// way. A row whose keys are all masked then has m = NEG2 (-1e9 in base 2)
+// and weighs each key exp2(0) = 1: the mean of V.
+template <int QR, int D, int BK>
 __device__ void attend(const float* __restrict__ q, const float* __restrict__ k,
                        const float* __restrict__ v,
                        const uint8_t* __restrict__ kmask,
                        float* __restrict__ out, int nq, int nk, int q0,
                        float* smem) {
-  constexpr int BQ = Tile<QR>::BQ;
+  using T = Tile<QR, D, BK>;
+  constexpr int BQ = T::BQ, LDQ = T::LDQ, LDP = T::LDP;
+  constexpr float SCALE2 = T::SCALE2;
   constexpr int KJ = BK / 8;  // keys per thread in the logit tile
+  constexpr int G = D / 32;   // float4 groups of a thread's output columns
   float* Qs = smem;
   float* Ks = Qs + BQ * LDQ;
   float* Vs = Ks + BK * LDQ;
@@ -129,8 +153,8 @@ __device__ void attend(const float* __restrict__ q, const float* __restrict__ k,
 
   // rows [r0, r0 + rows) of x (n rows) into dst; rows past n zero-filled
   auto load = [&](float* dst, const float* x, int r0, int rows, int n) {
-    for (int c = tid; c < rows * 16; c += THREADS) {
-      const int r = c / 16, col = (c % 16) * 4;
+    for (int c = tid; c < rows * (D / 4); c += THREADS) {
+      const int r = c / (D / 4), col = (c % (D / 4)) * 4;
       const bool in = r0 + r < n;
       cp_async16(dst + r * LDQ + col, x + size_t(in ? r0 + r : 0) * D + col,
                  in);
@@ -142,13 +166,13 @@ __device__ void attend(const float* __restrict__ q, const float* __restrict__ k,
   load(Vs, v, 0, BK, nk);
   cp_async_commit();  // group: V of tile 0
 
-  float o[QR][8], m[QR], l[QR];
+  float o[QR][4 * G], m[QR], l[QR];
 #pragma unroll
   for (int i = 0; i < QR; ++i) {
     m[i] = -INFINITY;
     l[i] = 0.f;
 #pragma unroll
-    for (int e = 0; e < 8; ++e) o[i][e] = 0.f;
+    for (int e = 0; e < 4 * G; ++e) o[i][e] = 0.f;
   }
 
   // K and V have one buffer each: K of tile t+1 lands during tile t's P V,
@@ -186,36 +210,47 @@ __device__ void attend(const float* __restrict__ q, const float* __restrict__ k,
       }
     }
 
+    // The row softmax, in two copies: with a key mask and without. The
+    // mask's null test is hoisted by hand: left to the compiler, it was
+    // hoisted in K3's kernel and not in K4's, whose per-key test cost 7 %.
+    auto softmax = [&](auto with_mask) {
+      constexpr bool MASK = decltype(with_mask)::value;
 #pragma unroll
-    for (int i = 0; i < QR; ++i) {
-      float tmax = -INFINITY;
+      for (int i = 0; i < QR; ++i) {
+        float tmax = -INFINITY;
 #pragma unroll
-      for (int j = 0; j < KJ; ++j) {
-        // keys past nk do not exist; masked keys take the finite -1e9
-        const int key = k0 + kg + 8 * j;
-        s[i][j] = key >= nk ? -INFINITY
-                  : (kmask == nullptr || kmask[key]) ? s[i][j] * SCALE2
-                                                     : NEG2;
-        tmax = fmaxf(tmax, s[i][j]);
+        for (int j = 0; j < KJ; ++j) {
+          // keys past nk do not exist; masked keys take the finite -1e9
+          const int key = k0 + kg + 8 * j;
+          s[i][j] = key >= nk                  ? -INFINITY
+                    : (!MASK || kmask[key]) ? s[i][j] * SCALE2
+                                               : NEG2;
+          tmax = fmaxf(tmax, s[i][j]);
+        }
+#pragma unroll
+        for (int off = 1; off < 8; off *= 2)
+          tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, off));
+        // key k0 exists, so m_new is finite; exp2f(-inf) = 0 on the first
+        // tile
+        const float m_new = fmaxf(m[i], tmax);
+        const float alpha = exp2f(m[i] - m_new);
+        float rsum = 0.f;
+#pragma unroll
+        for (int j = 0; j < KJ; ++j) {
+          const float p = exp2f(s[i][j] - m_new);
+          rsum += p;
+          Ps[(row0 + 4 * i) * LDP + kg + 8 * j] = p;
+        }
+        l[i] = l[i] * alpha + rsum;  // this lane's share of the row sum
+        m[i] = m_new;
+#pragma unroll
+        for (int e = 0; e < 4 * G; ++e) o[i][e] *= alpha;
       }
-#pragma unroll
-      for (int off = 1; off < 8; off *= 2)
-        tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, off));
-      // key k0 exists, so m_new is finite; exp2f(-inf) = 0 on the first tile
-      const float m_new = fmaxf(m[i], tmax);
-      const float alpha = exp2f(m[i] - m_new);
-      float rsum = 0.f;
-#pragma unroll
-      for (int j = 0; j < KJ; ++j) {
-        const float p = exp2f(s[i][j] - m_new);
-        rsum += p;
-        Ps[(row0 + 4 * i) * LDP + kg + 8 * j] = p;
-      }
-      l[i] = l[i] * alpha + rsum;  // this lane's share of the row sum
-      m[i] = m_new;
-#pragma unroll
-      for (int e = 0; e < 8; ++e) o[i][e] *= alpha;
-    }
+    };
+    if (kmask != nullptr)
+      softmax(std::true_type{});
+    else
+      softmax(std::false_type{});
 
     cp_async_wait<0>();  // V of tile t
     __syncthreads();     // K is free, V visible; P rows belong to one warp
@@ -230,21 +265,21 @@ __device__ void attend(const float* __restrict__ q, const float* __restrict__ k,
         pf[i] = *reinterpret_cast<const float4*>(Ps + (row0 + 4 * i) * LDP + c);
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
-        const float4 va =
-            *reinterpret_cast<const float4*>(Vs + (c + kk) * LDQ + 4 * kg);
-        const float4 vb =
-            *reinterpret_cast<const float4*>(Vs + (c + kk) * LDQ + 32 + 4 * kg);
+        float4 vf[G];  // columns 32 g + 4 kg ... + 3 of key c + kk
+#pragma unroll
+        for (int g = 0; g < G; ++g)
+          vf[g] = *reinterpret_cast<const float4*>(Vs + (c + kk) * LDQ +
+                                                   32 * g + 4 * kg);
 #pragma unroll
         for (int i = 0; i < QR; ++i) {
           const float p = lane_of(pf[i], kk);
-          o[i][0] = fmaf(p, va.x, o[i][0]);
-          o[i][1] = fmaf(p, va.y, o[i][1]);
-          o[i][2] = fmaf(p, va.z, o[i][2]);
-          o[i][3] = fmaf(p, va.w, o[i][3]);
-          o[i][4] = fmaf(p, vb.x, o[i][4]);
-          o[i][5] = fmaf(p, vb.y, o[i][5]);
-          o[i][6] = fmaf(p, vb.z, o[i][6]);
-          o[i][7] = fmaf(p, vb.w, o[i][7]);
+#pragma unroll
+          for (int g = 0; g < G; ++g) {
+            o[i][4 * g + 0] = fmaf(p, vf[g].x, o[i][4 * g + 0]);
+            o[i][4 * g + 1] = fmaf(p, vf[g].y, o[i][4 * g + 1]);
+            o[i][4 * g + 2] = fmaf(p, vf[g].z, o[i][4 * g + 2]);
+            o[i][4 * g + 3] = fmaf(p, vf[g].w, o[i][4 * g + 3]);
+          }
         }
       }
     }
@@ -263,29 +298,30 @@ __device__ void attend(const float* __restrict__ q, const float* __restrict__ k,
     const int r = q0 + row0 + 4 * i;
     if (r < nq) {
       float* dst = out + size_t(r) * D + 4 * kg;
-      *reinterpret_cast<float4*>(dst) =
-          make_float4(o[i][0] / sum, o[i][1] / sum, o[i][2] / sum, o[i][3] / sum);
-      *reinterpret_cast<float4*>(dst + 32) =
-          make_float4(o[i][4] / sum, o[i][5] / sum, o[i][6] / sum, o[i][7] / sum);
+#pragma unroll
+      for (int g = 0; g < G; ++g)
+        *reinterpret_cast<float4*>(dst + 32 * g) =
+            make_float4(o[i][4 * g] / sum, o[i][4 * g + 1] / sum,
+                        o[i][4 * g + 2] / sum, o[i][4 * g + 3] / sum);
     }
   }
 }
 
 // One block per (head-sequence, query tile), head-sequence major; bh reads
-// mask row bh / heads.
-template <int QR>
+// mask row bh / heads. K3 (nq = nk, D 64) and K5's float32 variants.
+template <int QR, int D, int BK>
 __global__ void __launch_bounds__(THREADS, 2)
-fused_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                       const float* __restrict__ v,
-                       const uint8_t* __restrict__ mask,
-                       float* __restrict__ out, int N, int heads, int tiles) {
+attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const uint8_t* __restrict__ mask,
+                 float* __restrict__ out, int nq, int nk, int heads,
+                 int tiles) {
   extern __shared__ __align__(16) float smem[];
   const int bh = blockIdx.x / tiles;
-  const int q0 = (blockIdx.x % tiles) * Tile<QR>::BQ;
-  const size_t off = size_t(bh) * N * D;
-  attend<QR>(q + off, k + off, v + off,
-             mask ? mask + size_t(bh / heads) * N : nullptr, out + off, N, N,
-             q0, smem);
+  const int q0 = (blockIdx.x % tiles) * Tile<QR, D, BK>::BQ;
+  attend<QR, D, BK>(q + size_t(bh) * nq * D, k + size_t(bh) * nk * D,
+                    v + size_t(bh) * nk * D,
+                    mask ? mask + size_t(bh / heads) * nk : nullptr,
+                    out + size_t(bh) * nq * D, nq, nk, q0, smem);
 }
 
 // Blocks [0, BH * tiles0) give O0 (N rows), the rest O1 (M rows).
@@ -302,39 +338,44 @@ bidir_attention_kernel(const float* __restrict__ a0, const float* __restrict__ a
   const bool first = blockIdx.x < unsigned(BH * tiles0);
   const int item = first ? blockIdx.x : blockIdx.x - BH * tiles0;
   const int tiles = first ? tiles0 : tiles1;
-  const int bh = item / tiles, q0 = (item % tiles) * Tile<QR>::BQ;
+  const int bh = item / tiles, q0 = (item % tiles) * Tile<QR, 64, 64>::BQ;
   const int nq = first ? N : M, nk = first ? M : N;
   const uint8_t* km = first ? m1 : m0;
-  attend<QR>((first ? a0 : a1) + size_t(bh) * nq * D,
-             (first ? a1 : a0) + size_t(bh) * nk * D,
-             (first ? v1 : v0) + size_t(bh) * nk * D,
-             km ? km + size_t(bh / heads) * nk : nullptr,
-             (first ? o0 : o1) + size_t(bh) * nq * D, nq, nk, q0, smem);
+  attend<QR, 64, 64>((first ? a0 : a1) + size_t(bh) * nq * 64,
+                     (first ? a1 : a0) + size_t(bh) * nk * 64,
+                     (first ? v1 : v0) + size_t(bh) * nk * 64,
+                     km ? km + size_t(bh / heads) * nk : nullptr,
+                     (first ? o0 : o1) + size_t(bh) * nq * 64, nq, nk, q0,
+                     smem);
 }
 
-template <int QR>
-cudaError_t raise_smem() {
+// Raises the kernel's shared-memory limit and reads the blocks an SM holds.
+template <typename Kernel>
+cudaError_t fit(Kernel kernel, size_t smem, int* per_sm) {
   cudaError_t e = cudaFuncSetAttribute(
-      fused_attention_kernel<QR>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      int(Tile<QR>::SMEM));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(bidir_attention_kernel<QR>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             int(Tile<QR>::SMEM));
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel, THREADS,
+                                                      smem);
   return e;
 }
 
 template <int QR>
-cudaError_t blocks_per_sm(int* n) {
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      n, fused_attention_kernel<QR>, THREADS, Tile<QR>::SMEM);
+cudaError_t fit_dh64(int* per_sm) {
+  int unused = 0;
+  constexpr size_t SMEM = Tile<QR, 64, 64>::SMEM;
+  cudaError_t e = fit(bidir_attention_kernel<QR>, SMEM, &unused);
+  return e == cudaSuccess ? fit(attention_kernel<QR, 64, 64>, SMEM, per_sm)
+                          : e;
 }
 
 // Per device, once: the kernels' shared-memory limits raised, the SM count
-// and the blocks an SM holds at each tile height.
+// and the blocks an SM holds at each tile height (head dim 64) and at head
+// dim 128.
 struct Card {
   int sms = 0;
   int per_sm[NQR] = {};
+  int per_sm128 = 0;
 };
 
 cudaError_t prepare(Card* card) {
@@ -350,12 +391,12 @@ cudaError_t prepare(Card* card) {
     Card fresh;
     e = cudaDeviceGetAttribute(&fresh.sms, cudaDevAttrMultiProcessorCount,
                                device);
-    if (e == cudaSuccess) e = raise_smem<8>();
-    if (e == cudaSuccess) e = raise_smem<7>();
-    if (e == cudaSuccess) e = raise_smem<4>();
-    if (e == cudaSuccess) e = blocks_per_sm<8>(&fresh.per_sm[0]);
-    if (e == cudaSuccess) e = blocks_per_sm<7>(&fresh.per_sm[1]);
-    if (e == cudaSuccess) e = blocks_per_sm<4>(&fresh.per_sm[2]);
+    if (e == cudaSuccess) e = fit_dh64<8>(&fresh.per_sm[0]);
+    if (e == cudaSuccess) e = fit_dh64<7>(&fresh.per_sm[1]);
+    if (e == cudaSuccess) e = fit_dh64<4>(&fresh.per_sm[2]);
+    if (e == cudaSuccess)
+      e = fit(attention_kernel<QR128, 128, BK128>,
+              Tile<QR128, 128, BK128>::SMEM, &fresh.per_sm128);
     if (e != cudaSuccess) return e;
     c = fresh;
   }
@@ -369,7 +410,8 @@ struct Plan {
 };
 
 // The tile height whose busiest SM walks the fewest query rows; ties go to
-// the taller tile (fewer K/V passes).
+// the taller tile (fewer K/V passes). N queries (and M for the second
+// direction).
 Plan choose(int BH, int N, int M, bool bidir, int sms) {
   Plan best{QRS[0], 0, 0, 0};
   long long best_cost = LLONG_MAX;
@@ -386,21 +428,28 @@ Plan choose(int BH, int N, int M, bool bidir, int sms) {
   return best;
 }
 
+// K5's plan: at head dim 64 K3's choice, at 128 one height.
+Plan choose_flash(int BH, int Nq, int dh, int sms) {
+  if (dh == 64) return choose(BH, Nq, 0, false, sms);
+  const int t0 = (Nq + 16 * QR128 - 1) / (16 * QR128);
+  return {QR128, t0, 0, (long long)BH * t0};
+}
+
 bool misaligned(std::initializer_list<const void*> ptrs) {
   for (const void* p : ptrs)
     if (reinterpret_cast<uintptr_t>(p) % 16) return true;
   return false;
 }
 
-template <int QR>
-void launch_fused(const Plan& p, const void* q, const void* k, const void* v,
-                  const void* mask, void* out, int N, int heads,
-                  cudaStream_t stream) {
-  fused_attention_kernel<QR><<<unsigned(p.blocks), THREADS, Tile<QR>::SMEM,
-                               stream>>>(
+template <int QR, int D, int BK>
+void launch_self(const Plan& p, const void* q, const void* k, const void* v,
+                 const void* mask, void* out, int nq, int nk, int heads,
+                 cudaStream_t stream) {
+  attention_kernel<QR, D, BK><<<unsigned(p.blocks), THREADS,
+                                Tile<QR, D, BK>::SMEM, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const uint8_t*>(mask),
-      static_cast<float*>(out), N, heads, p.tiles0);
+      static_cast<float*>(out), nq, nk, heads, p.tiles0);
 }
 
 template <int QR>
@@ -408,13 +457,29 @@ void launch_bidir(const Plan& p, const void* a0, const void* a1,
                   const void* v0, const void* v1, const void* m0,
                   const void* m1, void* o0, void* o1, int BH, int N, int M,
                   int heads, cudaStream_t stream) {
-  bidir_attention_kernel<QR><<<unsigned(p.blocks), THREADS, Tile<QR>::SMEM,
-                               stream>>>(
+  bidir_attention_kernel<QR><<<unsigned(p.blocks), THREADS,
+                               Tile<QR, 64, 64>::SMEM, stream>>>(
       static_cast<const float*>(a0), static_cast<const float*>(a1),
       static_cast<const float*>(v0), static_cast<const float*>(v1),
       static_cast<const uint8_t*>(m0), static_cast<const uint8_t*>(m1),
       static_cast<float*>(o0), static_cast<float*>(o1), N, M, heads,
       p.tiles0, p.tiles1, BH);
+}
+
+// Self-attention of BH head-sequences at head dim dh (64 or 128), Nq
+// queries over Nk keys; the plan's height for dh 64.
+int launch_self_any(const Plan& p, const void* q, const void* k,
+                    const void* v, const void* mask, void* out, int nq,
+                    int nk, int heads, int dh, cudaStream_t s) {
+  if (dh == 128)
+    launch_self<QR128, 128, BK128>(p, q, k, v, mask, out, nq, nk, heads, s);
+  else if (p.qr == 8)
+    launch_self<8, 64, 64>(p, q, k, v, mask, out, nq, nk, heads, s);
+  else if (p.qr == 7)
+    launch_self<7, 64, 64>(p, q, k, v, mask, out, nq, nk, heads, s);
+  else
+    launch_self<4, 64, 64>(p, q, k, v, mask, out, nq, nk, heads, s);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -431,13 +496,8 @@ extern "C" int fused_attention_f32(const void* q, const void* k, const void* v,
   if (e != cudaSuccess) return static_cast<int>(e);
   const Plan p = choose(BH, N, N, false, card.sms);
   if (p.blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
-  auto s = static_cast<cudaStream_t>(stream);
-  switch (p.qr) {
-    case 8: launch_fused<8>(p, q, k, v, mask, out, N, heads, s); break;
-    case 7: launch_fused<7>(p, q, k, v, mask, out, N, heads, s); break;
-    default: launch_fused<4>(p, q, k, v, mask, out, N, heads, s); break;
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_self_any(p, q, k, v, mask, out, N, N, heads, 64,
+                         static_cast<cudaStream_t>(stream));
 }
 
 // m0 and m1 may be null (every key valid).
@@ -463,6 +523,43 @@ extern "C" int bidir_attention_f32(const void* a0, const void* a1,
   return static_cast<int>(cudaGetLastError());
 }
 
+// K5 in float32 (flash_attention.cu's entry point): q, out (BH, Nq, dh); k,
+// v (BH, Nk, dh); mask (BH / heads, Nk) bytes or null; dh 64 or 128.
+extern "C" int flash_attention_f32(const void* q, const void* k, const void* v,
+                                   const void* mask, void* out, int BH, int Nq,
+                                   int Nk, int heads, int dh, void* stream) {
+  if (BH < 1 || Nq < 1 || Nk < 1 || (dh != 64 && dh != 128))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (misaligned({q, k, v, out}))
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  Card card;
+  cudaError_t e = prepare(&card);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const Plan p = choose_flash(BH, Nq, dh, card.sms);
+  if (p.blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_self_any(p, q, k, v, mask, out, Nq, Nk, heads, dh,
+                         static_cast<cudaStream_t>(stream));
+}
+
+namespace {
+
+int write_plan(const Plan& p, int per_sm, int sms, void* out) {
+  int* o = static_cast<int*>(out);
+  o[0] = 16 * p.qr;
+  o[1] = p.blocks > INT_MAX ? INT_MAX : int(p.blocks);
+  o[2] = per_sm;
+  o[3] = sms;
+  return 0;
+}
+
+int per_sm_at(const Card& card, int qr) {
+  int idx = 0;
+  while (idx < NQR - 1 && QRS[idx] != qr) ++idx;
+  return card.per_sm[idx];
+}
+
+}  // namespace
+
 // The launch plan of either entry point (bidir 0 or 1), for the records:
 // out[0..3] = query-tile height, blocks, blocks an SM holds at that height,
 // SMs on the card.
@@ -471,12 +568,15 @@ extern "C" int attention_f32_plan(int BH, int N, int M, int bidir, void* out) {
   cudaError_t e = prepare(&card);
   if (e != cudaSuccess) return static_cast<int>(e);
   const Plan p = choose(BH, N, M, bidir != 0, card.sms);
-  int idx = 0;
-  while (idx < NQR - 1 && QRS[idx] != p.qr) ++idx;
-  int* o = static_cast<int*>(out);
-  o[0] = 16 * p.qr;
-  o[1] = p.blocks > INT_MAX ? INT_MAX : int(p.blocks);
-  o[2] = card.per_sm[idx];
-  o[3] = card.sms;
-  return 0;
+  return write_plan(p, per_sm_at(card, p.qr), card.sms, out);
+}
+
+// K5's float32 plan, as attention_f32_plan reports it.
+extern "C" int flash_attention_f32_plan(int BH, int Nq, int dh, void* out) {
+  Card card;
+  cudaError_t e = prepare(&card);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const Plan p = choose_flash(BH, Nq, dh, card.sms);
+  return write_plan(p, dh == 128 ? card.per_sm128 : per_sm_at(card, p.qr),
+                    card.sms, out);
 }

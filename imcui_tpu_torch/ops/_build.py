@@ -41,6 +41,7 @@ SIGNATURES = {
     "bidir_attention_f32": [P, P, P, P, P, P, P, P, I, I, I, I, P],
     "attention_f32_plan": [I, I, I, I, P],
     "flash_attention_fwd": [P, P, P, P, P, I, I, I, I, I, I, P],
+    "flash_attention_plan": [I, I, I, I, P],
     "stem_tail_fwd": [P, P, P, P, P, P, I, I, I, I, P],
     "qtiled_attention_bf16": [P, P, P, P, I, I, I, P],
     "qtiled_attention_plan": [I, I, I, P],

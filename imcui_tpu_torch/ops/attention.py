@@ -1,6 +1,7 @@
 """Attention primitives for LightGlue and for the ViT backbones (DINOv2,
 the CroCo-style blocks), with kernels K3 and K4 (``csrc/attention.cu``),
-K5 (``csrc/flash_attention.cu``) and K14 (``csrc/qtiled_attention.cu``).
+K5 (entry ``csrc/flash_attention.cu``: float32 on K3's tile, bf16 on
+K14's body) and K14 (``csrc/qtiled_attention.cu``).
 Counterpart of ``imcui_tpu/ops/attention.py`` and of the q-tiled kernel of
 ``tools/try_vit_attn.py``. ``mha_auto`` is the ViTs' entry: unmasked
 attention, sent to one of the kernels by type and shape.
@@ -62,8 +63,8 @@ def _head_mask(mask, s, n, device):
 
 
 def _mask_ptr(mask):
-    """K3's and K4's key mask for the kernel: a null pointer when every key
-    is valid, so an unmasked call allocates nothing."""
+    """K3's, K4's and K5's key mask for the kernel: a null pointer when
+    every key is valid, so an unmasked call allocates nothing."""
     return None if mask is None else _build.ptr(mask)
 
 
@@ -181,9 +182,9 @@ def flash_attention(q, k, v, mask, heads):
     in the input type); mask (S/heads, Nk) bool, or None for all valid."""
     s, nq, dh = q.shape
     nk = k.shape[1]
-    mask = _head_mask(mask, s // heads, nk, q.device)
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, mask, heads)
+        return flash_attention_plain(
+            q, k, v, _head_mask(mask, s // heads, nk, q.device), heads)
     if dh not in (64, 128) or s % heads or q.dtype not in (torch.float32,
                                                            torch.bfloat16):
         raise ValueError(f"flash_attention takes Dh 64 or 128, float32 or "
@@ -192,10 +193,11 @@ def flash_attention(q, k, v, mask, heads):
     _build.require(q, "q", q.dtype, (s, nq, dh))
     _build.require(k, "k", q.dtype, (s, nk, dh))
     _build.require(v, "v", q.dtype, (s, nk, dh))
-    _build.require(mask, "mask", torch.bool, (s // heads, nk))
+    if mask is not None:
+        _build.require(mask, "mask", torch.bool, (s // heads, nk))
     out = torch.empty_like(q)
     code = _build.library().flash_attention_fwd(
-        _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(mask),
+        _build.ptr(q), _build.ptr(k), _build.ptr(v), _mask_ptr(mask),
         _build.ptr(out), s, nq, nk, heads, dh,
         int(q.dtype == torch.bfloat16), _build.stream_of(q))
     _build.check(code, "flash_attention")
@@ -204,6 +206,20 @@ def flash_attention(q, k, v, mask, heads):
 
 
 flash_attention.launches = 0
+
+
+def flash_plan(s, nq, dh, dtype):
+    """The launch K5 takes on the current card for S head-sequences of Nq
+    queries at head dim ``dh`` in ``dtype``: query rows a block, blocks,
+    blocks an SM holds, SMs, and the rounds that makes."""
+    out = (ctypes.c_int * 4)()
+    code = _build.library().flash_attention_plan(
+        s, nq, dh, int(dtype == torch.bfloat16),
+        ctypes.cast(out, ctypes.c_void_p))
+    _build.check(code, "flash_attention_plan")
+    rows, blocks, per_sm, sms = out
+    return {"query_tile": rows, "blocks": blocks, "blocks_per_sm": per_sm,
+            "sms": sms, "rounds": blocks / (per_sm * sms)}
 
 
 def qtiled_attention_plain(q, k, v):

@@ -1,7 +1,7 @@
 """Times of the attention kernels on the card, at the shapes the serving
 paths give them:
 
-    python -m imcui_tpu_torch.tools.attention_times [--plain] [--only K14]
+    python -m imcui_tpu_torch.tools.attention_times [--plain] [--only K5]
 
 - K3 (``fused_attention``, ``csrc/attention.cu``) at 16 x 1601 x 64
   through ``mha_auto`` (a DINOv2 block at 560², the f32 dense path),
@@ -11,6 +11,10 @@ paths give them:
 - K4 (``bidirectional_attention``, the same source) at 16 x 1024 x 1024
   (turbo cross-attention: 4 pairs x 4 heads) and at 4 x 4096 x 4096 (the
   general path: one pair), with key masks;
+- K5 (``flash_attention``, entry ``csrc/flash_attention.cu``) at 8 x 4096
+  x 4096 x 64 with key masks (LightGlue self-attention on the general path:
+  one pair x 4 heads), in float32 (the path's launch) and bf16, and at 8 x
+  2048 x 2048 x 128 in both types;
 - K14 (``qtiled_attention``, ``csrc/qtiled_attention.cu``) at 16 x 1601 x
   64 (a DINOv2 block at 560², the bf16 dense path) and 16 x 1024 x 64,
   bf16.
@@ -19,10 +23,9 @@ Each shape is timed two ways, in ms: ``ms`` is the median of 20 launches
 each between its own pair of CUDA events, as ``chip_smoke.py`` times every
 kernel (it counts the wrapper's host time, since each launch finds the
 card idle); ``queued_ms`` is 20 launches queued behind a spin kernel
-between one pair of events, over 20 (the kernel alone). ``--plain`` adds the plain versions
-and the library call: SDPA on a 4-D view of the same inputs on the fused
-backend that takes it (``time_sdpa``), beside the 3-D call earlier records
-timed, which only SDPA's unfused math path takes. Prints one JSON object:
+between one pair of events, over 20 (the kernel alone). ``--plain`` adds the
+plain versions and the library call: SDPA on a 4-D view of the same inputs
+on the fused backend that takes it (``time_sdpa``). Prints one JSON object:
 the card and its power limit, then a record per shape with the launch plan.
 ``--only PREFIX`` keeps the shapes whose name starts with PREFIX. Use it to
 time one build against another in one call, in turns.
@@ -81,25 +84,13 @@ def sdpa_views(q, k, v, key_mask=None, heads=1):
     return (*views, add[:, None, None, :])
 
 
-def _sdpa_3d(q, k, v, key_mask=None, heads=1):
-    """The 3-D form of the same call, with the mask expanded to (S, Nq,
-    Nk): what the records timed before the 4-D views."""
-    if key_mask is None:
-        return F.scaled_dot_product_attention(q, k, v)
-    add = torch.where(key_mask.repeat_interleave(heads, 0), 0.0,
-                      attention.NEG_INF)[:, None, :].to(q.dtype)
-    return F.scaled_dot_product_attention(
-        q, k, v, attn_mask=add.expand(q.shape[0], q.shape[1], k.shape[1]))
-
-
-def time_sdpa(timer, *calls, with_3d=True):
+def time_sdpa(timer, *calls):
     """The library time of a kernel launch: ``calls`` are the (q, k, v,
     key_mask, heads) of the SDPA calls that compute it, each on its 4-D
     view, timed together by ``timer`` under the fused backend that takes
     them: flash for unmasked bf16/fp16, memory-efficient for float32 and
     masked calls. Where that backend refuses one, the math path is timed
-    and named. Returns {"ms", "backend", "ms_3d"}, ``ms_3d`` being the
-    3-D calls' time (SDPA's math path; None unless ``with_3d``)."""
+    and named. Returns {"ms", "backend"}."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     views = [sdpa_views(*c) for c in calls]
@@ -124,8 +115,7 @@ def time_sdpa(timer, *calls, with_3d=True):
             ms = timer(run)
         backend = (f"math ({'+'.join(b.name.lower() for b in fused)} "
                    f"refused: {str(exc).splitlines()[0][:80]})")
-    ms_3d = timer(lambda: [_sdpa_3d(*c) for c in calls]) if with_3d else None
-    return {"ms": ms, "backend": backend, "ms_3d": ms_3d}
+    return {"ms": ms, "backend": backend}
 
 
 def _masks(b, n, dev):
@@ -138,8 +128,8 @@ def _masks(b, n, dev):
 
 def cases(dev, gen):
     """(name, kernel call, plain call, SDPA calls, launch plan thunk)."""
-    def rnd(s, n, scale=2.0, dtype=torch.float32):
-        return (torch.randn((s, n, 64), generator=gen, device=dev) * scale
+    def rnd(s, n, scale=2.0, dtype=torch.float32, dh=64):
+        return (torch.randn((s, n, dh), generator=gen, device=dev) * scale
                 ).to(dtype)
 
     q, k, v = (rnd(16, 1601, 1.0) for _ in range(3))
@@ -163,6 +153,15 @@ def cases(dev, gen):
                    a0, a1, v0, v1, m0, m1, 4),
                [(a0, a1, v1, m1, 4), (a1, a0, v0, m0, 4)],
                lambda: attention.attention_plan(s, n, n))
+    for n, dh in ((4096, 64), (2048, 128)):
+        m2 = _masks(2, n, dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            q5, k5, v5 = (rnd(8, n, 2.0, dtype, dh) for _ in range(3))
+            yield (f"K5 8x{n}x{dh} {str(dtype)[6:]}",
+                   lambda: attention.flash_attention(q5, k5, v5, m2, 4),
+                   lambda: attention.flash_attention_plain(q5, k5, v5, m2, 4),
+                   [(q5, k5, v5, m2, 4)],
+                   lambda: attention.flash_plan(8, n, dh, dtype))
     for n in (1601, 1024):
         qb, kb, vb = (rnd(16, n, 1.5, torch.bfloat16) for _ in range(3))
         yield (f"K14 16x{n} bf16",
@@ -195,9 +194,8 @@ def main(argv=None):
                 lib = time_sdpa(lambda f: event_ms(f, ITERS, 3), *sdpa_calls)
                 rec.update(library_ms=lib["ms"],
                            library_backend=lib["backend"],
-                           library_3d_ms=lib["ms_3d"],
                            library_queued_ms=time_sdpa(
-                               queued_ms, *sdpa_calls, with_3d=False)["ms"])
+                               queued_ms, *sdpa_calls)["ms"])
             rec["plan"] = plan()
             out["cases"][name] = rec
     print(json.dumps(out), flush=True)

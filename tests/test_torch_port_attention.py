@@ -1,8 +1,8 @@
 """Attention of the port (imcui_tpu_torch/ops/attention.py): the plain
 versions of kernels K3, K4 and K5 against the JAX package's XLA
 restatements of its Pallas kernels and against the Pallas kernel bodies
-of K3 and K4 themselves (``pl.pallas_call(..., interpret=True)``), and the
-rotary helpers. float32 unless a test says otherwise; tolerance 1e-5 (the
+of K3, K4 and K5 themselves (``pl.pallas_call(..., interpret=True)``), and
+the rotary helpers. float32 unless a test says otherwise; tolerance 1e-5 (the
 same arithmetic, summed in another order)."""
 
 import functools
@@ -119,6 +119,28 @@ def _bidir_pallas(a0, a1, v0, v1, mk0, mk1):
         interpret=True)(a0, a1, v0, v1, mk0, mk1)
 
 
+def _flash_pallas(q, k, v, maskf, blk):
+    """``_flash_pallas`` (attention.py:155) in interpret mode: its kernel
+    body ``_flash_attn_kernel`` (:99) with blk_q = blk_k = blk and n_k =
+    Nk / blk, and the BlockSpecs of :168, restated without the TPU memory
+    space. q (H, Nq, Dh), k/v (H, Nk, Dh), maskf (H, 1, Nk) float {0, 1}."""
+    h, nq, dh = q.shape
+    nk = k.shape[1]
+
+    def whole(*shape):
+        return pl.BlockSpec((1, *shape), lambda hh, i: (hh, 0, 0))
+
+    rows = pl.BlockSpec((1, blk, dh), lambda hh, i: (hh, i, 0))
+    return pl.pallas_call(
+        functools.partial(ja._flash_attn_kernel, blk_k=blk, n_k=nk // blk,
+                          scale=1.0 / dh ** 0.5),
+        out_shape=jax.ShapeDtypeStruct(q.shape, q.dtype),
+        grid=(h, nq // blk),
+        in_specs=[rows, whole(nk, dh), whole(nk, dh), whole(1, nk)],
+        out_specs=rows,
+        interpret=True)(q, k, v, maskf)
+
+
 def _edge_masks(b, n, rng):
     """Image 0 all valid, image 1 every key masked, the rest random."""
     m = rng.uniform(size=(b, n)) < 0.7
@@ -162,6 +184,40 @@ def test_bidirectional_attention_plain_matches_pallas_kernel(n, m):
                                rtol=1e-5)
     np.testing.assert_allclose(o1.numpy(), np.asarray(w1), atol=1e-5,
                                rtol=1e-5)
+
+
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_plain_matches_pallas_kernel(dh, dtype):
+    """K5's plain version against its Pallas body, 64-row blocks over three
+    key blocks (the online softmax's rescale runs), Nq != Nk, with a batch
+    row whose keys are all masked (the mean of V) and one with random
+    masks. float32: 1e-5. bf16 inputs: both widen them and keep p in f32,
+    and round once at the output: 2^-7 * max(1, |ref|)."""
+    rng = np.random.default_rng(30 + dh)
+    b, nq, nk, blk = 3, 128, 192, 64
+    q, k, v = (_rand(rng, b * HEADS, n, dh) for n in (nq, nk, nk))
+    mask = _edge_masks(b, nk, rng)
+    tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
+    got = ta.flash_attention(*(torch.from_numpy(a).to(tdt) for a in (q, k, v)),
+                             torch.from_numpy(mask), HEADS)
+    assert got.dtype == tdt
+    maskf = np.repeat(mask.astype(np.float32), HEADS, 0)[:, None, :]
+    want = _flash_pallas(*(jnp.asarray(a).astype(jdt) for a in (q, k, v)),
+                         jnp.asarray(maskf), blk)
+    assert want.dtype == jdt
+    got, want = got.float().numpy(), np.asarray(want, np.float32)
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+    else:
+        assert np.all(np.abs(got - want)
+                      <= 2.0 ** -7 * np.maximum(1.0, np.abs(want)))
+    # the masked batch row: the mean of V (of its bf16 values)
+    vm = torch.from_numpy(v[HEADS:2 * HEADS]).to(tdt).float().numpy().mean(
+        1, keepdims=True)
+    np.testing.assert_allclose(want[HEADS:2 * HEADS],
+                               np.broadcast_to(vm, (HEADS, nq, dh)),
+                               atol=1e-5 if dtype == "float32" else 2 ** -7)
 
 
 def test_rotary_helpers_match_jax():

@@ -221,14 +221,28 @@ def test_superpoint_bf16_on_card_matches_cpu(gen):
         assert len(sw) > 50 and len(sw & sg) / len(sw | sg) >= 0.9
 
 
-@pytest.mark.parametrize("nq,nk,dh,dtype", [
-    (100, 100, 64, torch.float32), (70, 333, 64, torch.float32),
-    (129, 65, 128, torch.float32), (100, 100, 64, torch.bfloat16),
-    (65, 200, 128, torch.bfloat16)])
-def test_flash_attention_kernel_matches_plain(gen, nq, nk, dh, dtype):
+F32, BF16 = torch.float32, torch.bfloat16
+
+
+@pytest.mark.parametrize("nq,nk,dh,dtype,b", [
+    (100, 100, 64, F32, 3), (70, 333, 64, F32, 3), (129, 65, 128, F32, 3),
+    (100, 100, 64, BF16, 3), (65, 200, 128, BF16, 3),
+    # the new bodies' key-tile edges: one key, a 64-key tile (the f32 tile)
+    # and a 128-key tile (the bf16 one) short, exact and one over
+    *[(100, nk, 64, t, 3) for nk in (1, 63, 64, 65, 127, 128, 129)
+      for t in (F32, BF16)],
+    # query tiles: on both sides of 64, 112 and 128 rows
+    *[(nq, 200, 64, t, 3) for nq in (63, 65, 111, 113, 127, 129)
+      for t in (F32, BF16)],
+    # the general path's launch: both views of one pair, 4 heads each
+    (4096, 4096, 64, F32, 2), (4096, 4096, 64, BF16, 2),
+    # head dim 128: its key tiles (32 keys f32, 64 bf16) and a long walk
+    (100, 33, 128, F32, 3), (100, 65, 128, BF16, 3),
+    (130, 2048, 128, F32, 2), (130, 2048, 128, BF16, 2)])
+def test_flash_attention_kernel_matches_plain(gen, nq, nk, dh, dtype, b):
     """f32: 1e-5 · max(1, max|plain|), the same arithmetic summed in another
     order; bf16 in and out: one rounding step of the result, 2^-7."""
-    b, heads = 3, 4
+    heads = 4
     q = (torch.randn((b * heads, nq, dh), generator=gen, device="cuda") * 2
          ).to(dtype)
     k, v = ((torch.randn((b * heads, nk, dh), generator=gen, device="cuda")
@@ -243,6 +257,87 @@ def test_flash_attention_kernel_matches_plain(gen, nq, nk, dh, dtype):
     scale = max(1.0, want.float().abs().max().item())
     tol = 1e-5 if dtype == torch.float32 else 2.0 ** -7
     assert (got.float() - want.float()).abs().max().item() <= tol * scale
+
+
+def _flash_inputs(gen, s, nq, nk, dh, dtype):
+    return [(torch.randn((s, n, dh), generator=gen, device="cuda") * 2
+             ).to(dtype) for n in (nq, nk, nk)]
+
+
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("dtype", [F32, BF16])
+def test_flash_attention_without_mask_equals_all_valid_mask(gen, dtype, dh):
+    """K5 with a null mask and with an all-ones mask: bit-identical."""
+    q, k, v = _flash_inputs(gen, 8, 300, 333, dh, dtype)
+    ones = torch.ones((2, 333), dtype=torch.bool, device="cuda")
+    assert torch.equal(attention.flash_attention(q, k, v, None, 4),
+                       attention.flash_attention(q, k, v, ones, 4))
+
+
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("dtype", [F32, BF16])
+def test_flash_attention_every_view_masked_is_mean_of_v(gen, dtype, dh):
+    """Every key of every view masked: each query gets the mean of V (of
+    its bf16 values), over keys that span several tiles of either body and
+    a ragged last one. f32: 1e-5 · max(1, |mean|); bf16: 2^-7 · max(1,
+    |mean|)."""
+    q, k, v = _flash_inputs(gen, 8, 77, 300, dh, dtype)
+    none = torch.zeros((2, 300), dtype=torch.bool, device="cuda")
+    got = attention.flash_attention(q, k, v, none, 4).float()
+    mean = v.float().mean(1, keepdim=True).expand_as(got)
+    tol = 1e-5 if dtype == torch.float32 else 2.0 ** -7
+    assert bool(((got - mean).abs() <= tol * mean.abs().clamp_min(1.0)).all())
+
+
+def test_flash_attention_back_to_back_launches(gen):
+    """Four launches of other types, head dims and shapes (other bodies and
+    plans) queued on one stream before any output is read: each matches."""
+    calls = [(8, 4096, 4096, 64, F32), (12, 257, 129, 64, BF16),
+             (8, 130, 2048, 128, BF16), (12, 300, 70, 128, F32)]
+    args = [(*_flash_inputs(gen, s, nq, nk, dh, t), _masks(s // 4, nk))
+            for s, nq, nk, dh, t in calls]
+    before = attention.flash_attention.launches
+    with full_fp32():
+        got = [attention.flash_attention(*a, 4) for a in args]
+        torch.cuda.synchronize()
+        assert attention.flash_attention.launches == before + 4
+        for g, a, (*_, t) in zip(got, args, calls):
+            want = attention.flash_attention_plain(*a, 4).float()
+            tol = 1e-5 if t == F32 else 2.0 ** -7
+            assert (g.float() - want).abs().max().item() <= tol * max(
+                1.0, want.abs().max().item())
+
+
+@pytest.mark.parametrize("dh", [64, 128])
+def test_flash_attention_bf16_cancellation(gen, dh):
+    """Two live keys, v = +16 and -16, weights w and 1 - w near 1/2 that
+    are not bf16 values: the output 16 (2w - 1) lies near 0, in (-0.4,
+    0.4), where the tolerance is 2^-7. Weights rounded once to bf16 (error
+    up to 2^-9 each) miss it, which the test shows on the card; K5 carries
+    P as a bf16 high and low part and must hold it. The other keys of the
+    tile are masked."""
+    s, nq, nk = 4, 256, 130
+    q = torch.randn((s, nq, dh), generator=gen, device="cuda")
+    q[:, :, 0] = torch.linspace(-0.05, 0.05, nq, device="cuda")
+    k = torch.randn((s, nk, dh), generator=gen, device="cuda")
+    k[:, :2] = 0.0
+    k[:, 0, 0] = dh ** 0.5           # logit of key 0: q[:, :, 0]; key 1: 0
+    v = torch.randn((s, nk, dh), generator=gen, device="cuda")
+    v[:, 0], v[:, 1] = 16.0, -16.0
+    mask = torch.zeros((1, nk), dtype=torch.bool, device="cuda")
+    mask[0, :2] = True
+    q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+    with full_fp32():
+        want = attention.flash_attention_plain(q, k, v, mask, 4).float()
+        logits = torch.matmul(q.float(), k.float().transpose(1, 2)) / dh ** 0.5
+        p = torch.exp(logits - logits[:, :, :2].amax(-1, keepdim=True))
+        p[:, :, 2:] = 0.0
+        once = torch.matmul(p.to(torch.bfloat16).float(), v.float()) / p.sum(
+            -1, keepdim=True)
+    assert want.abs().max().item() < 1.0
+    assert (once - want).abs().max().item() > 2.0 ** -7
+    got = attention.flash_attention(q, k, v, mask, 4).float()
+    assert (got - want).abs().max().item() <= 2.0 ** -7
 
 
 @pytest.mark.parametrize("shape,dtype", [
