@@ -10,8 +10,9 @@ Phases, each of which passes or ends the run with a non-zero exit:
      library call of the same function where one exists (for attention,
      SDPA on a 4-D view on the fused backend that takes it), and beside the
      least time the card could take (its bound); the SASS of K5's float32
-     kernels must hold cp.async copies, and that of K14 and K5's bf16
-     kernels wgmma and TMA loads (cuobjdump);
+     kernels must hold cp.async copies, and that of K14, K5's bf16 kernels,
+     K1 and the stem wgmma and TMA loads (cuobjdump); K1's and the stem's
+     queued times, launch plans, registers and spills are logged;
   2. serving: TurboMatcher(device="cuda") at the flagship configuration
      answers concurrent requests (synthetic textured images and their
      warps under known homographies); the kernels' launch counters must
@@ -128,6 +129,11 @@ Q_SASS = ("HGMMA", "UTMALDG")
 QTILED_INSTANCES = {"<64><128><0>": "qtiled_attention",
                     "<64><128><1>": "flash_attention bf16, head dim 64",
                     "<128><64><1>": "flash_attention bf16, head dim 128"}
+# ... and the conv kernels on stage_conv.cuh's tile (K1, the stem in both
+# image types): wgmma and the TMA load of W_b.
+CONV_SASS = ("HGMMA", "UTMALDG")
+CONV_PATTERN = r"\d(stage_tail|stem_tail)_kernel(?:I(f|13__nv_bfloat16)E)?"
+CONV_INSTANCES = ("stage_tail", "stem_tail<f>", "stem_tail<13__nv_bfloat16>")
 # ... and each float32 kernel of K5 (attention.cu's tile): cp.async copies.
 F_SASS = ("LDGSTS",)
 F_INSTANCES = ("<8><64><64>", "<7><64><64>", "<4><64><64>", "<4><128><32>")
@@ -349,6 +355,46 @@ def attention_launch(kind, s, n, m=None):
     return plan
 
 
+def conv_ptxas():
+    """Registers, spills and stack of K1's and the stem's kernels from the
+    build's ptxas log: {"stage_tail": {...}, "stem_tail<f>": {...},
+    "stem_tail<13__nv_bfloat16>": {...}}."""
+    out = attention_ptxas("stage_tail.cu", CONV_PATTERN)
+    out.update(attention_ptxas("stem_tail.cu", CONV_PATTERN))
+    return out
+
+
+def conv_launch(b, h, w, kernel):
+    """The launch plan of stage_conv.cuh's tile at (B, H, W) (tile,
+    strips, segments a strip, tiles a segment, CTAs, SMs, rounds) with
+    ``kernel``'s registers and spills."""
+    from imcui_tpu_torch.ops import cuda_stage1
+
+    plan = cuda_stage1.conv_plan(b, h, w)
+    plan.update(conv_ptxas()[kernel])
+    return plan
+
+
+def conv_sass():
+    """Counts of the CONV_SASS instructions in K1's kernel and in each
+    instance of the stem's; fails the run if one is missing from the
+    library or lacks wgmma or the TMA load."""
+    import re
+
+    found = {}
+    for frag in ("stage_tail_kernel", "stem_tail_kernel"):
+        for name, counts in kernel_sass(frag, CONV_SASS).items():
+            hit = re.search(CONV_PATTERN, name)
+            found[hit.group(1) + (f"<{hit.group(2)}>" if hit.group(2)
+                                  else "")] = counts
+    log(f"  conv kernels' SASS: {found}")
+    for inst in CONV_INSTANCES:
+        missing = [op for op in CONV_SASS if not found.get(inst, {}).get(op)]
+        if missing:
+            fail(f"{inst}_kernel: no {', '.join(missing)} in its SASS")
+    return found
+
+
 # --------------------------------------------------------------------------
 # phases
 # --------------------------------------------------------------------------
@@ -394,8 +440,11 @@ def phase1(params, peaks):
     # 1 goes to the stem kernel when that is the default).
     b = 2 * BATCH
     k1_stages = 1 if BF16_FUSED == "stem" else 2
-    k1 = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
-          "max_abs_err": 0.0, "max_plain": 0.0, "flops": 0.0, "bytes": 0.0}
+    k1 = {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+          "library_ms": 0.0, "max_abs_err": 0.0, "max_plain": 0.0,
+          "flops": 0.0, "bytes": 0.0}
+    k1_sass = conv_sass()
+    k1_launch = {}
     for pa, pb, hw in (("conv1a", "conv1b", CANVAS),
                        ("conv2a", "conv2b", CANVAS // 2)):
         y = (torch.randn((b, hw, hw, 64), generator=gen, device=dev) * 0.5
@@ -419,6 +468,9 @@ def phase1(params, peaks):
                 torch.cuda.empty_cache()
                 continue
             k1["ms"] += cuda_ms(lambda: cuda_stage1.stage_tail(y, ba, wb, bb))
+            k1["device_ms"] += cuda_ms_queued(
+                lambda: cuda_stage1.stage_tail(y, ba, wb, bb))
+            k1_launch[f"{b}x{hw}x{hw}"] = conv_launch(b, hw, hw, "stage_tail")
             k1["plain_ms"] += cuda_ms(
                 lambda: cuda_stage1.stage_tail_plain(y, ba, wb, bb))
         # library yardstick: bf16 channels-last cuDNN conv + relu + pool
@@ -445,6 +497,7 @@ def phase1(params, peaks):
         "tolerance": "1e-3 + 2^-7*|plain| (bf16)",
         "max_abs_err": k1["max_abs_err"],
         "rel_err": k1["max_abs_err"] / k1["max_plain"], "ms": k1["ms"],
+        "device_ms": k1["device_ms"], "launch": k1_launch, "sass": k1_sass,
         "plain_ms": k1["plain_ms"], "library_ms": k1["library_ms"],
         "bound_ms": k1["bound_ms"], "bound_by": "operations"
         if k1["flops"] / peaks["bf16"] >= k1["bytes"] / peaks["bw"]
@@ -705,11 +758,17 @@ def phase1_general(params, peaks):
                  cuda_ms(staged)]
         staged_ms = (turns[0] + turns[3]) / 2
         stem_ms = (turns[1] + turns[2]) / 2
+        queued = cuda_ms_queued(stem)
+        kernel = "stem_tail<f>" if dtype == torch.float32 \
+            else "stem_tail<13__nv_bfloat16>"
+        launch = conv_launch(b, h, w, kernel)
         decision[f"{b}x{h}x{w} {str(dtype)[6:]}"] = {
-            "stem_ms": stem_ms, "conv1a_plus_stage_tail_ms": staged_ms}
+            "stem_ms": stem_ms, "stem_queued_ms": queued,
+            "conv1a_plus_stage_tail_ms": staged_ms}
         log(f"  stem_tail [{b}x{h}x{w} {str(dtype)[6:]}]: err {err:.3g} "
             f"(max|plain| {top:.3g}; {over} over 1e-3 + 2^-7*|plain|), "
-            f"{stem_ms:.3f} ms vs conv1a + stage_tail {staged_ms:.3f} ms")
+            f"{stem_ms:.3f} ms ({queued:.4f} queued) vs conv1a + stage_tail "
+            f"{staged_ms:.3f} ms; launch {launch}")
         if over:
             fail("stem_tail differs from its plain version")
         if (b, h, w) == (1, *G_CANVAS):
@@ -730,6 +789,7 @@ def phase1_general(params, peaks):
                             "imcui_tpu/ops/pallas_conv.py:140",
                 "tolerance": "1e-3 + 2^-7*|plain| (bf16)",
                 "max_abs_err": err, "rel_err": err / top, "ms": stem_ms,
+                "device_ms": queued, "launch": launch,
                 "plain_ms": plain, "library_ms": lib, "bound_ms": t,
                 "bound_by": by, "conv1a_plus_stage_tail_ms": staged_ms,
                 "per": f"launch at {b} x {h} x {w} bf16 (one image)"}
@@ -752,7 +812,9 @@ def phase1_general(params, peaks):
         over = int((diff > 1e-3 + 2.0 ** -7 * want.abs()).sum())
         log(f"  stage_tail [{b}x{h}x{w}]: err {diff.max().item():.3g}, "
             f"{over} over tolerance, "
-            f"{cuda_ms(lambda: cuda_stage1.stage_tail(y, ba, wb, bb)):.3f} ms")
+            f"{cuda_ms(lambda: cuda_stage1.stage_tail(y, ba, wb, bb)):.3f} ms"
+            f" ({cuda_ms_queued(lambda: cuda_stage1.stage_tail(y, ba, wb, bb)):.4f}"
+            f" queued); launch {conv_launch(b, h, w, 'stage_tail')}")
         if over:
             fail("stage_tail differs from its plain version")
         del y, got, want, diff

@@ -1,16 +1,18 @@
-// Shared by tap_matmul.cu and qtiled_attention.cu: the Hopper pieces of a
-// warp-specialised kernel that loads tiles by TMA into a ring of shared-
-// memory stages guarded by mbarriers and multiplies them with wgmma.
+// Shared by tap_matmul.cu, qtiled_attention.cu and stage_conv.cuh: the
+// Hopper pieces of a warp-specialised kernel that loads tiles by TMA into
+// a ring of shared-memory stages guarded by mbarriers and multiplies them
+// with wgmma.
 //
 //   * mbarrier init / arrive / expect_tx / parity wait;
 //   * TMA tile loads (2-D and 3-D boxes) that complete on an mbarrier;
 //   * wgmma descriptors of 128-byte-swizzled tiles (K-major and MN-major),
 //     the fence / commit / wait trio, and a fence that keeps the compiler
 //     from moving accumulator accesses across the asynchronous products;
-//   * the m64n128k16 bf16 product with both operands in shared memory;
+//   * the m64n128k16 and m64n64k16 bf16 products with both operands in
+//     shared memory;
 //   * host side: cuTensorMapEncodeTiled taken from the driver at run time
 //     (cudaGetDriverEntryPointByVersion, no -lcuda) and the encoders of the
-//     tensor maps both kernels use, 128-byte swizzle, zero fill past the
+//     tensor maps the kernels use, 128-byte swizzle, zero fill past the
 //     bounds on load.
 
 #pragma once
@@ -167,6 +169,21 @@ __device__ __forceinline__ void mma(float (&d)[64], uint64_t a, uint64_t b,
       ", %64, %65, p, 1, 1, 0, 0;\n"
       "}\n"
       : ACC64("+f", d)
+      : "l"(a), "l"(b), "r"(scale));
+}
+
+// d (+)= A (64 x 16, K-major) * B (16 x 64, K-major), both in shared
+// memory (either layout the descriptors describe); scale 0 drops d.
+__device__ __forceinline__ void mma_n64(float (&d)[32], uint64_t a,
+                                        uint64_t b, int scale) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " REGS32
+      ", %32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : ACC32("+f", d)
       : "l"(a), "l"(b), "r"(scale));
 }
 

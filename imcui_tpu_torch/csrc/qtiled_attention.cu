@@ -156,21 +156,6 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-// d (+)= A (64 x 16, K-major) * B (16 x 64, K-major), both in shared
-// memory; scale 0 drops d.
-__device__ __forceinline__ void mma_n64(float (&d)[32], uint64_t a,
-                                        uint64_t b, int scale) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " REGS32
-      ", %32, %33, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : ACC32("+f", d)
-      : "l"(a), "l"(b), "r"(scale));
-}
-
 // d += A (64 x 16, bf16 in registers) * B (16 x 64, MN-major in shared
 // memory: 16 key rows of 64 values).
 __device__ __forceinline__ void mma_pv(float (&d)[32], const uint32_t* a,

@@ -13,25 +13,42 @@
 //
 // What bounds it on an H100: conv_b's 2*9*64*64 flop per pixel on the tensor
 // cores (618 GFLOP at 8x1024^2: 0.63 ms at 989 TFLOP/s); the bytes are the
-// image in and the pooled output out (0.29 GB: 0.09 ms), since conv_a's
+// image in and the pooled output out (0.2 GB: 0.06 ms), since conv_a's
 // 64-channel full-resolution output, which the unfused route writes to and
-// reads from device memory, stays in shared memory. conv_a itself is 9 FMAs
-// per pixel and channel on the FMA units, 1/64 of conv_b's work. Each
-// persistent block loads a (16+4) x (32+4) image tile (2-pixel halo),
-// computes conv_a + bias + relu for the (16+2) x (32+2) pixels conv_b needs
-// straight into the bf16 tile of stage_conv.cuh, zeroing pixels outside the
-// image, and hands over to the shared tensor-core code.
+// reads from device memory, stays in shared memory. conv_a is 9 FMAs per
+// pixel and channel, 1/64 of conv_b's work, on the FMA units.
+//
+// The tensor-core half is stage_conv.cuh's implicit GEMM on wgmma; this
+// file is its prologue. For each step (4 rows of the CTA's strip, 64 + 2
+// pixels wide) the producer warpgroups copy the (4+2) x (64+4) image window
+// (zeros outside the image: the copies of those 4-byte units read nothing)
+// by cp.async into one of two staging buffers, two steps ahead, then
+// compute conv_a + b_a + relu for the step's pixels, rounded to bf16,
+// straight into the plane layout of the ring slot, with zeros for pixels
+// outside the image (conv_b's padding). A thread keeps its 8 channels' 72
+// weights and biases in registers and sums each pixel's taps in order, in
+// f32 FMAs. The strip walk computes each conv_a row once: 1.03 pixels of
+// conv_a per output pixel, against 1.55 for tiles with their own halo.
+//
+// conv_a stays off the tensor cores: a K = 16 product over a 9-tap im2col
+// took a quarter less time at 8 x 1024^2, but the tensor cores' f32 sums
+// round conv_a's output to bf16 across a rounding boundary more often than
+// FMAs do, and about one output in 10^8 then left the tolerance (1e-3 +
+// 2^-7 |plain|) at full size; recomputing the values near a boundary with
+// FMAs restores the FMA result, but the warp-divergent recomputation cost
+// more than the tensor cores saved (PERF.md, section 6).
 
 #include "stage_conv.cuh"
 
+
 namespace {
 
-constexpr int IM_H = TH + 4;
-constexpr int IM_W = TW + 4;
-constexpr size_t SMEM_IMG = size_t(IM_H) * IM_W * 4;
-constexpr size_t SMEM_WA = size_t(9) * C * 4;
-constexpr size_t SMEM_BA = size_t(C) * 4;
-constexpr size_t SMEM = SMEM_IN + SMEM_W + SMEM_SCR + SMEM_IMG + SMEM_WA + SMEM_BA;
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
 
 // the image value as conv_a's bf16 operand, held in f32
 __device__ __forceinline__ float operand(float x) {
@@ -41,104 +58,135 @@ __device__ __forceinline__ float operand(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 
-// wa: (9, 64) f32 holding bf16-rounded values, tap-major; ba, bb: (64,) f32;
-// wb: (3, 3, 64, 64) bf16.
 template <typename T>
-__global__ void __launch_bounds__(THREADS, 1)
-stem_tail_kernel(const T* __restrict__ image, const float* __restrict__ wa,
-                 const float* __restrict__ ba,
-                 const __nv_bfloat16* __restrict__ wb,
-                 const float* __restrict__ bb, __nv_bfloat16* __restrict__ out,
-                 int B, int H, int W) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* tile = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* wsm = reinterpret_cast<__nv_bfloat16*>(smem + SMEM_IN);
-  float* scratch = reinterpret_cast<float*>(smem + SMEM_IN + SMEM_W);
-  float* img = reinterpret_cast<float*>(smem + SMEM_IN + SMEM_W + SMEM_SCR);
-  float* was = img + IM_H * IM_W;
-  float* bas = was + 9 * C;
+struct StemPrologue {
+  struct Args {
+    const T* image;
+    const float* wa;  // (9, 64): tap-major, bf16-rounded values
+    const float* ba;
+  };
+  static constexpr int IM_H = TH + 2, IM_W = TW + 4;
+  static constexpr int STAGE = (IM_H * IM_W * int(sizeof(T)) + 127) / 128 * 128;
+  static constexpr int SMEM = 2 * STAGE;
+  static constexpr int UNIT = 4 / int(sizeof(T));  // elements a copy moves
+  static constexpr int UNITS = IM_H * IM_W / UNIT;
 
-  load_weights(wsm, wb);
-  for (int i = threadIdx.x; i < 9 * C; i += THREADS) was[i] = wa[i];
-  for (int i = threadIdx.x; i < C; i += THREADS) bas[i] = ba[i];
+  const T* image;
+  int H, W, chunk, p0;
+  float w[9][8], bias[8];  // W_a and b_a of the thread's 8 channels
 
-  const int tiles_w = (W + TW - 1) / TW, tiles_h = (H + TH - 1) / TH;
-  const int n_tiles = tiles_w * tiles_h * B;
-
-  for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
-    const int b = t / (tiles_w * tiles_h);
-    const int r0 = ((t / tiles_w) % tiles_h) * TH;
-    const int c0 = (t % tiles_w) * TW;
-    const T* ib = image + size_t(b) * H * W;
-
-    __syncthreads();  // previous tile's readers are done with `tile`, `img`
-    for (int i = threadIdx.x; i < IM_H * IM_W; i += THREADS) {
-      const int gr = r0 - 2 + i / IM_W, gc = c0 - 2 + i % IM_W;
-      img[i] = gr >= 0 && gr < H && gc >= 0 && gc < W
-                   ? operand(ib[size_t(gr) * W + gc]) : 0.f;
-    }
-    __syncthreads();
-
-    // conv_a at pixel (r0 - 1 + pr, c0 - 1 + pc): its tap (ky, kx) is image
-    // pixel (r0 - 2 + pr + ky, c0 - 2 + pc + kx) = img[pr + ky][pc + kx]
-    for (int i = threadIdx.x; i < IN_H * IN_W * (C / 8); i += THREADS) {
-      const int chunk = i % (C / 8), pix = i / (C / 8);
-      const int pr = pix / IN_W, pc = pix % IN_W;
-      const int gr = r0 - 1 + pr, gc = c0 - 1 + pc;
-      __align__(16) __nv_bfloat16 v[8];
-      if (gr >= 0 && gr < H && gc >= 0 && gc < W) {
-        // the thread's 8 channels of one tap are two float4 reads that the
-        // lanes sharing a chunk receive as one broadcast
-        float a[8];
+  __device__ StemPrologue(const Args& a, int H_, int W_)
+      : image(a.image), H(H_), W(W_), chunk(threadIdx.x % 8),
+        p0(threadIdx.x / 8) {
 #pragma unroll
-        for (int j = 0; j < 8; ++j) a[j] = 0.f;
+    for (int tap = 0; tap < 9; ++tap)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) w[tap][j] = a.wa[tap * C + chunk * 8 + j];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) bias[j] = a.ba[chunk * 8 + j];
+  }
+
+  // The window of the k-th step (image rows r0 - 1 ... r0 + 4, columns c0 -
+  // 2 ... c0 + 65) into staging buffer k % 2, as one cp.async group (empty
+  // past the last step, so the group count stays regular).
+  __device__ void copy(const Region& x, const Sched& sched, int k) {
+    if (sched.has(k) && !(skipped(SKIP_LOADS, k) && k >= 2)) {
+      const Step t = sched.at(k);
+      const T* ib = image + size_t(t.b) * H * W;
+      for (int u = threadIdx.x; u < UNITS; u += PRODUCERS) {
+        const int r = u / (IM_W / UNIT), c = u % (IM_W / UNIT) * UNIT;
+        const int gr = t.r0 - 1 + r, gc = t.c0 - 2 + c;
+        const bool in = gr >= 0 && gr < H && gc >= 0 && gc < W;
+        cp_async4(x.addr + (k & 1) * STAGE + (r * IM_W + c) * int(sizeof(T)),
+                  in ? ib + size_t(gr) * W + gc : image, in ? 4 : 0);
+      }
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  }
+
+  __device__ void begin(const Region& x, const Sched& sched) {
+    copy(x, sched, 0);
+    copy(x, sched, 1);
+  }
+
+  // the k-th window has landed (all but the newest group are complete)
+  __device__ void load(const Region&, const Sched&, int) {
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    producer_sync();
+  }
+
+  // conv_a at pixel (r0 + pr, c0 - 1 + pc): its tap (ky, kx) is image pixel
+  // (r0 - 1 + pr + ky, c0 - 2 + pc + kx) = img[pr + ky][pc + kx]
+  __device__ void store(const Region& x, uint32_t a, const Sched& sched,
+                        int k) {
+    const Step t = sched.at(k);
+    const T* img = reinterpret_cast<const T*>(x.ptr + (k & 1) * STAGE);
+#pragma unroll 1
+    for (int p = p0; p < STEP_PIX; p += 32) {
+      const int pr = p / IN_W, pc = p % IN_W;
+      const int gr = t.r0 + pr, gc = t.c0 - 1 + pc;
+      uint4 o = make_uint4(0, 0, 0, 0);  // conv_b's zero padding
+      if (gr >= 0 && gr < H && gc >= 0 && gc < W &&
+          !skipped(SKIP_PROLOGUE, k)) {
+        float acc[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[j] = 0.f;
 #pragma unroll
         for (int tap = 0; tap < 9; ++tap) {
-          const float x = img[(pr + tap / 3) * IM_W + pc + tap % 3];
-          const float4 w0 = *reinterpret_cast<const float4*>(was + tap * C + chunk * 8);
-          const float4 w1 = *reinterpret_cast<const float4*>(was + tap * C + chunk * 8 + 4);
-          a[0] = fmaf(x, w0.x, a[0]);
-          a[1] = fmaf(x, w0.y, a[1]);
-          a[2] = fmaf(x, w0.z, a[2]);
-          a[3] = fmaf(x, w0.w, a[3]);
-          a[4] = fmaf(x, w1.x, a[4]);
-          a[5] = fmaf(x, w1.y, a[5]);
-          a[6] = fmaf(x, w1.z, a[6]);
-          a[7] = fmaf(x, w1.w, a[7]);
+          const float v = operand(img[(pr + tap / 3) * IM_W + pc + tap % 3]);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) acc[j] = fmaf(v, w[tap][j], acc[j]);
         }
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-          v[j] = __float2bfloat16_rn(fmaxf(a[j] + bas[chunk * 8 + j], 0.f));
-      } else {
-        // conv_b's zero padding: no relu(b_a) outside the image
-#pragma unroll
-        for (int j = 0; j < 8; ++j) v[j] = __float2bfloat16_rn(0.f);
+        o = make_uint4(relu_pack(acc[0], acc[1], bias[0], bias[1]),
+                       relu_pack(acc[2], acc[3], bias[2], bias[3]),
+                       relu_pack(acc[4], acc[5], bias[4], bias[5]),
+                       relu_pack(acc[6], acc[7], bias[6], bias[7]));
       }
-      *reinterpret_cast<uint4*>(tile + pix * PIX + chunk * 8) =
-          *reinterpret_cast<const uint4*>(v);
+      st_shared(a + chunk * PLANE + p * 16, o);
     }
-    __syncthreads();
-
-    conv_pool_tile(tile, wsm, scratch, bb, out, b, r0, c0, H, W);
+    producer_sync();  // every thread is done with this staging buffer
+    copy(x, sched, k + 2);
   }
+};
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS, 1)
+    stem_tail_kernel(const __grid_constant__ CUtensorMap wmap,
+                     const T* __restrict__ image, const float* __restrict__ wa,
+                     const float* __restrict__ ba,
+                     const float* __restrict__ bb,
+                     __nv_bfloat16* __restrict__ out, int B, int H, int W,
+                     Sched sched) {
+  conv_tiles<StemPrologue<T>>(&wmap, {image, wa, ba}, bb, out, B, H, W, sched);
 }
 
 template <typename T>
 int launch(const void* image, const void* wa, const void* ba, const void* wb,
            const void* bb, void* out, int B, int H, int W, void* stream) {
-  cudaFuncSetAttribute(stem_tail_kernel<T>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, int(SMEM));
-  const int grid = persistent_grid(B, H, W);
-  stem_tail_kernel<T><<<grid, THREADS, SMEM, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(image), static_cast<const float*>(wa),
-      static_cast<const float*>(ba), static_cast<const __nv_bfloat16*>(wb),
-      static_cast<const float*>(bb), static_cast<__nv_bfloat16*>(out), B, H, W);
+  if (!takes(B, H, W)) return static_cast<int>(cudaErrorInvalidValue);
+  if (reinterpret_cast<uintptr_t>(image) % 4 ||
+      reinterpret_cast<uintptr_t>(wb) % 16)
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  const int sms = prepare<StemPrologue<T>>(
+      reinterpret_cast<const void*>(stem_tail_kernel<T>));
+  if (sms < 0) return -sms;
+  CUtensorMap wmap;
+  if (!encode_weights(&wmap, wb)) return IMCUI_TENSOR_MAP_ERROR;
+  const Sched sched = Sched::of(B, H, W, sms);
+  stem_tail_kernel<T><<<sched.n < sms ? sched.n : sms, THREADS,
+                        smem_bytes<StemPrologue<T>>(),
+                        static_cast<cudaStream_t>(stream)>>>(
+      wmap, static_cast<const T*>(image), static_cast<const float*>(wa),
+      static_cast<const float*>(ba), static_cast<const float*>(bb),
+      static_cast<__nv_bfloat16*>(out), B, H, W, sched);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// bf16 != 0: the image is __nv_bfloat16, else float.
+// bf16 != 0: the image is __nv_bfloat16, else float; 4-byte aligned. wa:
+// (9, 64) f32; ba, bb: (64,) f32; wb: (3, 3, 64, 64) bf16 as (ky, kx, cout,
+// cin); out: (B, H/2, W/2, 64) bf16. H, W even.
 extern "C" int stem_tail_fwd(const void* image, const void* wa, const void* ba,
                              const void* wb, const void* bb, void* out, int B,
                              int H, int W, int bf16, void* stream) {

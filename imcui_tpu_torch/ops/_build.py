@@ -43,6 +43,7 @@ SIGNATURES = {
     "flash_attention_fwd": [P, P, P, P, P, I, I, I, I, I, I, P],
     "flash_attention_plan": [I, I, I, I, P],
     "stem_tail_fwd": [P, P, P, P, P, P, I, I, I, I, P],
+    "stage_conv_plan": [I, I, I, P],
     "qtiled_attention_bf16": [P, P, P, P, I, I, I, P],
     "qtiled_attention_plan": [I, I, I, P],
     "tap_matmul_bf16": [P, P, P, I, I, I, P],

@@ -20,11 +20,34 @@ with zero padding of the image for conv_a and of conv_a's activated output
 for conv_b.
 """
 
+import ctypes
+
 import torch
 import torch.nn.functional as F
 
 from ..models.layers import full_fp32
 from . import _build
+
+
+def _taps_k_major(w_b):
+    """W_b OIHW → (ky, kx, cout, cin) bf16: per tap, 64 K-major rows of
+    input channels, the B operand of the kernels' products."""
+    return w_b.permute(2, 3, 0, 1).to(torch.bfloat16).contiguous()
+
+
+def conv_plan(b, h, w):
+    """The launch either kernel takes on the current card for a (B, H, W)
+    input: conv rows and columns of a tile, strips (64-column strips of the
+    images), segments a strip is cut into, tiles a segment, CTAs (one an
+    SM, at most one a segment), SMs, and the rounds of segments that makes."""
+    out = (ctypes.c_int * 7)()
+    code = _build.library().stage_conv_plan(b, h, w,
+                                            ctypes.cast(out, ctypes.c_void_p))
+    _build.check(code, "stage_conv_plan")
+    rows, cols, strips, segs, tiles, ctas, sms = out
+    return {"tile_rows": rows, "tile_cols": cols, "strips": strips,
+            "segments_per_strip": segs, "segment_tiles": tiles,
+            "ctas": ctas, "sms": sms, "rounds": strips * segs / ctas}
 
 
 def stage_tail_plain(y_raw, b_a, w_b, b_b):
@@ -55,8 +78,7 @@ def stage_tail(y_raw, b_a, w_b, b_b):
         raise ValueError("y_raw must be 16-byte aligned")
     ba = b_a.float().contiguous()
     bb = b_b.float().contiguous()
-    # OIHW → (ky, kx, cin, cout): 576 rows of 64 output channels
-    wk = w_b.permute(2, 3, 1, 0).to(torch.bfloat16).contiguous()
+    wk = _taps_k_major(w_b)
     _build.require(ba, "b_a", torch.float32, (64,))
     _build.require(bb, "b_b", torch.float32, (64,))
     _build.require(wk, "w_b", torch.bfloat16, (3, 3, 64, 64))
@@ -108,12 +130,14 @@ def stem_tail(image, w_a, b_a, w_b, b_b):
                          f"{image.dtype}")
     b, h, w = image.shape
     _build.require(image, "image", image.dtype)
+    if image.data_ptr() % 4:
+        raise ValueError("image must be 4-byte aligned")
     # OIHW → (tap, cout), bf16-rounded values held in float32
     wa = w_a.to(torch.bfloat16).float().permute(2, 3, 1, 0).reshape(9, 64) \
         .contiguous()
     ba = b_a.float().contiguous()
     bb = b_b.float().contiguous()
-    wk = w_b.permute(2, 3, 1, 0).to(torch.bfloat16).contiguous()
+    wk = _taps_k_major(w_b)
     _build.require(wa, "w_a", torch.float32, (9, 64))
     _build.require(ba, "b_a", torch.float32, (64,))
     _build.require(bb, "b_b", torch.float32, (64,))

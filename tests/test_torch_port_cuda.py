@@ -20,12 +20,33 @@ def gen():
     return torch.Generator(device="cuda").manual_seed(0)
 
 
-@pytest.mark.parametrize("shape", [(3, 40, 72), (1, 16, 32), (2, 130, 66)])
+# The conv tile (csrc/stage_conv.cuh) is 4 conv rows x 64 columns: shapes at
+# its edges (W 2, 62, 64, 66, 130; H on both sides of 4 and 8), three images
+# of different scales (a read across images would show), the paths' shapes
+# and the full ones.
+STAGE_SHAPES = [(3, 40, 72), (1, 16, 32), (2, 130, 66),
+                (1, 2, 2), (2, 6, 62), (1, 4, 64), (2, 10, 66), (1, 8, 130),
+                (2, 2, 130), (3, 6, 66), (3, 12, 130),
+                (8, 512, 512), (1, 640, 1024), (8, 1024, 1024),
+                (1, 1280, 2048)]
+SCALED = {(3, 6, 66): (1.0, 8.0, 0.125), (3, 12, 130): (0.125, 1.0, 8.0)}
+
+
+def _image_scales(shape, dims):
+    """Per-image factors of a SCALED shape, (B, 1, ...) for a tensor of
+    ``dims`` dimensions; else 1."""
+    if shape not in SCALED:
+        return 1.0
+    return torch.tensor(SCALED[shape], device="cuda").view(
+        -1, *[1] * (dims - 1))
+
+
+@pytest.mark.parametrize("shape", STAGE_SHAPES)
 def test_stage_tail_kernel_matches_plain(gen, shape):
     """Tolerance: one bf16 rounding step of the result."""
     b, h, w = shape
     y = (torch.randn((b, h, w, 64), generator=gen, device="cuda") * 0.5
-         ).to(torch.bfloat16)
+         * _image_scales(shape, 4)).to(torch.bfloat16)
     ba = torch.randn(64, generator=gen, device="cuda") * 0.1
     wb = torch.randn((64, 64, 3, 3), generator=gen, device="cuda") * 0.05
     bb = torch.randn(64, generator=gen, device="cuda") * 0.1
@@ -342,10 +363,13 @@ def test_flash_attention_bf16_cancellation(gen, dh):
 
 @pytest.mark.parametrize("shape,dtype", [
     ((3, 40, 72), torch.float32), ((1, 16, 32), torch.bfloat16),
-    ((2, 130, 66), torch.float32), ((1, 2, 2), torch.bfloat16)])
+    ((2, 130, 66), torch.float32), ((1, 2, 2), torch.bfloat16)] + [
+    (shape, dtype) for shape in STAGE_SHAPES[3:]
+    for dtype in (torch.float32, torch.bfloat16)])
 def test_stem_tail_kernel_matches_plain(gen, shape, dtype):
     """Tolerance: one bf16 rounding step of the result, as stage_tail."""
-    img = torch.rand(shape, generator=gen, device="cuda").to(dtype)
+    img = (torch.rand(shape, generator=gen, device="cuda")
+           * _image_scales(shape, 3)).to(dtype)
     wa = torch.randn((64, 1, 3, 3), generator=gen, device="cuda") * 0.3
     ba = torch.randn(64, generator=gen, device="cuda") * 0.1
     wb = torch.randn((64, 64, 3, 3), generator=gen, device="cuda") * 0.05
@@ -356,6 +380,87 @@ def test_stem_tail_kernel_matches_plain(gen, shape, dtype):
     assert cuda_stage1.stem_tail.launches == before + 1
     assert got.shape == (shape[0], shape[1] // 2, shape[2] // 2, 64)
     assert bool(((got - want).abs() <= 1e-3 + 2.0 ** -7 * want.abs()).all())
+
+
+def _conv_weights(gen, halo_test=False):
+    """w_a, b_a, w_b, b_b of a stage. ``halo_test``: b_a > 0, W_b < 0 and
+    b_b = 20, so on an input of zeros conv_b's output falls with every tap
+    that reads relu(b_a) and stays positive: a corner sums 4 such taps, an
+    edge 6, the interior 9."""
+    wa = torch.randn((64, 1, 3, 3), generator=gen, device="cuda") * 0.3
+    ba = torch.randn(64, generator=gen, device="cuda") * 0.1
+    wb = torch.randn((64, 64, 3, 3), generator=gen, device="cuda") * 0.05
+    bb = torch.randn(64, generator=gen, device="cuda") * 0.1
+    if halo_test:
+        ba, wb, bb = ba.abs() + 0.5, -0.2 * wb.abs(), bb * 0 + 20.0
+    return wa, ba, wb, bb
+
+
+@pytest.mark.parametrize("shape", [(2, 6, 66), (1, 8, 130)])
+def test_conv_kernels_keep_relu_of_b_a_out_of_the_halo(gen, shape):
+    """On an input of zeros conv_b reads relu(0 + b_a) > 0 inside the image
+    and must read 0 outside it (SAME padding after the prologue). With
+    _conv_weights' halo test a pooled corner then holds the conv corner's
+    value, above the interior's by 5 of 9 taps; relu(b_a) leaking into the
+    halo would bring it down to the interior's. Both kernels also match
+    their plain versions, which pad with zeros."""
+    b, h, w = shape
+    wa, ba, wb, bb = _conv_weights(gen, halo_test=True)
+    y = torch.zeros((b, h, w, 64), device="cuda", dtype=torch.bfloat16)
+    img = torch.zeros((b, h, w), device="cuda")
+    for got, want in (
+            (cuda_stage1.stage_tail(y, ba, wb, bb),
+             cuda_stage1.stage_tail_plain(y, ba, wb, bb)),
+            (cuda_stage1.stem_tail(img, wa, ba, wb, bb),
+             cuda_stage1.stem_tail_plain(img, wa, ba, wb, bb))):
+        got, want = got.float(), want.float()
+        assert bool(((got - want).abs() <= 1e-3 + 2.0 ** -7 * want.abs()
+                     ).all())
+        inner = got[:, 1, 1]
+        assert (inner > 0).all()
+        for corner in (got[:, 0, 0], got[:, -1, -1], got[:, 0, -1],
+                       got[:, -1, 0]):
+            assert (corner - inner > 0.03 * inner).all()
+
+
+def test_conv_kernels_back_to_back_launches(gen):
+    """Launches at different shapes and image types (other grids, another
+    weight map each) queued on one stream before any output is read."""
+    wa, ba, wb, bb = _conv_weights(gen)
+    wb2 = torch.randn((64, 64, 3, 3), generator=gen, device="cuda") * 0.05
+    imgs = [torch.rand((3, 40, 72), generator=gen, device="cuda"),
+            torch.rand((1, 130, 66), generator=gen, device="cuda"
+                       ).to(torch.bfloat16)]
+    y = (torch.randn((2, 36, 130, 64), generator=gen, device="cuda") * 0.5
+         ).to(torch.bfloat16)
+    before = (cuda_stage1.stem_tail.launches, cuda_stage1.stage_tail.launches)
+    got = [cuda_stage1.stem_tail(imgs[0], wa, ba, wb, bb),
+           cuda_stage1.stage_tail(y, ba, wb2, bb),
+           cuda_stage1.stem_tail(imgs[1], wa, ba, wb2, bb)]
+    torch.cuda.synchronize()
+    assert (cuda_stage1.stem_tail.launches,
+            cuda_stage1.stage_tail.launches) == (before[0] + 2, before[1] + 1)
+    want = [cuda_stage1.stem_tail_plain(imgs[0], wa, ba, wb, bb),
+            cuda_stage1.stage_tail_plain(y, ba, wb2, bb),
+            cuda_stage1.stem_tail_plain(imgs[1], wa, ba, wb2, bb)]
+    for g, t in zip(got, want):
+        g, t = g.float(), t.float()
+        assert bool(((g - t).abs() <= 1e-3 + 2.0 ** -7 * t.abs()).all())
+
+
+def test_conv_plan_covers_every_tile(gen):
+    """The launch plan: tiles of 4 conv rows x 64 columns; every 64-column
+    strip of every image cut into segments that cover all its tiles, none
+    of them empty; one CTA an SM and at most one a segment (the persistent
+    grid walks the rest)."""
+    for b, h, w in STAGE_SHAPES:
+        plan = cuda_stage1.conv_plan(b, h, w)
+        tiles_h = -(-h // 4)
+        assert (plan["tile_rows"], plan["tile_cols"]) == (4, 64)
+        assert plan["strips"] == b * -(-w // 64)
+        segs, length = plan["segments_per_strip"], plan["segment_tiles"]
+        assert segs * length >= tiles_h > (segs - 1) * length
+        assert plan["ctas"] == min(plan["strips"] * segs, plan["sms"])
 
 
 def test_new_wrappers_reject_what_the_kernels_do_not_take(gen):

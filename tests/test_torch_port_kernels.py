@@ -3,10 +3,15 @@
 kernels, run in interpret mode on the CPU, or their XLA references, and
 the detection ops around them."""
 
+import functools
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
+from jax.experimental import pallas as pl
 
 from imcui_tpu.models import layers as jlayers
 from imcui_tpu.ops import nms as jnms
@@ -210,6 +215,79 @@ def test_stem_tail_plain_matches_pallas_stem_interpret():
     assert _stem_close(got, want)
 
 
+def _pallas_stem_interpret(image, pa, pb):
+    """``superpoint_stem_fused``'s Pallas call (pallas_conv.py:140-190) in
+    interpret mode: its kernel body ``_stem_kernel`` (:66), the packed
+    weights and padded image it builds, and its BlockSpecs restated with
+    ``pl.ANY`` for the padded image and whole-array blocks for the
+    weights, without the TPU memory spaces."""
+    b, h, w = image.shape
+    w1a = jnp.zeros((16, 64), jnp.float32)
+    for dy in range(3):
+        for dx in range(3):
+            w1a = w1a.at[dy * 4 + dx].set(pa["w"][dy, dx, 0])
+    wpad = pallas_conv._round_up(w + 4, pallas_conv.LANES) + pallas_conv.LANES
+    xpad = jnp.pad(image, ((0, 0), (2, pallas_conv.ROWS), (2, wpad - w - 2)))
+
+    def whole(*shape):
+        return pl.BlockSpec(shape, lambda i, j: (0,) * len(shape))
+
+    return np.asarray(pl.pallas_call(
+        functools.partial(pallas_conv._stem_kernel, w=w, wpad=wpad),
+        out_shape=jax.ShapeDtypeStruct((b, h // 2, w // 2, 64), jnp.bfloat16),
+        grid=(b, h // pallas_conv.T2),
+        in_specs=[pl.BlockSpec(memory_space=pl.ANY), whole(16, 64),
+                  whole(1, 64), whole(9, 64, 64), whole(1, 64)],
+        out_specs=pl.BlockSpec((1, pallas_conv.TILE_R, w // 2, 64),
+                               lambda i, j: (i, j, 0, 0)),
+        interpret=True)(xpad, w1a, pa["b"].reshape(1, 64),
+                        pb["w"].reshape(9, 64, 64), pb["b"].reshape(1, 64)),
+        np.float32)
+
+
+def test_stem_tail_plain_against_pallas_stem_body_interpret():
+    """K7's own Pallas body (pallas_conv._stem_kernel) run on the CPU
+    against stem_tail_plain, which follows _stem_xla's SAME padding.
+    Interior outputs agree to one bf16 step at unit scale, 2^-7·max(1,
+    |plain|): the body rounds conv1a's three row-tap sums and its bias add
+    to bf16, so the kernel tolerance 1e-3 + 2^-7·|plain| does not hold for
+    it value by value. The first and last output rows and columns differ
+    by far more: the frozen body's deviation (its docstring's "~0.3
+    absolute"). A restatement confirms the cause: conv1a evaluated past the
+    image's edge on the zero-padded image, + b1a, relu, fed to conv1b as
+    its halo where SAME padding feeds zeros, gives the body's output
+    everywhere to the same bound."""
+    rng = np.random.default_rng(0)
+    pa, pb = _stem_weights(rng)
+    image = rng.uniform(size=(2, 16, 256)).astype(np.float32)
+    got = _pallas_stem_interpret(jnp.asarray(image), pa, pb)
+    timg = torch.from_numpy(image)
+
+    def oihw(w):
+        return torch.from_numpy(np.asarray(w).transpose(3, 2, 0, 1).copy())
+
+    plain = _stem_torch(timg, pa, pb)
+    assert got.shape == plain.shape == (2, 8, 128, 64)
+    unit = 2.0 ** -7 * np.maximum(1.0, np.abs(plain))
+    border = np.ones(plain.shape, bool)
+    border[:, 1:-1, 1:-1] = False
+    assert np.all(np.abs(got - plain)[~border] <= unit[~border])
+    assert np.abs(got - plain)[border].max() > 0.1
+
+    # the restatement: conv1a's outputs one pixel outside the image kept
+    x = timg.to(torch.bfloat16).float()[:, None]
+    wa = oihw(pa["w"]).to(torch.bfloat16).float()
+    ya = torch.relu(F.conv2d(x, wa, torch.from_numpy(np.asarray(pa["b"])),
+                             padding=2)).to(torch.bfloat16).float()
+    z = torch.relu(F.conv2d(ya, oihw(pb["w"]).to(torch.bfloat16).float(),
+                            torch.from_numpy(np.asarray(pb["b"]))))
+    halo = F.max_pool2d(z, 2, 2).to(torch.bfloat16).permute(0, 2, 3, 1)
+    halo = halo.float().numpy()
+    assert np.all(np.abs(got - halo) <= 2.0 ** -7 * np.maximum(1.0,
+                                                               np.abs(halo)))
+    assert _stem_close(halo[~border], plain[~border])
+
+
 def test_stem_route_of_the_backbone_matches_the_staged_route():
     """backbone(fused="stem") against backbone(fused=True) on the CPU
     (both through plain versions): the routes round conv_a's output at
@@ -246,3 +324,12 @@ def test_soft_argmax_refinement_matches_jax():
     still = tnms.soft_argmax_refinement(torch.from_numpy(kpts),
                                         torch.zeros((2, 40, 56)), 1)
     np.testing.assert_array_equal(still.numpy(), kpts)
+
+
+def test_conv_times_refuses_without_a_card():
+    """The stem/K1 timing tool measures on a card or not at all."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the tool would time it")
+    from imcui_tpu_torch.tools import conv_times
+    with pytest.raises(SystemExit, match="needs a CUDA device"):
+        conv_times.main([])
