@@ -10,8 +10,10 @@ slots with a validity mask.
 ``precision="bf16"`` runs the trunk and heads in bfloat16 through the
 fused kernels: stages 1 and 2 as a bias-free ``conv_a`` followed by the
 ``stage_tail`` kernel (K1), and keypoint selection through
-``nms_cellmax`` (K2); with ``fused="stem"`` stage 1 runs from the raw
-image in the ``stem_tail`` kernel (K6/K7) instead. ``precision="fp32"``
+``nms_cellmax`` (K2) where ``cuda_nms.supported`` holds (3 <= nms_radius
+<= 6), else through the reference's per-pixel chain; with
+``fused="stem"`` stage 1 runs from the raw image in the ``stem_tail``
+kernel (K6/K7) instead. ``precision="fp32"``
 runs plain float32 layers (TF32 off) for parity with the JAX package.
 """
 
@@ -117,6 +119,16 @@ def _refine_subpixel(kpts, heat, mask):
     return torch.where(mask[..., None], ref, kpts)
 
 
+def _select_per_pixel(heat, valid_wh, radius, border, k, threshold):
+    """simple_nms -> border/valid mask -> exact top-k over every pixel,
+    in the heatmap's own type."""
+    h, w = heat.shape[-2:]
+    scores = nms_ops.simple_nms(heat, radius)
+    scores = scores * nms_ops.border_mask(h, w, border, valid_wh,
+                                          device=heat.device)
+    return nms_ops.select_topk_keypoints(scores, k, threshold)
+
+
 def apply(params, image, valid_wh, nms_radius=4, max_keypoints=1024,
           keypoint_threshold=0.005, remove_borders=4, precision="bf16",
           subpixel=False, fused=None, device="cuda"):
@@ -140,22 +152,27 @@ def apply(params, image, valid_wh, nms_radius=4, max_keypoints=1024,
         # NMS and top-k only compare: bf16 halves the heatmap traffic
         heat = dense_scores(cparams, feats).to(torch.bfloat16).contiguous()
         desc_map = dense_descriptors(cparams, feats)
-        kpts, kscores, mask = cuda_nms.select_keypoints(
-            heat, valid_wh, max_keypoints, keypoint_threshold,
-            radius=nms_radius, border=remove_borders)
         raw = heat
+        h, w = heat.shape[-2:]
+        if cuda_nms.supported(h, w, nms_radius):
+            kpts, kscores, mask = cuda_nms.select_keypoints(
+                heat, valid_wh, max_keypoints, keypoint_threshold,
+                radius=nms_radius, border=remove_borders)
+        else:
+            # the reference's per-pixel chain, as its bf16 apply takes
+            # outside the fused NMS's gate
+            kpts, kscores, mask = _select_per_pixel(
+                heat, valid_wh, nms_radius, remove_borders, max_keypoints,
+                keypoint_threshold)
     elif precision == "fp32":
         with full_fp32():
             feats = backbone(params, image)
             heat = dense_scores(params, feats)
             desc_map = dense_descriptors(params, feats)
         raw = heat
-        h, w = heat.shape[-2:]
-        scores = nms_ops.simple_nms(heat, nms_radius)
-        scores = scores * nms_ops.border_mask(h, w, remove_borders, valid_wh,
-                                              device=dev)
-        kpts, kscores, mask = nms_ops.select_topk_keypoints(
-            scores, max_keypoints, keypoint_threshold)
+        kpts, kscores, mask = _select_per_pixel(
+            heat, valid_wh, nms_radius, remove_borders, max_keypoints,
+            keypoint_threshold)
     else:
         raise ValueError(f"unknown precision {precision!r}")
     if subpixel:

@@ -13,6 +13,19 @@ import torch
 from . import _build
 from .nms import border_mask, simple_nms
 
+# The radii whose survivors are at least 4 px apart (r + 1 >= 4), so that a
+# 4x4 cell holds at most one, up to the largest the kernel takes.
+MIN_RADIUS, MAX_RADIUS = 3, 6
+
+
+def supported(h, w, radius):
+    """Whether NMS at ``radius`` on an (H, W) heatmap is K2's function:
+    the cell reduction is exact for r >= 3 and the kernel takes H, W
+    multiples of 4 and r <= 6. Elsewhere SuperPoint runs the reference's
+    per-pixel chain (``simple_nms`` -> ``border_mask`` -> top-k), as the
+    JAX package does outside ``pallas_nms.supported``."""
+    return MIN_RADIUS <= radius <= MAX_RADIUS and h % 4 == 0 and w % 4 == 0
+
 
 def _first_max(v, dim):
     """Max over ``dim`` and the first index attaining it."""
@@ -30,8 +43,13 @@ def nms_cellmax_plain(heat, valid_wh, radius=4, border=4):
     (B, 2) int (w, h). Returns (cellmax, cellsub), (B, H/4, W/4) float32:
     each cell's NMS'd, masked max and its in-cell position 4·dy + dx,
     where ties go to the first column holding the max, then the first row
-    in it, and the position is 0 where the max is 0."""
+    in it, and the position is 0 where the max is 0. Refuses a radius
+    below 3, where a cell may hold two survivors and the reduction is
+    not the function."""
     b, h, w = heat.shape
+    if radius < MIN_RADIUS:
+        raise ValueError(f"nms_cellmax keeps one survivor per 4x4 cell, "
+                         f"which needs radius >= {MIN_RADIUS}; got {radius}")
     x = heat.float()
     s = simple_nms(x, radius)
     s = torch.where(border_mask(h, w, border, valid_wh, device=x.device), s,
@@ -50,9 +68,10 @@ def nms_cellmax(heat, valid_wh, radius=4, border=4):
     if heat.device.type == "cpu":
         return nms_cellmax_plain(heat, valid_wh, radius, border)
     b, h, w = heat.shape
-    if h % 4 or w % 4 or not 3 <= radius <= 6:
+    if not supported(h, w, radius):
         raise ValueError(f"nms_cellmax takes H, W multiples of 4 and "
-                         f"3 <= radius <= 6; got {(h, w)}, radius {radius}")
+                         f"{MIN_RADIUS} <= radius <= {MAX_RADIUS}; got "
+                         f"{(h, w)}, radius {radius}")
     _build.require(heat, "heat", torch.bfloat16)
     vwh = valid_wh.to(device=heat.device, dtype=torch.int32).contiguous()
     _build.require(vwh, "valid_wh", torch.int32, (b, 2))

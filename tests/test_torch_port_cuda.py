@@ -242,6 +242,51 @@ def test_superpoint_bf16_on_card_matches_cpu(gen):
         assert len(sw) > 50 and len(sw & sg) / len(sw | sg) >= 0.9
 
 
+@pytest.mark.parametrize("radius", [2, 7])
+def test_superpoint_bf16_outside_the_nms_gate_launches_no_k2(gen, radius,
+                                                             monkeypatch):
+    """Outside 3 <= nms_radius <= 6 the bf16 apply on the card routes to the
+    reference's per-pixel chain: no K2 launch, and the keypoints and
+    scores equal the CPU's chain on the same heatmap."""
+    import numpy as np
+
+    import chip_smoke
+    from imcui_tpu_torch.models.extractors import superpoint as sp
+    from imcui_tpu_torch.pipeline import two_view
+    from imcui_tpu_torch.utils.weights import to_device
+
+    params, _ = two_view.load_pretrained(device="cpu")
+    img = np.stack([chip_smoke.textured_image(np.random.default_rng(s),
+                                              160, 224)
+                    for s in (5, 6)])[:, None].astype(np.float32) / 255
+    vwh = np.array([[224, 160], [200, 150]], np.int32)
+    # more slots than survivors, so no tie straddles the last slot
+    kw = dict(nms_radius=radius, max_keypoints=8192,
+              keypoint_threshold=0.0005)
+    heats = []
+    chain = sp._select_per_pixel
+
+    def spy(heat, *args):
+        heats.append(heat)
+        return chain(heat, *args)
+
+    monkeypatch.setattr(sp, "_select_per_pixel", spy)
+    before = cuda_nms.nms_cellmax.launches
+    got = sp.apply(to_device(params["superpoint"], "cuda"), img, vwh,
+                   device="cuda", **kw)
+    assert cuda_nms.nms_cellmax.launches == before
+    assert len(heats) == 1 and heats[0].is_cuda
+    want = chain(heats[0].cpu(), torch.from_numpy(vwh), radius, 4, 8192,
+                 0.0005)
+    for i in range(2):
+        sw = {tuple(p) for p in want[0][i][want[2][i]].tolist()}
+        sg = {tuple(p) for p in
+              got["keypoints"][i][got["mask"][i]].cpu().tolist()}
+        assert len(sw) > 20 and sg == sw
+        assert torch.equal(got["scores"][i].cpu().sort().values,
+                           want[1][i].float().sort().values)
+
+
 F32, BF16 = torch.float32, torch.bfloat16
 
 

@@ -13,10 +13,12 @@ import torch
 import chip_smoke
 from imcui_tpu.models.extractors import superpoint as jsp
 from imcui_tpu.models.matchers import lightglue as jlg
+from imcui_tpu.ops import nms as jnms
 from imcui_tpu.ops import ransac as jransac
 from imcui_tpu.utils import weights as jweights
 from imcui_tpu_torch.models.extractors import superpoint as tsp
 from imcui_tpu_torch.models.matchers import lightglue as tlg
+from imcui_tpu_torch.ops import cuda_nms
 from imcui_tpu_torch.ops import ransac as transac
 from imcui_tpu_torch.utils import weights as tweights
 
@@ -92,6 +94,84 @@ def test_superpoint_bf16_keypoints_overlap_jax(sp_params):
             out_t["mask"][i].numpy()]}
         assert len(sj) > 50
         assert len(sj & st) / len(sj | st) >= 0.9
+
+
+@pytest.fixture(scope="module")
+def sp_init_trees():
+    """The JAX package's init tree (key 0) in both packages."""
+    tree = jax.tree_util.tree_map(np.asarray,
+                                  jsp.init_params(jax.random.PRNGKey(0)))
+    return (jax.tree_util.tree_map(jnp.asarray, tree),
+            tweights.params_from_jax(tree))
+
+
+@pytest.mark.parametrize("radius", [2, 7])
+def test_superpoint_bf16_nms_outside_the_fused_gate_matches_jax(
+        sp_init_trees, radius, monkeypatch):
+    """Outside 3 <= nms_radius <= 6 the bf16 apply takes the reference's
+    per-pixel chain (simple_nms -> border_mask -> top-k), not K2's cell
+    reduction, which keeps one survivor per 4x4 cell and so loses
+    survivors below radius 3 (C1: 180 keypoints against the reference's
+    223 at radius 2). On the port's own bf16 heatmap the keypoints and
+    scores equal the JAX chain's exactly; end to end against the JAX
+    bf16 apply the sets differ only by the trunk's bf16 rounding (230
+    against 230 with 229 in common at radius 2, all 34 at radius 7)."""
+    jp, tp = sp_init_trees
+    img = np.random.default_rng(0).uniform(size=(1, 1, 64, 64)).astype(
+        np.float32)
+    vwh = np.asarray([[64, 64]], np.int32)
+    kw = dict(nms_radius=radius, max_keypoints=512, keypoint_threshold=0.0,
+              precision="bf16")
+    heats = []
+    chain = tsp._select_per_pixel
+
+    def spy(heat, *args):
+        heats.append(heat)
+        return chain(heat, *args)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("K2's cell reduction ran outside its gate")
+
+    monkeypatch.setattr(tsp, "_select_per_pixel", spy)
+    monkeypatch.setattr(cuda_nms, "select_keypoints", refuse)
+    out_t = tsp.apply(tp, img, vwh, device="cpu", **kw)
+    assert len(heats) == 1 and heats[0].dtype == torch.bfloat16
+    st = {tuple(p) for p in out_t["keypoints"][0][out_t["mask"][0]].tolist()}
+
+    heat = jnp.asarray(heats[0][0].float().numpy()).astype(jnp.bfloat16)
+    scores = jnms.simple_nms(heat, radius) * jnms.border_mask(
+        64, 64, 4, valid_wh=vwh[0], dtype=heat.dtype)
+    kp_c, sc_c, m_c = jnms.select_topk_keypoints(scores, 512, 0.0,
+                                                 exact=True)
+    sc = {tuple(p) for p in np.asarray(kp_c)[np.asarray(m_c)].tolist()}
+    assert len(st) > 30 and st == sc
+    np.testing.assert_array_equal(
+        np.sort(out_t["scores"][0].numpy()),
+        np.sort(np.asarray(sc_c.astype(jnp.float32))))
+
+    out_j = jsp.apply(jp, jnp.asarray(img), jnp.asarray(vwh), **kw)
+    sj = {tuple(p) for p in np.asarray(out_j["keypoints"][0])[
+        np.asarray(out_j["mask"][0])].tolist()}
+    assert abs(len(sj) - len(st)) <= 2
+    assert len(sj & st) / len(sj | st) >= 0.95
+
+
+def test_nms_cellmax_plain_refuses_radius_below_3():
+    """Below radius 3 two survivors can share a 4x4 cell, so the cell
+    reduction is not the function; the plain version refuses it as the
+    kernel does, and the gate says so."""
+    heat = torch.rand((1, 16, 16)).to(torch.bfloat16)
+    vwh = torch.tensor([[16, 16]], dtype=torch.int32)
+    for radius in (0, 1, 2):
+        with pytest.raises(ValueError):
+            cuda_nms.nms_cellmax_plain(heat, vwh, radius=radius)
+        with pytest.raises(ValueError):
+            cuda_nms.nms_cellmax(heat, vwh, radius=radius)
+        assert not cuda_nms.supported(16, 16, radius)
+    assert [cuda_nms.supported(16, 16, r) for r in range(3, 8)] == [
+        True, True, True, True, False]
+    assert not cuda_nms.supported(18, 16, 4)
+    assert not cuda_nms.supported(16, 18, 4)
 
 
 def _lg_trees(n_layers=2):
