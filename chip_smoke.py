@@ -11,8 +11,10 @@ Phases, each of which passes or ends the run with a non-zero exit:
      SDPA on a 4-D view on the fused backend that takes it), and beside the
      least time the card could take (its bound); the SASS of K5's float32
      kernels must hold cp.async copies, and that of K14, K5's bf16 kernels,
-     K1 and the stem wgmma and TMA loads (cuobjdump); K1's and the stem's
-     queued times, launch plans, registers and spills are logged;
+     K1 and the stem wgmma and TMA loads (cuobjdump); K1's, K2's and the
+     stem's queued times, launch plans, registers and spills are logged;
+     K2 is held to exact equality on uniform and tie-heavy heatmaps at
+     each of its shapes, its bound beside its operations count;
   2. serving: TurboMatcher(device="cuda") at the flagship configuration
      answers concurrent requests (synthetic textured images and their
      warps under known homographies); the kernels' launch counters must
@@ -27,7 +29,8 @@ Phases, each of which passes or ends the run with a non-zero exit:
      more at 1024 keypoints and one through each route of SuperPoint's
      stem; the same gate, the launch counters of all six kernels, the
      per-stage times, the device's idle share and the host cost of the
-     adaptive loop;
+     adaptive loop; then one request at nms_radius 2, outside K2's gate,
+     which must pass the gate and launch no K2;
   5. the dense path at full width: ImageMatchingAPI(device="cuda") with the
      registry's roma (DINOv2 ViT-L/14 at 560x560, GP, anchor decoder, five
      conv refiners) in float32 and in bfloat16, on seeded random weights
@@ -375,6 +378,49 @@ def conv_launch(b, h, w, kernel):
     return plan
 
 
+NMS_PATTERN = r"(nms_cellmax)_kernelILi(\d+)E"
+
+
+def nms_launch(b, h, w, radius):
+    """K2's launch plan at (B, H, W, radius) (output rows and columns a
+    block, region rows, blocks, blocks an SM holds, SMs, rounds, shared
+    memory a block) with its kernel's registers, spills and stack."""
+    from imcui_tpu_torch.ops import cuda_nms
+
+    plan = cuda_nms.nms_plan(b, h, w, radius)
+    plan.update(attention_ptxas("nms_cellmax.cu", NMS_PATTERN)[
+        f"nms_cellmax<{radius}>"])
+    return plan
+
+
+def nms_heats(gen, b, h, w):
+    """K2's inputs at one shape: torch.rand and a tie-heavy map of 4 bf16
+    levels (every window holds equal values), both bf16."""
+    import torch
+
+    rand = torch.rand((b, h, w), generator=gen, device="cuda")
+    levels = torch.tensor([0.125, 0.25, 0.5, 0.75], device="cuda")
+    ties = levels[torch.randint(0, 4, (b, h, w), generator=gen,
+                                device="cuda")]
+    return {"rand": rand.to(torch.bfloat16), "ties": ties.to(torch.bfloat16)}
+
+
+def nms_exact(heat, vwh, radius):
+    """The largest difference of K2's two maps from the plain version's
+    (the tolerance is 0); fails the run otherwise."""
+    import torch
+
+    from imcui_tpu_torch.ops import cuda_nms
+
+    cm, cs = cuda_nms.nms_cellmax(heat, vwh, radius=radius)
+    pm, ps = cuda_nms.nms_cellmax_plain(heat, vwh, radius=radius)
+    err = max((cm - pm).abs().max().item(), (cs - ps).abs().max().item())
+    if err != 0.0 or not (torch.equal(cm, pm) and torch.equal(cs, ps)):
+        fail(f"nms_cellmax {tuple(heat.shape)} radius {radius} differs from "
+             f"its plain version: {err}")
+    return err, pm.abs().max().item()
+
+
 def conv_sass():
     """Counts of the CONV_SASS instructions in K1's kernel and in each
     instance of the stem's; fails the run if one is missing from the
@@ -503,29 +549,35 @@ def phase1(params, peaks):
         if k1["flops"] / peaks["bf16"] >= k1["bytes"] / peaks["bw"]
         else "bytes"})
 
-    # K2: nms_cellmax on a heatmap of 2·BATCH canvases, some part-valid
-    heat = torch.rand((b, CANVAS, CANVAS), generator=gen, device=dev
-                      ).to(torch.bfloat16)
+    # K2: nms_cellmax on a heatmap of 2·BATCH canvases, some part-valid,
+    # uniform and tie-heavy
+    from imcui_tpu_torch.tools.nms_times import work as nms_work
+
+    heats = nms_heats(gen, b, CANVAS, CANVAS)
     vwh = torch.tensor([[CANVAS, CANVAS], [1000, 752], [1024, 760],
                         [848, 640]] * (b // 4), dtype=torch.int32, device=dev)
-    cm, cs = cuda_nms.nms_cellmax(heat, vwh)
-    pm, ps = cuda_nms.nms_cellmax_plain(heat, vwh)
-    torch.cuda.synchronize()
-    err = max((cm - pm).abs().max().item(), (cs - ps).abs().max().item())
-    if err != 0.0:
-        fail(f"nms_cellmax differs from its plain version: {err}")
-    nbytes = b * CANVAS * CANVAS * 2 + 2 * b * (CANVAS // 4) ** 2 * 4 + b * 8
-    t, by = bound(0.0, nbytes, peaks["fp32"], peaks)
-    rows.append({
+    err, top = max(nms_exact(h_, vwh, 4) for h_ in heats.values())
+    heat = heats["rand"]
+    # bytes over the memory rate; the chain's maxes and compares over the
+    # packed bf16 rate, two a lane a clock: the float32 FMA peak's count
+    nbytes, ops = nms_work(b, CANVAS, CANVAS, 4)
+    t, by = bound(ops, nbytes, peaks["fp32"], peaks)
+    k2 = {
         "name": "nms_cellmax", "route": "cuda",
         "source": "imcui_tpu_torch/csrc/nms_cellmax.cu",
         "replaces": "imcui_tpu/ops/pallas_nms.py:243",
         "launches_per_step": 1, "tolerance": "exact", "max_abs_err": err,
-        "rel_err": err / pm.abs().max().item(),
+        "rel_err": err / top, "checked": sorted(heats),
         "ms": cuda_ms(lambda: cuda_nms.nms_cellmax(heat, vwh)),
+        "queued_ms": cuda_ms_queued(lambda: cuda_nms.nms_cellmax(heat, vwh)),
+        "launch": nms_launch(b, CANVAS, CANVAS, 4),
         "plain_ms": cuda_ms(lambda: cuda_nms.nms_cellmax_plain(heat, vwh)),
-        "library_ms": None, "bound_ms": t, "bound_by": by})
-    del heat
+        "library_ms": None, "bound_ms": t, "bound_by": by,
+        "bytes_ms": nbytes / peaks["bw"] * 1e3,
+        "operations_ms": ops / peaks["fp32"] * 1e3}
+    k2["device_ms"] = k2["queued_ms"]  # the name the log below reads
+    rows.append(k2)
+    del heat, heats
 
     # K3 / K4: LightGlue attention at 1024 keypoints, f32
     n, dh = MAX_KPTS, 64
@@ -818,18 +870,17 @@ def phase1_general(params, peaks):
         if over:
             fail("stage_tail differs from its plain version")
         del y, got, want, diff
-        heat = torch.rand((b, h, w), generator=gen, device=dev
-                          ).to(torch.bfloat16)
+        heats = nms_heats(gen, b, h, w)
         vwh = torch.tensor([[1600, 1200], [w, h]][:b], dtype=torch.int32,
                            device=dev)
-        cm, cs = cuda_nms.nms_cellmax(heat, vwh, radius=radius)
-        pm, ps = cuda_nms.nms_cellmax_plain(heat, vwh, radius=radius)
-        err = max((cm - pm).abs().max().item(), (cs - ps).abs().max().item())
-        log(f"  nms_cellmax [{b}x{h}x{w}, radius {radius}]: err {err}, "
-            f"{cuda_ms(lambda: cuda_nms.nms_cellmax(heat, vwh, radius=radius)):.3f} ms")
-        if err != 0.0:
-            fail("nms_cellmax differs from its plain version")
-        del heat, cm, cs, pm, ps
+        err = max(nms_exact(h_, vwh, radius)[0] for h_ in heats.values())
+        heat = heats["rand"]
+        log(f"  nms_cellmax [{b}x{h}x{w}, radius {radius}]: exact on "
+            f"{sorted(heats)} (err {err}), "
+            f"{cuda_ms(lambda: cuda_nms.nms_cellmax(heat, vwh, radius=radius)):.4f} ms"
+            f" ({cuda_ms_queued(lambda: cuda_nms.nms_cellmax(heat, vwh, radius=radius)):.4f}"
+            f" queued); launch {nms_launch(b, h, w, radius)}")
+        del heat, heats
         torch.cuda.empty_cache()
 
     # K4 at 4096 x 4096 (the JAX package leaves this size to XLA)
@@ -1285,12 +1336,35 @@ def phase4():
                  f"expected {want}")
     if launches["stem_tail"] < 2:
         fail("the stem kernel was not launched on the general path")
+
+    # one bf16 request at nms_radius 2, outside K2's gate (C1): SuperPoint
+    # takes the reference's per-pixel NMS chain and launches no K2; the
+    # same gate on the matches
+    conf = ui.parse_match_config({"feature": G_FEATURE, "matcher": G_MATCHER,
+                                  "dense": False})
+    conf["feature"]["model"]["nms_radius"] = 2
+    near = ImageMatchingAPI(conf, device="cuda", max_keypoints=G_KPTS,
+                            detect_threshold=G_DETECT_THRESHOLD)
+    if near.extractor.conf["precision"] != "bf16":
+        fail("the radius-2 request does not run the bf16 SuperPoint")
+    hooks = watch(near)
+    k2_before = cuda_nms.nms_cellmax.launches
+    res = near(*pairs[2][:2])
+    gate("request at nms_radius 2", res, pairs[2][2])
+    for h_ in hooks:
+        h_.remove()
+    if cuda_nms.nms_cellmax.launches != k2_before:
+        fail("the nms_radius 2 request launched nms_cellmax outside its "
+             "gate")
+    radius2 = {"keypoints": [len(res["keypoints0_orig"]),
+                             len(res["keypoints1_orig"])],
+               "nms_cellmax_launches": 0}
     timing = {
         "keypoints": G_KPTS, "sizes": G_SIZES, "split_ms": med,
         "stop_layers": stops_4096, "device_busy_ms": device_ms,
         "device_idle_share": idle, "adaptive_ms": adaptive_ms,
         "static_same_depth_ms": static_ms, "adaptive_depth": depth,
-        "stem_route_keypoint_iou": ious}
+        "stem_route_keypoint_iou": ious, "nms_radius_2_request": radius2}
     return launches, timing
 
 

@@ -37,6 +37,7 @@ I = ctypes.c_int
 SIGNATURES = {
     "stage_tail_bf16": [P, P, P, P, P, I, I, I, P],
     "nms_cellmax_f32": [P, P, P, P, I, I, I, I, I, P],
+    "nms_cellmax_plan": [I, I, I, I, P],
     "fused_attention_f32": [P, P, P, P, P, I, I, I, P],
     "bidir_attention_f32": [P, P, P, P, P, P, P, P, I, I, I, I, P],
     "attention_f32_plan": [I, I, I, I, P],

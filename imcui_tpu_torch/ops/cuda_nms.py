@@ -8,6 +8,8 @@ and the top-k runs on the 16× smaller cell grid. The top-k is exact
 this is a superset of.
 """
 
+import ctypes
+
 import torch
 
 from . import _build
@@ -87,6 +89,20 @@ def nms_cellmax(heat, valid_wh, radius=4, border=4):
 
 
 nms_cellmax.launches = 0
+
+
+def nms_plan(b, h, w, radius=4):
+    """K2's launch on the current card for a (B, H, W) heatmap: output rows
+    and columns a block, region rows it loads (64 + 10r), blocks, blocks
+    an SM holds, SMs, rounds (blocks over what the card holds at once,
+    rounded up) and shared memory a block in bytes."""
+    out = (ctypes.c_int * 8)()
+    code = _build.library().nms_cellmax_plan(b, h, w, radius,
+                                             ctypes.cast(out, ctypes.c_void_p))
+    _build.check(code, "nms_cellmax_plan")
+    keys = ("tile_rows", "tile_cols", "region_rows", "blocks",
+            "blocks_per_sm", "sms", "rounds", "smem_bytes")
+    return dict(zip(keys, out))
 
 
 def select_keypoints(heat, valid_wh, k, threshold, radius=4, border=4):

@@ -8,9 +8,8 @@ paths give them:
   in bf16 (K6's input) and float32 (K7's): stage 1 of the turbo step's 4
   pairs; and at 1 x 1280 x 2048 bf16: the general path's canvas;
 - K1 (``stage_tail``, ``csrc/stage_tail.cu``) at 8 x 512 x 512 x 64 (the
-  turbo step's stage 2) and 1 x 640 x 1024 x 64 (the general path's);
-- K2 (``nms_cellmax``, ``csrc/nms_cellmax.cu``) on the turbo step's 8 x
-  1024 x 1024 heatmap, for comparisons only (no library call, no plan).
+  turbo step's stage 2) and 1 x 640 x 1024 x 64 (the general path's).
+  K2, the other SuperPoint kernel, has its own loop, ``nms_times``.
 
 K1 and the stem share the tensor-core tile of ``csrc/stage_conv.cuh``.
 Each shape is timed as ``attention_times`` times: ``ms`` is the median of
@@ -40,7 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from ..models.layers import full_fp32
-from ..ops import _build, cuda_nms, cuda_stage1
+from ..ops import _build, cuda_stage1
 from .attention_times import queued_ms
 from .tail_probes import event_ms
 
@@ -113,14 +112,6 @@ def cases(dev, gen):
                    y_nchw + b_a16))), 2, 2),
                bound(flops, nbytes),
                (lambda: plan(b, h, w)) if plan else None)
-    heat = torch.rand((8, 1024, 1024), generator=gen, device=dev
-                      ).to(torch.bfloat16)
-    vwh = torch.tensor([[1024, 1024], [1000, 752]] * 4, dtype=torch.int32,
-                       device=dev)
-    yield ("K2 8x1024x1024", lambda: cuda_nms.nms_cellmax(heat, vwh),
-           lambda: cuda_nms.nms_cellmax_plain(heat, vwh), None,
-           bound(0.0, heat.numel() * 2 + 2 * 8 * 256 * 256 * 4 + 8 * 8),
-           None)
 
 
 def main(argv=None):

@@ -59,16 +59,141 @@ def test_stage_tail_kernel_matches_plain(gen, shape):
     assert bool(((got - want).abs() <= 1e-3 + 2.0 ** -7 * want.abs()).all())
 
 
-@pytest.mark.parametrize("radius", [3, 4])
-def test_nms_cellmax_kernel_matches_plain(gen, radius):
+# K2's tile is 64 rows x 192 columns of a 256-column region: shapes at and
+# off its edges (H, W multiples of 4, not of the tile), every radius, and
+# heatmaps whose equal values exercise the ties: 4 bf16 levels, zero
+# plateaus with -0.0 among them, negative values, and a heatmap 2 bytes
+# past a 16-byte boundary (the kernel's unaligned loads).
+NMS_CASES = [
+    # the first cases: torch.rand, radius 3 and 4
+    (3, 100, 136, 3, "rand", 4), (3, 100, 136, 4, "rand", 4),
+    *[(2, 132, 260, r, kind, 4) for kind in ("rand", "ties", "plateau")
+      for r in (3, 4, 5, 6)],
+    (1, 4, 4, 3, "rand", 4), (1, 4, 4, 6, "ties", 0), (2, 8, 12, 4, "rand", 0),
+    (1, 64, 192, 4, "ties", 8), (1, 68, 196, 4, "plateau", 8),
+    (2, 60, 188, 5, "rand", 0), (1, 124, 380, 6, "plateau", 0),
+    (1, 260, 580, 3, "signed", 8), (3, 132, 260, 4, "offset", 4),
+    (2, 132, 260, 6, "offset", 0),
+    # the paths' shapes: the turbo step, the general canvas, a 2048 x 1536
+    # batch at radius 3
+    (8, 1024, 1024, 4, "rand", 4), (8, 1024, 1024, 4, "ties", 4),
+    (1, 1280, 2048, 4, "plateau", 4), (2, 1536, 2048, 3, "ties", 4)]
+
+
+def nms_heat(gen, b, h, w, kind):
+    """A (B, H, W) bf16 heatmap on the card of one of NMS_CASES' kinds."""
+    dev = "cuda"
+    if kind == "ties":
+        levels = torch.tensor([0.125, 0.25, 0.5, 0.75], device=dev)
+        heat = levels[torch.randint(0, 4, (b, h, w), generator=gen,
+                                    device=dev)]
+    elif kind == "signed":
+        heat = torch.randn((b, h, w), generator=gen, device=dev)
+    else:
+        heat = torch.rand((b, h, w), generator=gen, device=dev)
+    if kind == "plateau":
+        # zero plateaus (a suppressed score is 0, not -inf), -0.0 inside
+        # them and along some rows, and a lone peak on a plateau
+        heat[:, h // 8:h // 2, w // 8:3 * w // 4] = 0.0
+        heat[:, h // 4:h // 4 + 3, :] = -0.0
+        heat[:, h // 8 + 1:h // 2:3, w // 8 + 2:3 * w // 4:5] = -0.0
+        heat[:, h // 8 + 5, w // 8 + 7] = 0.5
+    heat = heat.to(torch.bfloat16)
+    if kind == "offset":
+        flat = torch.empty(b * h * w + 1, dtype=torch.bfloat16, device=dev)
+        heat = flat[1:].view(b, h, w).copy_(heat)
+    return heat
+
+
+def nms_valid_wh(b, h, w):
+    """Image 0 fills the canvas; the others are smaller, one very narrow."""
+    rows = [[w, h], [max(0, w - 46), max(0, h - 23)], [13, h],
+            [w, max(0, h - 60)]]
+    return torch.tensor([rows[i % 4] for i in range(b)], dtype=torch.int32,
+                        device="cuda")
+
+
+@pytest.mark.parametrize("b,h,w,radius,kind,border", NMS_CASES)
+def test_nms_cellmax_kernel_matches_plain(gen, b, h, w, radius, kind,
+                                          border):
     """Exact on both maps."""
-    heat = torch.rand((3, 100, 136), generator=gen, device="cuda"
-                      ).to(torch.bfloat16)
+    heat = nms_heat(gen, b, h, w, kind)
     vwh = torch.tensor([[136, 100], [90, 61], [13, 100]], dtype=torch.int32,
-                       device="cuda")
-    cm, cs = cuda_nms.nms_cellmax(heat, vwh, radius=radius)
-    pm, ps = cuda_nms.nms_cellmax_plain(heat, vwh, radius=radius)
+                       device="cuda") if (b, h, w) == (3, 100, 136) \
+        else nms_valid_wh(b, h, w)
+    before = cuda_nms.nms_cellmax.launches
+    cm, cs = cuda_nms.nms_cellmax(heat, vwh, radius=radius, border=border)
+    pm, ps = cuda_nms.nms_cellmax_plain(heat, vwh, radius=radius,
+                                        border=border)
+    assert cuda_nms.nms_cellmax.launches == before + 1
     assert torch.equal(cm, pm) and torch.equal(cs, ps)
+
+
+@pytest.mark.parametrize("radius", [3, 4])
+def test_nms_cellmax_kernel_on_a_trained_heatmap(gen, radius, monkeypatch):
+    """The trained detector's bf16 heatmap of a planted pair (both views on
+    a 768 x 1024 canvas, as the turbo path pads them), through the kernel
+    and the plain version: exact."""
+    import numpy as np
+
+    import chip_smoke
+    from imcui_tpu_torch.models.extractors import superpoint as sp
+    from imcui_tpu_torch.pipeline import two_view
+
+    params, meta = two_view.load_pretrained(device="cuda")
+    assert meta["superpoint"]["pretrained"]
+    img0, img1, _ = chip_smoke.synthetic_pair(100, 1000, 752)
+    canvas = np.zeros((2, 1, 768, 1024), np.float32)
+    canvas[0, 0, :752, :1000] = img0[..., 0] / 255.0
+    canvas[1, 0, :752, :1000] = img1[..., 0] / 255.0
+    vwh = np.array([[1000, 752]] * 2, np.int32)
+    heats = []
+    select = cuda_nms.select_keypoints
+
+    def spy(heat, *args, **kwargs):
+        heats.append(heat)
+        return select(heat, *args, **kwargs)
+
+    monkeypatch.setattr(cuda_nms, "select_keypoints", spy)
+    sp.apply(params["superpoint"], canvas, vwh, nms_radius=radius,
+             device="cuda")
+    heat = heats[0]
+    assert heat.dtype == torch.bfloat16 and heat.shape == (2, 768, 1024)
+    vwh_t = torch.from_numpy(vwh).cuda()
+    cm, cs = cuda_nms.nms_cellmax(heat, vwh_t, radius=radius)
+    pm, ps = cuda_nms.nms_cellmax_plain(heat, vwh_t, radius=radius)
+    assert int((pm > 0.0005).sum()) > 500
+    assert torch.equal(cm, pm) and torch.equal(cs, ps)
+
+
+def test_nms_plan_covers_every_cell(gen):
+    """Blocks of 64 x 192 output pixels cover the canvas; each loads
+    64 + 10r rows; the radii the path uses fit two blocks an SM."""
+    for b, h, w, radius in ((8, 1024, 1024, 4), (1, 1280, 2048, 4),
+                            (2, 1536, 2048, 3), (1, 4, 4, 6)):
+        plan = cuda_nms.nms_plan(b, h, w, radius)
+        assert plan["tile_rows"] * plan["tile_cols"] * plan["blocks"] >= \
+            b * h * w
+        assert plan["blocks"] == b * -(-h // plan["tile_rows"]) * \
+            -(-w // plan["tile_cols"])
+        assert plan["region_rows"] == plan["tile_rows"] + 10 * radius
+        assert plan["blocks_per_sm"] >= (2 if radius <= 4 else 1)
+        assert plan["rounds"] == -(-plan["blocks"] // (
+            plan["blocks_per_sm"] * plan["sms"]))
+
+
+def test_nms_cellmax_back_to_back_launches(gen):
+    """Launches queued on one stream with different radii and shapes, none
+    waiting for the last: each equals its plain version."""
+    calls = [(nms_heat(gen, 2, 132, 260, "ties"), 3),
+             (nms_heat(gen, 1, 68, 196, "plateau"), 6),
+             (nms_heat(gen, 8, 1024, 1024, "rand"), 4)]
+    outs = [cuda_nms.nms_cellmax(hm, nms_valid_wh(*hm.shape), radius=r)
+            for hm, r in calls]
+    for (hm, r), (cm, cs) in zip(calls, outs):
+        pm, ps = cuda_nms.nms_cellmax_plain(hm, nms_valid_wh(*hm.shape),
+                                            radius=r)
+        assert torch.equal(cm, pm) and torch.equal(cs, ps)
 
 
 def _masks(b, n):
