@@ -46,7 +46,18 @@ Phases, each of which passes or ends the run with a non-zero exit:
      hold wgmma and TMA loads and stores (cuobjdump); every probe held
      against its plain version, timed beside its bound and one cuBLAS call
      of the same function; the log names the kernel's first design's time
-     (a constant from commit 35980e0, kept out of the kernels line).
+     (a constant from commit 35980e0, kept out of the kernels line);
+  7. the LoFTR dense path: ImageMatchingAPI(device="cuda") with the
+     registry's loftr (640x480 forced, 2000 match slots, threshold 0.2) on
+     the tree trained in the repository, which the offline route must find,
+     in bf16 and f32 on planted 1600x1200 pairs: the planted-homography
+     gate on every pair, the card against the port's CPU run (IoU of the
+     valid coarse pairs), ms per request, per-stage CUDA-event times and
+     the idle share; then one request of each LoFTR-family matcher
+     (eloftr, se2loftr, xoftr, aspanformer, topicfm, matchformer) and of
+     RoMa's fpn-corr backbone at their registry confs on seeded random
+     weights, each held to finite outputs and to its CPU run. This path
+     launches none of the hand-written kernels.
 Near the end it prints one JSON line {"timing": ...}, one {"kernels":
 [...]} and the card's name and power limit; the last line is {"ok": true,
 "device": {...}}. Without a CUDA device, or without the rest of the
@@ -110,6 +121,37 @@ D_CPU_TOL = 5e-5
 D_BF16_MEDIAN_WARP = 0.25
 # The stage-tail probes (phase 6): inputs from this seed.
 P_SEED = 0
+# The LoFTR dense path (phase 7): the registry's loftr entry (640 x 480
+# forced, 2000 slots, threshold 0.2) on the tree trained in the repository,
+# in bf16 (its default) and f32, on planted pairs of this size (the general
+# path's gate: GATE_MIN_INLIERS, GATE_MEDIAN_PX).
+L_MATCHER = "loftr"
+L_SIZE = (1600, 1200)
+L_SEEDS = (700, 701, 702)
+L_TRAINED = os.path.join("weights", "loftr_selftrained.npz")
+# Card against the port's CPU run on one pair: the IoU of the sets of valid
+# coarse (idx0, idx1) pairs must reach this (measured on an H100: f32 1.0,
+# bf16 0.991 and 0.993, where cuDNN and oneDNN round the bf16 trunk in
+# other places).
+L_COARSE_IOU = {"fp32": 0.99, "bf16": 0.97}
+# The LoFTR family at its registry confs on seeded random weights, one
+# request each; card against CPU on that request's inputs: at least
+# L_FAMILY_NEAR of the coarse tokens within L_FAMILY_TOL of the largest (an
+# aspanformer flow that rounds to another cell moves a span), and, at a
+# threshold that keeps matches on the random tree at 640 x 480
+# (aspanformer's and topicfm's keep one mutual pair at any threshold), the
+# IoU of the valid image-0 points (the same within L_FAMILY_PX) at least
+# L_FAMILY_IOU and the median |image-1 point difference| over the common
+# ones at most L_FAMILY_PX.
+L_FAMILY = {"eloftr": 1e-3, "se2loftr": 1e-3, "xoftr": 0.3,
+            "aspanformer": 0.2, "topicfm": 0.2, "matchformer": 1e-6}
+L_FAMILY_TOL = 1e-4
+L_FAMILY_NEAR = 0.99
+L_FAMILY_IOU = 0.9
+L_FAMILY_PX = 0.01
+# ... and RoMa's fpn-corr backbone at the registry's roma entry: card
+# against CPU on the warp, in normalised units, and the certainty.
+L_FPN_TOL = 1e-3
 # The times of the tap-sum kernel's first design (WMMA with cp.async,
 # commit 35980e0), chip_smoke.py phase 6 of its run 3 on an NVIDIA H100
 # 80GB HBM3 at 700.00 W, by probe shape (rows, N, taps, type, layout of w).
@@ -214,6 +256,18 @@ def synthetic_pair(seed, w, h):
             np.repeat(img1[..., None], 3, -1), hm)
 
 
+def common_points(a, b, tol):
+    """Points of (n, 2) ``a`` and (m, 2) ``b`` within ``tol`` px of each
+    other: (IoU of the two sets, indices into a, indices into b)."""
+    if not len(a) or not len(b):
+        return 0.0, np.zeros(0, int), np.zeros(0, int)
+    d = np.abs(a[:, None, :] - b[None, :, :]).max(-1)
+    j = d.argmin(1)
+    ok = d[np.arange(len(a)), j] <= tol
+    n = int(ok.sum())
+    return n / (len(a) + len(b) - n), np.flatnonzero(ok), j[ok]
+
+
 def transfer_errors(hm, mk0, mk1):
     """|H·mk0 − mk1| in px for (n, 2) correspondences."""
     p = np.concatenate([mk0, np.ones((len(mk0), 1))], 1) @ hm.T
@@ -256,6 +310,79 @@ def bound(flops, nbytes, peak_flops, peaks):
     t_ops = flops / peak_flops * 1e3
     t_mem = nbytes / peaks["bw"] * 1e3
     return max(t_ops, t_mem), ("operations" if t_ops >= t_mem else "bytes")
+
+
+class StageTimer:
+    """CUDA events around module functions, summed by label per request.
+    ``wrap`` replaces ``mod.name`` (callers that look it up in the module
+    see the wrapper); ``wrap_host`` does the same with the host clock, for
+    host work that ends in a copy to the host; ``undo`` puts the functions
+    back."""
+
+    def __init__(self):
+        self.events, self.host, self._undo = {}, {}, []
+
+    def _replace(self, mod, name, wrapper):
+        fn = getattr(mod, name)
+        setattr(mod, name, wrapper(fn))
+        self._undo.append(lambda: setattr(mod, name, fn))
+
+    def wrap(self, mod, name, label):
+        import torch
+
+        def wrapper(fn):
+            def timed(*a, **kw):
+                ev = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+                ev[0].record()
+                out = fn(*a, **kw)
+                ev[1].record()
+                key = label(a) if callable(label) else label
+                self.events.setdefault(key, []).append(ev)
+                return out
+            return timed
+
+        self._replace(mod, name, wrapper)
+
+    def wrap_host(self, mod, name, label):
+        def wrapper(fn):
+            def timed(*a, **kw):
+                t0 = time.perf_counter()
+                out = fn(*a, **kw)
+                self.host[label] = self.host.get(label, 0.0) + (
+                    time.perf_counter() - t0) * 1e3
+                return out
+            return timed
+
+        self._replace(mod, name, wrapper)
+
+    def clear(self):
+        self.events.clear()
+        self.host.clear()
+
+    def ms(self):
+        return {**{k: sum(a.elapsed_time(b) for a, b in v)
+                   for k, v in self.events.items()}, **self.host}
+
+    def undo(self):
+        for fn in reversed(self._undo):
+            fn()
+        self._undo.clear()
+
+
+def device_window(run, n):
+    """Device busy ms per call of ``run`` and the profiler's events, from a
+    torch.profiler window over ``n`` calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(n):
+            run(i)
+        torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    return sum(e.self_device_time_total for e in evs) / (n * 1e3), evs
 
 
 def attention_ptxas(source="attention.cu",
@@ -1549,30 +1676,14 @@ def phase5():
         want_k = int(conf["max_keypoints"])
         api(*pairs[0][:2])                       # warm-up
         captured = []
-        stages = {}
-        undo = []
-
-        def stage(mod, name, label):
-            fn = getattr(mod, name)
-
-            def wrapper(*a, **kw):
-                ev = (torch.cuda.Event(enable_timing=True),
-                      torch.cuda.Event(enable_timing=True))
-                ev[0].record()
-                out = fn(*a, **kw)
-                ev[1].record()
-                stages.setdefault(label(a), []).append(ev)
-                return out
-
-            setattr(mod, name, wrapper)
-            undo.append(lambda: setattr(mod, name, fn))
-
-        stage(roma.dinov2, "apply", lambda a: "dinov2 x2")
-        stage(roma.vgg, "apply", lambda a: "vgg19 x2")
-        stage(roma, "coarse_match", lambda a: "gp + decoder")
-        stage(roma, "refiner_apply",
-              lambda a: f"refiner {560 // a[2].shape[1]}")
-        stage(roma, "sample", lambda a: "sample")
+        timer = StageTimer()
+        stages = timer.events
+        timer.wrap(roma.dinov2, "apply", "dinov2 x2")
+        timer.wrap(roma.vgg, "apply", "vgg19 x2")
+        timer.wrap(roma, "coarse_match", "gp + decoder")
+        timer.wrap(roma, "refiner_apply",
+                   lambda a: f"refiner {560 // a[2].shape[1]}")
+        timer.wrap(roma, "sample", "sample")
         match = model.match
         model.match = lambda a, b: (captured.append(match(a, b)),
                                     captured[-1])[1]
@@ -1590,8 +1701,7 @@ def phase5():
             end.record()
             end.synchronize()
             walls.append((time.perf_counter() - t0) * 1e3)
-            rows.append({k: sum(a.elapsed_time(b) for a, b in v)
-                         for k, v in stages.items()})
+            rows.append(timer.ms())
             tails.append(stages["sample"][-1][1].elapsed_time(end))
             delta = {k.__name__: k.launches - before[k.__name__]
                      for k in kernels}
@@ -1632,18 +1742,9 @@ def phase5():
         warps[tag] = captured[-1][0].float()
 
         # device busy time and idle share over two more requests
-        from torch.profiler import ProfilerActivity, profile
-
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for i in range(2):
-                api(*pairs[i][:2])
-            torch.cuda.synchronize()
-        for fn in undo:
-            fn()
+        device_ms, evs = device_window(lambda i: api(*pairs[i][:2]), 2)
+        timer.undo()
         model.match = match
-        evs = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
-        device_ms = sum(e.self_device_time_total for e in evs) / 2e3
         med = {k: float(np.median([r[k] for r in rows])) for k in rows[0]}
         med["ransac + host tail"] = float(np.median(tails))
         wall = float(np.median(walls))
@@ -1744,6 +1845,224 @@ def phase5():
         problems.append("the card and the CPU disagree in float32")
     result["card_vs_cpu"] = {"dinov2": e_tok, "refiner_warp": e_w,
                              "refiner_cert": e_c}
+    if problems:
+        fail("; ".join(problems))
+    return result
+
+
+def phase7():
+    """The LoFTR dense path through ImageMatchingAPI at the registry's
+    width on the trained tree, bf16 and f32: gate, card against the port's
+    CPU run, stage times and the idle share; then one request of each
+    LoFTR-family matcher and of RoMa's fpn-corr backbone on seeded random
+    weights, each held to finite outputs and to its CPU run."""
+    import torch
+
+    from imcui_tpu_torch.api import core as api_core
+    from imcui_tpu_torch.api.core import ImageMatchingAPI
+    from imcui_tpu_torch.models.layers import full_fp32
+    from imcui_tpu_torch.models.matchers import loftr, roma
+    from imcui_tpu_torch.utils import image as image_utils
+    from imcui_tpu_torch.ui import utils as ui
+    from imcui_tpu_torch.utils.weights import to_device
+
+    pairs = [synthetic_pair(s, *L_SIZE) for s in L_SEEDS]
+    trained = f"local:{os.path.join(ROOT, L_TRAINED)}"
+    result = {}
+    problems = []
+
+    def api_for(name, device="cuda", **model):
+        conf = ui.parse_match_config({"matcher": name, "dense": True})
+        conf["matcher"]["model"].update(model)
+        return ImageMatchingAPI(conf, device=device)
+
+    def coarse(run):
+        """``run()`` with loftr.coarse_match recorded: its two token
+        matrices (on the CPU) and its valid (idx0, idx1) pairs."""
+        out = {}
+        fn = loftr.coarse_match
+
+        def rec(*a, **kw):
+            out["tokens"] = [t.float().cpu() for t in a[:2]]
+            out["m"] = fn(*a, **kw)
+            return out["m"]
+
+        loftr.coarse_match = rec
+        try:
+            run()
+        finally:
+            loftr.coarse_match = fn
+        i0, i1, _, valid = (t.cpu() for t in out["m"])
+        return out["tokens"], {(int(a), int(b))
+                               for a, b in zip(i0[valid], i1[valid])}
+
+    for precision in ("bf16", "fp32"):
+        api = api_for(L_MATCHER, precision=precision)
+        model = api.matcher
+        pre = api.match_conf["preprocessing"]
+        log(f"  [{precision}] weights: {model.meta}; preprocessing {pre}; "
+            f"model {api.match_conf['model']}")
+        if model.meta != {"pretrained": True, "source": trained}:
+            fail(f"loftr did not load {trained} by the offline route")
+        if (pre["width"], pre["height"], pre["force_resize"],
+                model.pair_conf["max_matches"],
+                model.pair_conf["match_threshold"]) != (640, 480, True, 2000,
+                                                        0.2):
+            fail(f"the registry's loftr is not at full width: {pre}, "
+                 f"{model.pair_conf}")
+        want_dt = torch.bfloat16 if precision == "bf16" else torch.float32
+        if model.params["backbone"]["conv1"]["w"].dtype != want_dt:
+            fail(f"[{precision}] the tree is not {want_dt}")
+        api(*pairs[0][:2])                       # warm-up
+        timer = StageTimer()
+        timer.wrap(loftr, "backbone_apply", "backbone")
+        timer.wrap(loftr, "coarse_transform", "coarse transformer")
+        timer.wrap(loftr, "coarse_match", "coarse_match")
+        timer.wrap(loftr, "fine_preprocess", "fine windows")
+        timer.wrap(loftr, "fine_match", "fine_match")
+        timer.wrap_host(image_utils, "preprocess", "preprocessing (host)")
+        timer.wrap_host(api_core, "filter_matches", "ransac (host clock)")
+        walls, rows, gates = [], [], []
+        for i, (img0, img1, hm) in enumerate(pairs):
+            timer.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = api(img0, img1)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            rows.append(timer.ms())
+            for key in ("mkeypoints0_orig", "mkeypoints1_orig", "mconf",
+                        "mmkeypoints0_orig", "mmkeypoints1_orig", "H"):
+                if res[key] is None or not np.isfinite(res[key]).all():
+                    fail(f"[{precision}] request {i}: {key} is missing or "
+                         f"not finite")
+            raw = transfer_errors(hm, res["mkeypoints0_orig"],
+                                  res["mkeypoints1_orig"])
+            err = transfer_errors(hm, res["mmkeypoints0_orig"],
+                                  res["mmkeypoints1_orig"])
+            med = float(np.median(err)) if len(err) else float("inf")
+            gates.append({"raw": len(raw), "inliers": len(err),
+                          "median_px": med,
+                          "raw_within_2px": float((raw <= 2).mean())})
+            log(f"  [{precision}] request {i} {L_SIZE}: {len(raw)} raw "
+                f"matches ({gates[-1]['raw_within_2px']:.3f} within 2 px), "
+                f"{len(err)} inliers, median transfer error {med:.3f} px; "
+                f"{walls[-1]:.2f} ms")
+            if len(err) < GATE_MIN_INLIERS or med > GATE_MEDIAN_PX:
+                problems.append(f"[{precision}] request {i}: gate is >= "
+                                f"{GATE_MIN_INLIERS} inliers with median "
+                                f"error <= {GATE_MEDIAN_PX} px")
+        device_ms, evs = device_window(lambda i: api(*pairs[i][:2]), 2)
+        timer.undo()
+        med = {k: float(np.median([r[k] for r in rows])) for k in rows[0]}
+        wall = float(np.median(walls))
+        idle = 1 - device_ms / wall
+        log(f"  [{precision}] {wall:.2f} ms per request (host clock, median "
+            f"of {len(walls)}); stages (ms, CUDA events): "
+            + ", ".join(f"{k} {v:.3f}" for k, v in med.items()))
+        log(f"  [{precision}] device busy {device_ms:.2f} ms/request, idle "
+            f"share {idle:.3f}; top device time per request:")
+        for e in sorted(evs, key=lambda e: e.self_device_time_total,
+                        reverse=True)[:8]:
+            log(f"    {e.self_device_time_total / 2e3:9.3f} ms  "
+                f"x{e.count / 2:g}  {e.key[:100]}")
+        # card against the port's CPU run on the first pair
+        _, card = coarse(lambda: api(*pairs[0][:2]))
+        cpu_api = api_for(L_MATCHER, "cpu", precision=precision)
+        _, cpu = coarse(lambda: cpu_api(*pairs[0][:2]))
+        iou = len(card & cpu) / max(1, len(card | cpu))
+        log(f"  [{precision}] card against CPU, pair 0: {len(card)} and "
+            f"{len(cpu)} valid coarse pairs, IoU {iou:.4f} (bound "
+            f"{L_COARSE_IOU[precision]})")
+        if iou < L_COARSE_IOU[precision]:
+            problems.append(f"[{precision}] card and CPU coarse matches: IoU "
+                            f"{iou:.4f}")
+        result[precision] = {"ms_per_request": wall, "split_ms": med,
+                             "device_busy_ms": device_ms,
+                             "device_idle_share": idle, "gate": gates,
+                             "coarse_iou_card_vs_cpu": iou}
+
+    # the family, one request each at the registry conf, then the model on
+    # that request's inputs on the card and on the CPU
+    for name, thr in L_FAMILY.items():
+        api = api_for(name)
+        model = api.matcher
+        if model.meta["pretrained"] is not False:
+            fail(f"{name} claims trained weights that do not exist")
+        seen = {}
+        hook = model.register_forward_pre_hook(
+            lambda mod, args: seen.update(data=args[0]))
+        t0 = time.perf_counter()
+        res = api(*pairs[0][:2])
+        ms = (time.perf_counter() - t0) * 1e3
+        hook.remove()
+        n = len(res["mkeypoints0_orig"])
+        if not all(np.isfinite(res[k]).all() and len(res[k]) == n for k in (
+                "mkeypoints0_orig", "mkeypoints1_orig", "mconf")):
+            fail(f"{name}: outputs not finite or of unequal length")
+        cpu_model = type(model)(api.match_conf["model"], device="cpu")
+        outs, tokens = [], []
+        for m in (model, cpu_model):
+            m.pair_conf["match_threshold"] = thr
+            got = {}
+            tok, _ = coarse(lambda: got.update(m(seen["data"])))
+            outs.append({k: v[0].cpu().numpy() for k, v in got.items()})
+            tokens.append(tok)
+        rel = torch.cat([(a - b).abs().amax(1) / b.abs().max()
+                         for a, b in zip(*tokens)])
+        e_tok, near = float(rel.max()), float((rel <= L_FAMILY_TOL).float(
+            ).mean())
+        slots = outs[0]["keypoints0"].shape[0]
+        if slots != model.pair_conf["max_matches"]:
+            fail(f"{name}: {slots} match slots")
+        k0, k1 = ([o[k][o["mask"]] for o in outs]
+                  for k in ("keypoints0", "keypoints1"))
+        iou, ia, ib = common_points(k0[0], k0[1], L_FAMILY_PX)
+        dk = float(np.median(np.abs(k1[0][ia] - k1[1][ib]).max(1))) \
+            if len(ia) else float("inf")
+        log(f"  {name}: {n} raw matches at the registry's threshold "
+            f"{api.match_conf['model']['match_threshold']}, {ms:.1f} ms; card "
+            f"against CPU: coarse tokens within {L_FAMILY_TOL} of the largest"
+            f" {near:.4f} (largest {e_tok:.2e}); at threshold {thr} "
+            f"{len(k0[0])} matches on the card, {len(k0[1])} on the CPU, IoU "
+            f"{iou:.4f}, median image-1 difference {dk:.2e} px")
+        if not len(k0[0]) or near < L_FAMILY_NEAR or iou < L_FAMILY_IOU or \
+                dk > L_FAMILY_PX:
+            problems.append(f"{name}: card and CPU disagree")
+        result[name] = {"ms_per_request": ms, "raw_matches": n,
+                        "tokens_near": near, "token_err_card_vs_cpu": e_tok,
+                        "iou_card_vs_cpu": iou, "median_px": dk}
+
+    # RoMa's fpn-corr backbone at the registry's roma entry
+    api = api_for("roma", backbone="fpn-corr")
+    model = api.matcher
+    if model.meta["pretrained"] is not False or \
+            model.meta["backbone"] != "fpn-corr":
+        fail(f"roma fpn-corr weights: {model.meta}")
+    seen = {}
+    hook = model.register_forward_pre_hook(
+        lambda mod, args: seen.update(data=args[0]))
+    res = api(*pairs[0][:2])
+    hook.remove()
+    x0, x1 = (model._prepare(seen["data"][k])[0] for k in ("image0", "image1"))
+    cpu_params = to_device(model.params, "cpu")
+    with torch.inference_mode(), full_fp32():
+        w_card, c_card = model.match(x0, x1)
+        w_cpu, c_cpu = roma.match(cpu_params, x0.cpu(), x1.cpu())
+    e_w = float((w_card.cpu() - w_cpu).abs().max())
+    e_c = float((c_card.cpu() - c_cpu).abs().max())
+    n = len(res["mkeypoints0_orig"])
+    cells = x0.shape[-2] // 8 * (x0.shape[-1] // 8)
+    log(f"  roma fpn-corr: {n} correspondences on a {tuple(w_card.shape[:2])} "
+        f"grid, card against CPU: warp {e_w:.2e}, certainty {e_c:.2e} "
+        f"(tolerance {L_FPN_TOL})")
+    if n != min(cells, api.match_conf["model"]["max_keypoints"]) or \
+            not np.isfinite(res["mkeypoints1_orig"]).all():
+        problems.append(f"roma fpn-corr: {n} correspondences")
+    if not (e_w <= L_FPN_TOL and e_c <= L_FPN_TOL):
+        problems.append("roma fpn-corr: card and CPU disagree")
+    result["roma fpn-corr"] = {"correspondences": n, "warp_err": e_w,
+                               "cert_err": e_c}
     if problems:
         fail("; ".join(problems))
     return result
@@ -1995,6 +2314,10 @@ def main():
     log("phase 6: the stage-tail probes (K8-K13) at the scripts' shapes")
     probe_rows, launches_probes = phase6(peaks)
     rows += probe_rows
+    log(f"phase 7: the LoFTR dense path (ImageMatchingAPI, {L_MATCHER} at "
+        "640x480 on the trained tree, bf16 and f32), the LoFTR family and "
+        "RoMa's fpn-corr")
+    timing["loftr"] = phase7()
     for r in rows:
         by_path = {
             "turbo": launches.get(r["name"], 0),

@@ -14,7 +14,12 @@ Three paths are ported so far:
   (``pipeline/match_dense.py::match_images`` → the ``Roma`` ``BaseModel``:
   DINOv2 ViT-L/14 and a VGG19 pyramid, a Gaussian-process coarse matcher,
   an anchor-classification decoder and five convolutional refiners, in
-  float32 or bfloat16 → ``sample`` → the same RANSAC filter).
+  float32 or bfloat16, or its lightweight ``fpn-corr`` backbone →
+  ``sample`` → the same RANSAC filter); on the same branch the ``LoFTR``
+  ``BaseModel`` (ResNet-FPN, linear-attention transformer, dual-softmax
+  coarse matches, fine windows) on the tree trained in the repository,
+  and the LoFTR family built on its parts (``eloftr``, ``se2loftr``,
+  ``xoftr``, ``aspanformer``, ``topicfm``, ``matchformer``).
 
 The seven Pallas kernels on those paths are rewritten by hand in CUDA C++
 (``csrc/``, built on first use by ``ops/_build.py``): ``stage_tail``,

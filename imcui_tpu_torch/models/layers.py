@@ -153,6 +153,11 @@ def relu(x):
     return torch.relu(x)
 
 
+def leaky_relu(x, slope=0.01):
+    """x where x >= 0, else slope · x (one rounding in x's dtype)."""
+    return F.leaky_relu(x, slope)
+
+
 def max_pool(x):
     """2×2 / stride-2 max-pool of (B, C, H, W)."""
     return F.max_pool2d(x, 2, 2)

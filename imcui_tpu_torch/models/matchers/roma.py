@@ -1,14 +1,18 @@
 """RoMa: dense feature matching with a DINOv2 coarse encoder, a Gaussian-
 process coarse matcher, an anchor-classification transformer decoder and
 multi-scale convolutional refiners. Counterpart of
-``imcui_tpu/models/matchers/roma.py`` (the DINOv2 + GP architecture; its
-lightweight ``fpn-corr`` backbone needs LoFTR's backbone and is not ported
-yet).
+``imcui_tpu/models/matchers/roma.py``: the DINOv2 + GP architecture
+(``backbone="dinov2-gp"``) and the lightweight ``fpn-corr`` one (LoFTR's
+ResNet-FPN coarse features, a soft-argmax warp over their correlation and
+one convolutional refinement step, on grayscale images at the input
+resolution).
 
 ``match_gp`` gives a dense warp and certainty at ``coarse_res`` (560²),
-``sample`` draws ``max_keypoints`` correspondences from it, and the
-``Roma`` wrapper flattens that into the standalone dense-matcher output
-{keypoints0, keypoints1, scores, mask, mconf}.
+``match`` dispatches on the tree (``match_gp`` where it holds DINOv2,
+else the fpn-corr path at 1/8 of the input), ``sample`` draws
+``max_keypoints`` correspondences from it, and the ``Roma`` wrapper
+flattens that into the standalone dense-matcher output {keypoints0,
+keypoints1, scores, mask, mconf}.
 
 Layouts: images and feature maps are (C, H, W) for one view, warps are
 (H, W, 2) normalised (x, y) in [-1, 1], token matrices (N, D) row-major
@@ -36,6 +40,7 @@ from ..backbones import vit as vit_mod
 from ..layers import (apply_precision, batch_norm_inference, conv2d,
                       depthwise_conv, full_fp32, init_bn, init_conv,
                       init_linear, linear, relu)
+from . import loftr
 
 # per-scale refiner: projected feature dim, displacement-embedding dim,
 # local-correlation radius, hidden depth, depthwise? (the published
@@ -396,13 +401,65 @@ def match_gp(params, image0, image1, conf):
     return warp, torch.sigmoid(cert)
 
 
+# ---------------------------------------------------------------------------
+# the lightweight fpn-corr path
+# ---------------------------------------------------------------------------
+
+def init_params_fpn(gen):
+    """LoFTR's backbone and a three-conv refiner whose input is [f0 (256),
+    warped f1 (256), warp (2), certainty (1)]."""
+    return {
+        "backbone": loftr.init_backbone(gen),
+        "refiner": {"conv1": init_conv(gen, 3, 3, 515, 256),
+                    "conv2": init_conv(gen, 3, 3, 256, 128),
+                    "out": init_conv(gen, 3, 3, 128, 3)},
+    }
+
+
+def correlation_warp(f0, f1, temperature=0.05):
+    """Coarse warp by a soft-argmax over the correlation of the two views'
+    L2-normalised features. f0/f1: (D, Hc, Wc) → warp (Hc, Wc, 2) in
+    image 1's normalised coordinates and certainty (Hc, Wc), the largest
+    attention weight of each cell, both float32. The normalisation is in
+    the features' dtype, the correlation a float32 product."""
+    d, hc, wc = f0.shape
+
+    def unit(f):
+        t = f.reshape(d, hc * wc).t()
+        return t / torch.linalg.vector_norm(t, dim=-1, keepdim=True
+                                            ).clamp_min(1e-8)
+
+    with full_fp32():
+        sim = (unit(f0).float() @ unit(f1).float().t()) / temperature
+        attn = torch.softmax(sim, -1)
+        warp = attn @ coord_grid(hc, wc, f0.device)
+    return warp.reshape(hc, wc, 2), attn.amax(-1).reshape(hc, wc)
+
+
+def refine(params, f0, f1, warp, cert):
+    """One convolutional step on [f0, f1 warped, warp, certainty]: the warp
+    moves by 0.1·tanh of two outputs, the certainty is scaled by the
+    sigmoid of the third. f0/f1: (D, Hc, Wc); warp (Hc, Wc, 2); cert
+    (Hc, Wc)."""
+    x = torch.cat([f0, bilinear_warp(f1, warp), warp.permute(2, 0, 1),
+                   cert[None]], 0)[None]          # promoted to float32
+    x = relu(conv2d(params["conv1"], x))
+    x = relu(conv2d(params["conv2"], x))
+    out = conv2d(params["out"], x)[0]
+    return (warp + (0.1 * torch.tanh(out[:2])).permute(1, 2, 0),
+            torch.sigmoid(out[2]) * cert)
+
+
 def match(params, image0, image1, conf=None):
-    """Dense warp and certainty of one pair (``match_gp``)."""
-    if "dinov2" not in params:
-        raise NotImplementedError(
-            "the fpn-corr backbone needs LoFTR's backbone, which is not "
-            "ported yet (ROADMAP.md A9)")
-    return match_gp(params, image0, image1, conf or {})
+    """Dense warp and certainty of one pair: ``match_gp`` on a DINOv2 + GP
+    tree (RGB (3, H, W) at coarse_res), else the fpn-corr path on grayscale
+    (1, H, W) images, whose warp and certainty are on the 1/8 grid."""
+    if "dinov2" in params:
+        return match_gp(params, image0, image1, conf or {})
+    featc, _ = loftr.backbone_apply(params["backbone"],
+                                    torch.stack([image0, image1]))
+    warp, cert = correlation_warp(featc[0], featc[1])
+    return refine(params["refiner"], featc[0], featc[1], warp, cert)
 
 
 def load_params(conf, device):
@@ -410,11 +467,14 @@ def load_params(conf, device):
     ``dinov2_vitl14_pretrain.pth`` upstream) are not in the repository and
     nothing is downloaded, so unless ``conf["checkpoint_npz"]`` names a
     converted tree the weights are a seeded random initialisation and
-    ``meta["pretrained"]`` is False."""
+    ``meta["pretrained"]`` is False. ``backbone="fpn-corr"`` has no trained
+    tree anywhere and runs on its random one, as in the JAX package."""
     if conf.get("backbone") == "fpn-corr":
-        raise NotImplementedError(
-            "the fpn-corr backbone needs LoFTR's backbone, which is not "
-            "ported yet (ROADMAP.md A9); use backbone 'dinov2-gp'")
+        init = init_params_fpn(torch.Generator().manual_seed(0))
+        params, meta = weights.load_trained(conf, init, "roma fpn-corr",
+                                            device)
+        meta["backbone"] = "fpn-corr"
+        return params, meta
     init = init_params(torch.Generator().manual_seed(0), conf)
     params, meta = weights.load_or_init(conf.get("checkpoint_npz"), init,
                                         "roma", device)
@@ -459,7 +519,7 @@ class Roma(BaseModel):
         "model_name": "roma_outdoor.pth",
         "model_utils_name": "dinov2_vitl14_pretrain.pth",
         "max_keypoints": 2048,
-        "backbone": "dinov2-gp",
+        "backbone": "dinov2-gp",   # or "fpn-corr"
         "coarse_res": (560, 560),
         "upsample_res": (864, 1152),
         "dinov2_variant": "vitl14",
@@ -474,10 +534,17 @@ class Roma(BaseModel):
         logger.info(f"roma weights: {self.meta}")
 
     def _prepare(self, image):
+        """A DINOv2 + GP tree takes RGB at coarse_res; the fpn-corr tree
+        grayscale (the channels' mean) at the input resolution."""
         x = torch.as_tensor(image, dtype=torch.float32, device=self.device)
-        if x.shape[1] == 1:
-            x = x.expand(-1, 3, -1, -1)
-        x = resize_ops.resize(x, tuple(self.conf["coarse_res"]), "bilinear")
+        if "dinov2" not in self.params:
+            if x.shape[1] == 3:
+                x = x.mean(1, keepdim=True)
+        else:
+            if x.shape[1] == 1:
+                x = x.expand(-1, 3, -1, -1)
+            x = resize_ops.resize(x, tuple(self.conf["coarse_res"]),
+                                  "bilinear")
         if self.conf.get("precision") in ("bf16", "bfloat16"):
             x = x.to(torch.bfloat16)
         return x
@@ -495,13 +562,17 @@ class Roma(BaseModel):
         h0, w0 = data["image0"].shape[-2:]
         h1, w1 = data["image1"].shape[-2:]
         x0, x1 = self._prepare(data["image0"]), self._prepare(data["image1"])
-        ch, cw = self.conf["coarse_res"]
+        gp = "dinov2" in self.params
+        ch, cw = self.conf["coarse_res"] if gp else x0.shape[-2:]
         rows = []
         for a, b in zip(x0, x1):
             warp, cert = self.match(a, b)
             rows.append(sample(warp, cert, ch, cw,
                                num=int(self.conf["max_keypoints"])))
         k0, k1, scores, valid = (torch.stack(t) for t in zip(*rows))
+        if not gp:  # already in image 0's pixels, as in the JAX package
+            return {"keypoints0": k0, "keypoints1": k1, "scores": scores,
+                    "mask": valid, "mconf": scores}
         # correspondences are in coarse_res pixels: back to the inputs'
         s0 = k0.new_tensor([(w0 - 1) / (cw - 1), (h0 - 1) / (ch - 1)])
         s1 = k0.new_tensor([(w1 - 1) / (cw - 1), (h1 - 1) / (ch - 1)])

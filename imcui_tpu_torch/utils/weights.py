@@ -15,6 +15,7 @@ conv kernel and every 2-D leaf named ``w`` a linear weight (including
 LightGlue's ``posenc.Wr.w``); all other leaves keep their shape.
 """
 
+import os
 from pathlib import Path
 
 import numpy as np
@@ -132,5 +133,65 @@ def load_or_init(path, init, name, device):
         return tree, {"pretrained": True, "source": str(path)}
     why = f"{path} is absent" if path is not None \
         else f"no local tree for this {name} configuration"
+    return to_device(init, device), {
+        "pretrained": False, "source": f"random init (seed 0): {why}"}
+
+
+def local_trained_npz(name):
+    """Path of a tree trained inside the repository (``weights/<name>``),
+    or None. ``IMCUI_WEIGHTS_DIR`` names another directory; pointed at an
+    empty or missing one it turns every such tree off. The same lookup as
+    the JAX package's ``utils/weights.py::local_trained_npz``."""
+    d = os.environ.get("IMCUI_WEIGHTS_DIR")
+    base = Path(d) if d else Path(__file__).resolve().parents[2] / "weights"
+    p = base / name
+    return p if p.exists() else None
+
+
+def _read_like(path, init, name, device):
+    """The npz tree at ``path`` in this package's layout, checked against
+    ``init`` and nested as ``init`` is: a level that ``tree_from_flat``
+    would make a list (keys 0..n-1, as LoFTR's ``layer1.0``/``layer1.1``)
+    stays a dict where ``init`` has one."""
+    tree = params_from_jax(load_tree_npz(path), device)
+    assert_tree_matches(tree, init, name)
+    flat = flatten_tree(tree)
+
+    def like(node, prefix):
+        if isinstance(node, dict):
+            return {k: like(v, f"{prefix}.{k}" if prefix else k)
+                    for k, v in node.items()}
+        if isinstance(node, list):
+            return [like(v, f"{prefix}.{i}" if prefix else str(i))
+                    for i, v in enumerate(node)]
+        return flat[prefix]
+
+    return like(init, "")
+
+
+def load_trained(conf, init, name, device, local=None):
+    """(tree, meta) along three routes, in order:
+
+    1. ``conf["checkpoint_npz"]`` names a ``save_tree_npz`` tree: that
+       tree (a missing file raises);
+    2. ``local`` names a tree in ``weights/`` (``local_trained_npz``) that
+       exists: that tree, with ``meta["source"] = "local:<path>"``;
+    3. ``init`` itself, with ``meta["pretrained"] = False``.
+
+    A tree that does not have exactly ``init``'s leaves and shapes raises
+    (``assert_tree_matches``), as the JAX package's ``load_tree_npz``
+    does. Nothing is downloaded: the upstream ``.ckpt`` checkpoints the
+    JAX package converts after a hub download are not in the repository,
+    so their conversion is not ported."""
+    npz = conf.get("checkpoint_npz")
+    if npz:
+        return _read_like(npz, init, name, device), {
+            "pretrained": True, "source": str(npz)}
+    path = local_trained_npz(local) if local else None
+    if path is not None:
+        return _read_like(path, init, name, device), {
+            "pretrained": True, "source": f"local:{path}"}
+    why = (f"no {local} in the weights directory" if local
+           else f"no trained {name} tree in the repository")
     return to_device(init, device), {
         "pretrained": False, "source": f"random init (seed 0): {why}"}

@@ -6,11 +6,13 @@ skips without a card. Run on the card with
     python -m pytest tests/test_torch_port_cuda.py -q
 """
 
+import numpy as np
 import pytest
 import torch
 
 from imcui_tpu_torch.models.layers import full_fp32
 from imcui_tpu_torch.ops import attention, cuda_nms, cuda_stage1, tap_matmul
+from imcui_tpu_torch.utils import weights
 
 
 @pytest.fixture
@@ -1016,3 +1018,125 @@ def test_tap_matmul_one_row_leading_axes_and_refusals(gen):
         tap_matmul.tap_matmul(x, w[..., :64].repeat(1, 1, 3).contiguous())
     with pytest.raises(RuntimeError, match="tap_matmul"):  # 16-byte alignment
         tap_matmul.tap_matmul(x.view(-1)[4:4 + 63 * 128].view(63, 128), w)
+
+
+# --------------------------------------------------------------------------
+# LoFTR, the LoFTR family and RoMa's fpn-corr on the card against the CPU
+# --------------------------------------------------------------------------
+
+def _loftr_data(size=(601, 451), seed=100):
+    """The planted pair through the LoFTR test conf's preprocessing
+    (resize 320): the model's input dict, and the homography."""
+    import chip_smoke
+    from imcui_tpu_torch.utils import image as timage
+
+    img0, img1, hm = chip_smoke.synthetic_pair(seed, *size)
+    d = [timage.preprocess(img, grayscale=True, resize_max=320, dfactor=8)
+         for img in (img0, img1)]
+    return {"image0": d[0]["image"], "image1": d[1]["image"],
+            "size0": d[0]["size"][None], "size1": d[1]["size"][None]}, hm
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+def test_loftr_on_card_matches_cpu(gen, precision):
+    """The LoFTR wrapper on the trained tree, card against CPU on one pair:
+    f32 the same valid set and keypoints within 1e-3 px (TF32 off: sums in
+    another order only); bf16 an IoU of the valid image-0 points of at
+    least 0.9 (cuDNN and oneDNN round the bf16 trunk in other places)."""
+    from imcui_tpu_torch.models.matchers import loftr
+
+    data, _ = _loftr_data()
+    out = []
+    for device in ("cuda", "cpu"):
+        model = loftr.LoFTR({"max_keypoints": 1024, "precision": precision},
+                            device=device)
+        assert model.meta["pretrained"] is True
+        out.append({k: v[0].cpu().numpy() for k, v in model(data).items()})
+    got, want = out
+    pts = [{tuple(o["keypoints0"][j]): o["keypoints1"][j]
+            for j in np.flatnonzero(o["mask"])} for o in out]
+    assert len(pts[1]) > 500
+    common = pts[0].keys() & pts[1].keys()
+    if precision == "fp32":
+        assert pts[0].keys() == pts[1].keys()
+        assert max(np.abs(pts[0][k] - pts[1][k]).max() for k in common) \
+            <= 1e-3
+    else:
+        assert len(common) / len(pts[0].keys() | pts[1].keys()) >= 0.9
+
+
+def test_loftr_phase7_gate_on_card(gen):
+    """chip_smoke.py phase 7's gate on one planted 1600 x 1200 pair at the
+    registry's loftr conf (640 x 480, 2000 slots, bf16, the trained tree
+    by the offline route)."""
+    import chip_smoke
+    from imcui_tpu_torch.api.core import ImageMatchingAPI
+    from imcui_tpu_torch.ui import utils as ui
+
+    conf = ui.parse_match_config({"matcher": "loftr", "dense": True})
+    api = ImageMatchingAPI(conf, device="cuda")
+    assert api.matcher.meta["source"].startswith("local:")
+    img0, img1, hm = chip_smoke.synthetic_pair(chip_smoke.L_SEEDS[0],
+                                               *chip_smoke.L_SIZE)
+    res = api(img0, img1)
+    assert len(res["mkeypoints0_orig"]) == 2000
+    err = chip_smoke.transfer_errors(hm, res["mmkeypoints0_orig"],
+                                     res["mmkeypoints1_orig"])
+    assert len(err) >= chip_smoke.GATE_MIN_INLIERS
+    assert np.median(err) <= chip_smoke.GATE_MEDIAN_PX
+
+
+FAMILY_CLASSES = {"eloftr": "ELoFTR", "se2loftr": "Se2LoFTR",
+                  "xoftr": "XoFTR", "aspanformer": "ASpanFormer",
+                  "topicfm": "TopicFM", "matchformer": "MatchFormer"}
+
+
+@pytest.mark.parametrize("name", list(FAMILY_CLASSES))
+def test_loftr_family_on_card_matches_cpu(gen, name):
+    """Each family matcher on its seeded random tree at 128 x 160 and a
+    threshold of 0 (every mutual pair): the device defaults to "cuda" and
+    the parameters live there; card against CPU the valid image-0 points'
+    IoU at least 0.9 (a point common where within 0.01 px: xoftr moves
+    image 0's points too) and the scores of the common ones within
+    1e-3."""
+    import importlib
+
+    mod = importlib.import_module(f"imcui_tpu_torch.models.matchers.{name}")
+    cls = getattr(mod, FAMILY_CLASSES[name])
+    rng = np.random.default_rng(8)
+    big = rng.random((144, 176)).astype(np.float32)
+    data = {"image0": big[:128, :160][None, None],
+            "image1": big[8:136, 16:176][None, None]}
+    import chip_smoke
+
+    out = []
+    for model in (cls({"max_keypoints": 200}), cls({"max_keypoints": 200},
+                                                   device="cpu")):
+        model.pair_conf["match_threshold"] = 0.0
+        o = {k: v[0].cpu().numpy() for k, v in model(data).items()}
+        out.append((o["keypoints0"][o["mask"]], o["scores"][o["mask"]]))
+    assert next(iter(weights.flatten_tree(cls({}).params).values())
+                ).device.type == "cuda"
+    iou, ia, ib = chip_smoke.common_points(out[0][0], out[1][0], 1e-2)
+    assert len(out[1][0]) and iou >= 0.9
+    assert np.abs(out[0][1][ia] - out[1][1][ib]).max() <= 1e-3
+
+
+def test_roma_fpn_corr_on_card_matches_cpu(gen):
+    """RoMa's fpn-corr path on its seeded random tree at 240 x 320: warp
+    and certainty, card against CPU, within 1e-3."""
+    from imcui_tpu_torch.models.matchers import roma
+    from imcui_tpu_torch.utils.weights import to_device
+
+    params, meta = roma.load_params({"backbone": "fpn-corr"}, "cpu")
+    assert meta["pretrained"] is False
+    cpu_gen = torch.Generator().manual_seed(3)
+    img0, img1 = (torch.rand((1, 240, 320), generator=cpu_gen)
+                  for _ in range(2))
+    with torch.inference_mode(), full_fp32():
+        want_w, want_c = roma.match(params, img0, img1)
+        got_w, got_c = roma.match(to_device(params, "cuda"), img0.cuda(),
+                                  img1.cuda())
+    assert got_w.shape == (30, 40, 2)
+    assert float((got_w.cpu() - want_w).abs().max()) <= 1e-3
+    assert float((got_c.cpu() - want_c).abs().max()) <= 1e-3

@@ -433,10 +433,6 @@ WRAPPER_CONF = {"backbone": "dinov2-gp", "dinov2_variant": "test",
 def test_roma_refuses_what_is_not_ported():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tr.Roma({**WRAPPER_CONF, "precision": "int8"}, device="cpu")
-    with pytest.raises(NotImplementedError, match="fpn-corr"):
-        tr.Roma({**WRAPPER_CONF, "backbone": "fpn-corr"}, device="cpu")
-    with pytest.raises(NotImplementedError, match="fpn-corr"):
-        tr.match({"backbone": {}}, None, None)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             tr.Roma(WRAPPER_CONF)           # device defaults to "cuda"
