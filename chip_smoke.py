@@ -57,7 +57,20 @@ Phases, each of which passes or ends the run with a non-zero exit:
      (eloftr, se2loftr, xoftr, aspanformer, topicfm, matchformer) and of
      RoMa's fpn-corr backbone at their registry confs on seeded random
      weights, each held to finite outputs and to its CPU run. This path
-     launches none of the hand-written kernels.
+     launches none of the hand-written kernels;
+  8. the user surfaces: the HTTP server (api/server.py) on the packaged
+     api.yaml (bf16 SuperPoint at 1024 keypoints, mutual nearest neighbour,
+     RANSAC) on a free port of 127.0.0.1 answers planted 1600x1200 pairs
+     that the client (api/client.py) sends as PNG files: GET / and
+     /version, the 404, the gate on every pair, K1 and K2 launched on every
+     request, the time at the client and inside the server (PNG decode,
+     ImageMatchingAPI, JSON encode), the sizes, device busy and idle share,
+     the multipart route against the JSON route, the card against the CPU
+     service, /v1/extract and the 500 envelope; then the CLI in
+     subprocesses from the repository root: --version, match with the
+     default superpoint+lightglue and with superpoint+mnn (the printed line
+     and the pickle's keys), and serve on a free port until it answers a
+     match request, each timed from process start.
 Near the end it prints one JSON line {"timing": ...}, one {"kernels":
 [...]} and the card's name and power limit; the last line is {"ok": true,
 "device": {...}}. Without a CUDA device, or without the rest of the
@@ -152,6 +165,31 @@ L_FAMILY_PX = 0.01
 # ... and RoMa's fpn-corr backbone at the registry's roma entry: card
 # against CPU on the warp, in normalised units, and the certainty.
 L_FPN_TOL = 1e-3
+# The user surfaces (phase 8): the HTTP server on the packaged api.yaml
+# (bf16 SuperPoint, 1024 keypoints at resize_max 1024, mutual NN) answers
+# planted pairs of this size sent as PNG files by the client (the general
+# path's gate: GATE_MIN_INLIERS, GATE_MEDIAN_PX); card against the port's
+# CPU service on the first pair: the IoU of the raw match sets (a match
+# common where both points lie within S_TOL_PX) must reach S_IOU (bf16
+# SuperPoint rounds in other places on the two devices).
+S_SEEDS = (100, 101, 102)
+S_SIZE = (1600, 1200)
+S_IOU, S_TOL_PX = 0.9, 0.5
+S_EXTRACT_KPTS = (256, 512)
+# The kernels of the served request: bf16 SuperPoint's stage 1 (the stem
+# kernel), stage 2 (K1) and its NMS (K2), once per view.
+SERVED_KERNELS = ("stem_tail", "stage_tail", "nms_cellmax")
+# The keys of the JAX package's run_matching pred dict, which the CLI's
+# match command pickles.
+PRED_KEYS = {"H", "geom_info", "image0_orig", "image1_orig", "keypoints0",
+             "keypoints0_orig", "keypoints1", "keypoints1_orig", "mconf",
+             "mkeypoints0", "mkeypoints0_orig", "mkeypoints1",
+             "mkeypoints1_orig", "mmconf", "mmkeypoints0_orig",
+             "mmkeypoints1_orig"}
+# What the JAX package's surfaces import: the port reads YAML with PyYAML
+# and the request schema with pydantic, and restates the rest.
+SURFACE_PACKAGES = ("click", "yaml", "pydantic", "PIL", "fastapi", "uvicorn",
+                    "matplotlib", "h5py")
 # The times of the tap-sum kernel's first design (WMMA with cp.async,
 # commit 35980e0), chip_smoke.py phase 6 of its run 3 on an NVIDIA H100
 # 80GB HBM3 at 700.00 W, by probe shape (rows, N, taps, type, layout of w).
@@ -254,6 +292,37 @@ def synthetic_pair(seed, w, h):
     img1 = warp_image(img0, hm, (h, w))
     return (np.repeat(img0[..., None], 3, -1),
             np.repeat(img1[..., None], 3, -1), hm)
+
+
+def multipart_body(files):
+    """(body, Content-Type) of a multipart/form-data request holding
+    ``files`` = {field name: bytes}, as a browser or ``requests`` sends
+    files."""
+    boundary = "imcui-tpu-torch-" + os.urandom(8).hex()
+    parts = [(f"--{boundary}\r\nContent-Disposition: form-data; "
+              f"name=\"{name}\"; filename=\"{name}.png\"\r\nContent-Type: "
+              "application/octet-stream\r\n\r\n").encode() + data + b"\r\n"
+             for name, data in files.items()]
+    return (b"".join(parts) + f"--{boundary}--\r\n".encode(),
+            f"multipart/form-data; boundary={boundary}")
+
+
+def free_port():
+    """A TCP port on 127.0.0.1 that nothing listens on now."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def raw_match_iou(a, b, tol=0.5):
+    """IoU of two raw match sets, each a pred dict's mkeypoints0_orig and
+    mkeypoints1_orig: a match is common where both its points lie within
+    ``tol`` px of one in the other set."""
+    pa = np.concatenate([a["mkeypoints0_orig"], a["mkeypoints1_orig"]], 1)
+    pb = np.concatenate([b["mkeypoints0_orig"], b["mkeypoints1_orig"]], 1)
+    return common_points(pa, pb, tol)[0]
 
 
 def common_points(a, b, tol):
@@ -2068,6 +2137,498 @@ def phase7():
     return result
 
 
+def _http(url, body=None, ctype="application/json"):
+    """(status, parsed JSON, bytes of the response) of a GET, or of a POST
+    of ``body``."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url, data=body,
+                                 headers={"Content-Type": ctype})
+    try:
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            raw = resp.read()
+            return resp.status, json.loads(raw), len(raw)
+    except urllib.error.HTTPError as e:
+        raw = e.read()
+        return e.code, json.loads(raw), len(raw)
+
+
+def _cli(*args, timeout=300):
+    """``python -m imcui_tpu_torch.cli.main *args`` from the repository
+    root: (completed process, wall seconds)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "imcui_tpu_torch.cli.main", *args], cwd=ROOT,
+        capture_output=True, text=True, timeout=timeout)
+    return proc, time.perf_counter() - t0
+
+
+def _cli_match(tag, a, b, out, *extra):
+    """The CLI's match command as a user runs it: its printed line, the
+    pickle's keys and numpy values, its wall time."""
+    import pickle
+    import re
+
+    proc, sec = _cli("match", a, b, "-o", out, *extra)
+    if proc.returncode:
+        fail(f"CLI {tag}: exit {proc.returncode}: {proc.stderr[-2000:]}")
+    line = next((ln for ln in proc.stdout.splitlines()
+                 if ln.startswith("raw matches:")), "")
+    hit = re.fullmatch(r"raw matches: (\d+), ransac inliers: (\d+)", line)
+    with open(out, "rb") as f:
+        pred = pickle.load(f)  # written by the subprocess just above
+    if not hit or set(pred) != PRED_KEYS or \
+            int(hit.group(1)) != len(pred["mkeypoints0_orig"]):
+        fail(f"CLI {tag}: printed {line!r}, pickled keys {sorted(pred)}")
+    if not all(isinstance(v, (np.ndarray, dict)) for v in pred.values()):
+        fail(f"CLI {tag}: pickle holds {[type(v) for v in pred.values()]}")
+    log(f"  CLI {tag}: {line} ({sec:.1f} s from process start to exit)")
+    return {"raw": int(hit.group(1)), "inliers": int(hit.group(2)),
+            "seconds": sec}
+
+
+def phase8():
+    """The user surfaces on the card: the HTTP server on the packaged
+    api.yaml (bf16 SuperPoint + mutual NN) answers planted PNG pairs sent
+    by the client (gate, K1 and K2 launched on every request, the time split
+    inside the server, device busy and idle share, card against CPU, the
+    multipart route, /v1/extract and the 500 envelope), then the CLI as a
+    user runs it in subprocesses (--version, match twice, serve). Returns
+    (launches of the served requests, measurements)."""
+    import importlib.util
+    import tempfile
+
+    import torch
+
+    import imcui_tpu_torch
+    from imcui_tpu_torch.api import client, server
+    from imcui_tpu_torch.ops import attention, cuda_nms, cuda_stage1
+    from imcui_tpu_torch.utils.png import decode_png, encode_png
+
+    present = {m: importlib.util.find_spec(m) is not None
+               for m in SURFACE_PACKAGES}
+    log(f"  packages the JAX surfaces import, present here: {present}")
+    kernels = (cuda_stage1.stage_tail, cuda_stage1.stem_tail,
+               cuda_nms.nms_cellmax, attention.fused_attention,
+               attention.bidirectional_attention, attention.flash_attention)
+    result = {"packages_present": present}
+    with tempfile.TemporaryDirectory() as tmp:
+        files = []
+        for seed in S_SEEDS:
+            img0, img1, hm = synthetic_pair(seed, *S_SIZE)
+            names = [os.path.join(tmp, f"{seed}_{k}.png") for k in "ab"]
+            for name, img in zip(names, (img0, img1)):
+                with open(name, "wb") as f:
+                    f.write(encode_png(img))
+            files.append((names, img0, img1, hm))
+
+        png_ms = {}
+        for label, ftype in (("up", 2), ("paeth", 4)):
+            data = encode_png(files[0][1], ftype)
+            t0 = time.perf_counter()
+            decode_png(data)
+            png_ms[label] = (time.perf_counter() - t0) * 1e3
+        log(f"  PNG decode of one {S_SIZE[0]}x{S_SIZE[1]} RGB image on the "
+            f"host: {png_ms['up']:.1f} ms (Up rows, the client's), "
+            f"{png_ms['paeth']:.1f} ms (Paeth rows, as PIL writes them)")
+        result["png_decode_ms"] = png_ms
+        t0 = time.perf_counter()
+        service = server.MatchingService(device="cuda")
+        sp = service.api.extractor
+        log(f"  service on the packaged api.yaml in "
+            f"{time.perf_counter() - t0:.1f} s: extractor {sp.conf}, "
+            f"weights {sp.meta}; matcher {service.api.matcher.conf}")
+        if (sp.conf["precision"], sp.conf["nms_radius"],
+                sp.conf["max_keypoints"], service.api.extract_conf[
+                    "preprocessing"]["resize_max"], sp.meta["pretrained"],
+                type(service.api.matcher).__name__) != (
+                    "bf16", 4, 1024, 1024, True, "NearestNeighbor"):
+            fail("the service does not serve api.yaml's configuration")
+        port = free_port()
+        httpd = server.serve_stdlib(service, "127.0.0.1", port)
+        thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+        thread.start()
+        url = f"http://127.0.0.1:{port}"
+        try:
+            result.update(_serve_checks(url, service, server, client, files,
+                                        kernels, tmp))
+            launches = result.pop("launches")
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            thread.join(timeout=30)
+        result["cli"] = _cli_checks(files, tmp)
+    return launches, result
+
+
+def _serve_checks(url, service, server, client, files, kernels, tmp):
+    import torch
+
+    import imcui_tpu_torch
+
+    if _http(f"{url}/")[:2] != (200, {"message": "OK"}) or \
+            _http(f"{url}/version")[:2] != (
+                200, {"version": imcui_tpu_torch.__version__}) or \
+            _http(f"{url}/nope")[0] != 404:
+        fail("GET /, /version or the 404 answered wrongly")
+    # the warm-up request, recording the arguments of every launch of the
+    # path's kernels; each kernel against its plain version on them
+    served = _capture_kernel_args(
+        lambda: client.send_request_match(*files[0][0], base_url=url))
+    kernel_checks = _check_served_kernels(served)
+    del served
+
+    # the main path: every count at 0, the planted pairs served, the counts
+    # read after; the split at the client and inside the server by wrapping
+    # what each calls (preprocessing and RANSAC are part of the API's time)
+    from imcui_tpu_torch.api import core as api_core
+    from imcui_tpu_torch.utils import image as image_utils
+
+    targets = [(client, "read_image", "client read"),
+               (client, "encode_png", "client encode"),
+               (server, "to_base64_nparray", "decode"),
+               (server, "decode_image_bytes", "decode"),
+               (service, "api", "api"),
+               (image_utils, "preprocess", "preprocessing"),
+               (api_core, "filter_matches", "ransac"),
+               (server, "_encode", "json encode")]
+    split = {label: 0.0 for _, _, label in targets}
+    sizes = []
+    real = [getattr(mod, name) for mod, name, _ in targets]
+
+    def timed(label, fn):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            if label == "api":
+                torch.cuda.synchronize()
+            split[label] += (time.perf_counter() - t0) * 1e3
+            if label == "json encode":
+                sizes.append(len(out))
+            return out
+        return run
+
+    for (mod, name, label), fn in zip(targets, real):
+        setattr(mod, name, timed(label, fn))
+    for kfn in kernels:
+        kfn.launches = 0
+    rows, walls, per_request, gates = [], [], [], []
+    try:
+        for i, (names, img0, img1, hm) in enumerate(files):
+            for k in split:
+                split[k] = 0.0
+            before = {k.__name__: k.launches for k in kernels}
+            t0 = time.perf_counter()
+            res = client.send_request_match(*names, base_url=url)
+            walls.append((time.perf_counter() - t0) * 1e3)
+            rows.append(dict(split))
+            per_request.append({k.__name__: k.launches - before[k.__name__]
+                                for k in kernels})
+            for key in ("mkeypoints0_orig", "mmkeypoints0_orig",
+                        "mmkeypoints1_orig", "H"):
+                if not np.isfinite(np.asarray(res.get(key), float)).all():
+                    fail(f"served request {i}: {key} missing or not finite")
+            err = transfer_errors(hm, res["mmkeypoints0_orig"],
+                                  res["mmkeypoints1_orig"])
+            med = float(np.median(err)) if len(err) else float("inf")
+            log(f"  served request {i} (seed {S_SEEDS[i]}, {S_SIZE}): "
+                f"{len(res['keypoints0_orig'])}/{len(res['keypoints1_orig'])}"
+                f" keypoints, {len(res['mkeypoints0_orig'])} raw matches, "
+                f"{len(err)} inliers, median transfer error {med:.3f} px; "
+                f"{walls[-1]:.1f} ms at the client ("
+                + ", ".join(f"{k} {v:.1f}" for k, v in rows[-1].items())
+                + f" ms); launches {per_request[-1]}")
+            gates.append({"raw": len(res["mkeypoints0_orig"]),
+                          "inliers": len(err), "median_px": med})
+            if len(err) < GATE_MIN_INLIERS or med > GATE_MEDIAN_PX:
+                fail(f"served request {i}: gate is >= {GATE_MIN_INLIERS} "
+                     f"inliers with median error <= {GATE_MEDIAN_PX} px")
+            if not all(per_request[-1][k] for k in SERVED_KERNELS):
+                fail(f"served request {i} did not launch each of "
+                     f"{SERVED_KERNELS}: {per_request[-1]}")
+            if i == 0:
+                first = res
+        torch.cuda.synchronize()
+        launches = {k.__name__: k.launches for k in kernels}
+        payload = len(json.dumps({"image0": client.read_image_to_base64(
+            files[0][0][0]), "image1": client.read_image_to_base64(
+                files[0][0][1])}))
+        device_ms, evs = device_window(
+            lambda i: client.send_request_match(*files[i][0], base_url=url),
+            1)
+        multipart = _multipart_checks(url, client, files[1], split)
+    finally:
+        for (mod, name, _), fn in zip(targets, real):
+            setattr(mod, name, fn)
+    wall = float(np.median(walls))
+    med_split = {k: float(np.median([r[k] for r in rows])) for k in split}
+    idle = 1 - device_ms / wall
+    log(f"  {wall:.1f} ms per request at the client (host clock, median of "
+        f"{len(walls)} after a warm-up); split "
+        + ", ".join(f"{k} {v:.1f}" for k, v in med_split.items())
+        + f" ms; request {payload} bytes, response {sizes[0]} bytes; device "
+        f"busy {device_ms:.2f} ms/request, idle share {idle:.3f}; "
+        f"launches {launches}; top device time per request:")
+    for e in sorted(evs, key=lambda e: e.self_device_time_total,
+                    reverse=True)[:8]:
+        log(f"    {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:g}  "
+            f"{e.key[:100]}")
+
+    # card against the port's CPU service on pair 0
+    cpu = server.MatchingService(device="cpu")
+    t0 = time.perf_counter()
+    want = cpu.match(files[0][1], files[0][2])
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    iou = raw_match_iou(first, want, S_TOL_PX)
+    log(f"  card against CPU on pair 0: {len(first['mkeypoints0_orig'])} and "
+        f"{len(want['mkeypoints0_orig'])} raw matches, IoU {iou:.4f} (bound "
+        f"{S_IOU}); the CPU service took {cpu_ms:.0f} ms")
+    if iou < S_IOU:
+        fail(f"card and CPU raw matches: IoU {iou:.4f}")
+
+    # /v1/extract (it rewrites the extractor's conf, so it comes last), the
+    # 500 envelope, and the server still answering
+    names = files[1][0]
+    payload_x = {"data": [client.read_image_to_base64(n) for n in names],
+                 "max_keypoints": list(S_EXTRACT_KPTS), "binarize": True}
+    code, preds, _ = _http(f"{url}/v1/extract",
+                           json.dumps(payload_x).encode())
+    counts = [len(p.get("keypoints", [])) for p in preds] if code == 200 \
+        else preds
+    ok = code == 200 and counts == list(S_EXTRACT_KPTS) and all(
+        len(p["keypoints_orig"]) == n and np.asarray(p["descriptors"]).shape
+        == (n, 256) for p, n in zip(preds, S_EXTRACT_KPTS))
+    log(f"  /v1/extract: status {code}, keypoints {counts}")
+    if not ok:
+        fail("/v1/extract answered wrongly")
+    errors = {}
+    for tag, body in (("malformed JSON", b"{not json"),
+                      ("JPEG body", json.dumps({"image0": _JPEG_B64,
+                                                "image1": _JPEG_B64}).encode())):
+        code, out, _ = _http(f"{url}/v1/match", body)
+        errors[tag] = out.get("detail")
+        log(f"  {tag}: status {code}, detail {out.get('detail')!r}")
+        if code != 500 or not out.get("detail"):
+            fail(f"{tag}: no 500 envelope")
+    if "JPEG" not in errors["JPEG body"] or \
+            _http(f"{url}/")[:2] != (200, {"message": "OK"}):
+        fail("the JPEG request's detail does not name JPEG, or the server "
+             "stopped answering")
+    return {"launches": launches, "launches_per_request": per_request,
+            "ms_per_request": wall, "request_ms": walls,
+            "split_ms": med_split, "device_busy_ms": device_ms,
+            "device_idle_share": idle, "request_bytes": payload,
+            "response_bytes": sizes[0],
+            "gate": gates, "iou_card_vs_cpu": iou,
+            "cpu_request_ms": cpu_ms, "extract_keypoints": counts,
+            "errors": errors, "multipart": multipart,
+            "served_kernel_checks": kernel_checks}
+
+
+def _served_modules():
+    """{name: module} of each wrapper in SERVED_KERNELS."""
+    from imcui_tpu_torch.ops import cuda_nms, cuda_stage1
+
+    return dict(zip(SERVED_KERNELS, (cuda_stage1, cuda_stage1, cuda_nms)))
+
+
+def _capture_kernel_args(run):
+    """The arguments of every launch of K6, K1 and K2 while ``run`` runs,
+    copied on the card: {name: [(args, kwargs), ...]}. Each wrapper is
+    replaced by one that records and calls it; while it is, the wrapper
+    adds its launches to the replacement's count, not to its own."""
+    import torch
+
+    def copy(x):
+        return x.clone() if isinstance(x, torch.Tensor) else x
+
+    mods = _served_modules()
+    real = {name: getattr(mod, name) for name, mod in mods.items()}
+    seen = {name: [] for name in mods}
+
+    def recording(name):
+        def call(*a, **kw):
+            seen[name].append((tuple(map(copy, a)),
+                               {k: copy(v) for k, v in kw.items()}))
+            return real[name](*a, **kw)
+        call.launches = 0
+        return call
+
+    for name, mod in mods.items():
+        setattr(mod, name, recording(name))
+    try:
+        run()
+    finally:
+        for name, mod in mods.items():
+            setattr(mod, name, real[name])
+    return seen
+
+
+def _check_served_kernels(seen):
+    """Each recorded launch again, the kernel against its plain version on
+    the same card tensors: K6 and K1 within one bf16 rounding step of the
+    result (1e-3 + 2^-7·|plain|, as phase 1), K2 exact. Fails on any
+    excess, or on a kernel of the path that the request did not launch."""
+    import torch
+
+    from imcui_tpu_torch.models.layers import full_fp32
+
+    mods = _served_modules()
+    out = {}
+    for name, calls in seen.items():
+        if not calls:
+            fail(f"the served request launched no {name}")
+        kernel, plain = (getattr(mods[name], name),
+                         getattr(mods[name], f"{name}_plain"))
+        for args, kw in calls:
+            with full_fp32():
+                got, want = kernel(*args, **kw), plain(*args, **kw)
+            torch.cuda.synchronize()
+            if name == "nms_cellmax":
+                err = max((g - w).abs().max().item()
+                          for g, w in zip(got, want))
+                top = want[0].abs().max().item()
+                over = sum(int((g != w).sum()) for g, w in zip(got, want))
+                tol = "exact"
+            else:
+                diff = (got.float() - want.float()).abs()
+                err, top = diff.max().item(), want.float().abs().max().item()
+                over = int((diff > 1e-3 + 2.0 ** -7 * want.float().abs())
+                           .sum())
+                tol = "1e-3 + 2^-7*|plain|"
+            shape = "x".join(map(str, args[0].shape))
+            dtype = str(args[0].dtype)[6:]
+            out.setdefault(name, []).append(
+                {"shape": f"{shape} {dtype}", "max_abs_err": err,
+                 "max_plain": top, "over": over})
+            log(f"  served shapes: {name} [{shape} {dtype}]: err {err:.3g} "
+                f"(max|plain| {top:.3g}; {over} over {tol})")
+            if over:
+                fail(f"{name} [{shape} {dtype}] of the served request "
+                     f"differs from its plain version")
+    return out
+
+
+def _multipart_checks(url, client, pair, split):
+    """Pair 1 through the multipart route, its PNGs written with the
+    client's Up rows and with rows of all five filters in turn (PIL,
+    libpng and browsers choose a filter per row, Paeth and Average among
+    them): each gives the JSON route's matches; the median wall time and
+    split of 3 rounds of each."""
+    from imcui_tpu_torch.utils.png import encode_png
+
+    names, img0, img1, _ = pair
+    json_res = client.send_request_match(*names, base_url=url)
+    keys = ("image0", "image1")
+    bodies = {
+        "up": multipart_body(dict(zip(keys, map(_read, names)))),
+        "mixed": multipart_body({
+            k: encode_png(im, np.arange(im.shape[0]) % 5)
+            for k, im in zip(keys, (img0, img1))})}
+    runs = {tag: [] for tag in bodies}
+    for _ in range(3):
+        for tag, (body, ctype) in bodies.items():
+            for k in split:
+                split[k] = 0.0
+            t0 = time.perf_counter()
+            code, res, _ = _http(f"{url}/v1/match", body, ctype)
+            runs[tag].append(((time.perf_counter() - t0) * 1e3, dict(split)))
+            if code != 200 or not all(
+                    np.array_equal(np.array(res[k]), json_res[k])
+                    for k in ("mkeypoints0_orig", "mkeypoints1_orig")):
+                fail(f"the multipart route ({tag} rows, status {code}) and "
+                     f"the JSON route disagree")
+    out = {}
+    for tag, rs in runs.items():
+        out[tag] = {
+            "ms": float(np.median([r[0] for r in rs])),
+            "request_ms": [r[0] for r in rs],
+            "split_ms": {k: float(np.median([r[1][k] for r in rs]))
+                         for k in ("decode", "api", "json encode")},
+            "request_bytes": len(bodies[tag][0])}
+        log(f"  multipart on pair 1, {tag} rows: {out[tag]['ms']:.1f} ms "
+            f"(median of 3; decode {out[tag]['split_ms']['decode']:.1f}, api "
+            f"{out[tag]['split_ms']['api']:.1f}, json encode "
+            f"{out[tag]['split_ms']['json encode']:.1f} ms), "
+            f"{out[tag]['request_bytes']} bytes; the JSON route's matches")
+    return out
+
+
+def _read(path):
+    with open(path, "rb") as f:
+        return f.read()
+
+
+# the first bytes of a JPEG file (SOI, APP0 JFIF): enough to be told apart
+_JPEG_B64 = "/9j/4AAQSkZJRgABAQAAAQABAAD/2wBDAAgGBgcGBQgHBwcJCQgKDBQNDAsL"
+
+
+def _cli_checks(files, tmp):
+    """The CLI in subprocesses from the repository root, timed from process
+    start: --version, match with the default matcher and with
+    superpoint+mnn (the root config/app.yaml's zoo), and serve on a free
+    port until it answers one match request."""
+    import imcui_tpu_torch
+    from imcui_tpu_torch.api import client
+
+    out = {}
+    proc, sec = _cli("--version")
+    want = f"imcui-tpu-torch, version {imcui_tpu_torch.__version__}"
+    if proc.returncode or proc.stdout.strip() != want:
+        fail(f"CLI --version: {proc.returncode} {proc.stdout!r}")
+    log(f"  CLI --version: {proc.stdout.strip()!r} in {sec:.1f} s")
+    out["version_s"] = sec
+    (a, b), hm = files[0][0], files[0][3]
+    out["match"] = _cli_match("match (superpoint+lightglue)", a, b,
+                              os.path.join(tmp, "lg.pkl"))
+    out["match_mnn"] = _cli_match("match --matcher superpoint+mnn", a, b,
+                                  os.path.join(tmp, "mnn.pkl"), "--matcher",
+                                  "superpoint+mnn")
+    port = free_port()
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "imcui_tpu_torch.cli.main", "serve", "--host",
+         "127.0.0.1", "--port", str(port), "--device", "cuda"], cwd=ROOT,
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE)
+    url = f"http://127.0.0.1:{port}"
+    try:
+        while True:
+            if proc.poll() is not None:
+                fail(f"CLI serve exited with {proc.returncode}: "
+                     f"{proc.stderr.read()[-2000:]}")
+            if time.perf_counter() - t0 > 240:
+                fail("CLI serve did not answer GET / within 240 s")
+            try:
+                up = _http(f"{url}/")[:2] == (200, {"message": "OK"})
+            except OSError:
+                up = False
+            if up:
+                break
+            time.sleep(0.25)
+        ready = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        res = client.send_request_match(a, b, base_url=url)
+        first_ms = (time.perf_counter() - t1) * 1e3
+        err = transfer_errors(hm, res["mmkeypoints0_orig"],
+                              res["mmkeypoints1_orig"])
+        log(f"  CLI serve: answered GET / {ready:.1f} s after the process "
+            f"started; its first match request {first_ms:.0f} ms, "
+            f"{len(err)} inliers, median {np.median(err):.3f} px")
+        if len(err) < GATE_MIN_INLIERS or np.median(err) > GATE_MEDIAN_PX:
+            fail("CLI serve: the served pair fails the gate")
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=30)
+        proc.stderr.close()
+    out["serve"] = {"ready_s": ready, "first_request_ms": first_ms}
+    return out
+
+
 def _probe_library(x, w, probe):
     """One cuBLAS call of the probe's function on the same inputs, with
     what it needs built outside the timed call: x @ w_0 for one tap, else
@@ -2318,6 +2879,12 @@ def main():
         "640x480 on the trained tree, bf16 and f32), the LoFTR family and "
         "RoMa's fpn-corr")
     timing["loftr"] = phase7()
+    log("phase 8: the user surfaces (the HTTP server on api.yaml, the client,"
+        " the CLI)")
+    t8 = time.perf_counter()
+    launches_surfaces, timing["surfaces"] = phase8()
+    timing["surfaces"]["phase_s"] = time.perf_counter() - t8
+    log(f"  phase 8: {timing['surfaces']['phase_s']:.1f} s")
     for r in rows:
         by_path = {
             "turbo": launches.get(r["name"], 0),
@@ -2325,7 +2892,8 @@ def main():
             "dense f32": timing["dense"]["f32"]["launches"].get(r["name"], 0),
             "dense bf16": timing["dense"]["bf16"]["launches"].get(
                 r["name"], 0),
-            "probes": launches_probes.get(r["name"], 0)}
+            "probes": launches_probes.get(r["name"], 0),
+            "surfaces": launches_surfaces.get(r["name"], 0)}
         r["launches_by_path"] = by_path
         r["launches"] = sum(by_path.values())
         if r["launches"] == 0:

@@ -21,6 +21,12 @@ Three paths are ported so far:
   and the LoFTR family built on its parts (``eloftr``, ``se2loftr``,
   ``xoftr``, ``aspanformer``, ``topicfm``, ``matchformer``).
 
+The user surfaces sit on the general path: the HTTP server
+(``api/server.py``, standard library transport), its client
+(``api/client.py``), the command line (``cli/main.py``) and
+``ui/utils.py::run_matching`` over the matcher zoo, with this package's
+own PNG codec (``utils/png.py``).
+
 The seven Pallas kernels on those paths are rewritten by hand in CUDA C++
 (``csrc/``, built on first use by ``ops/_build.py``): ``stage_tail``,
 ``stem_tail`` (one kernel for both TPU stem kernels), ``nms_cellmax``,
@@ -38,6 +44,8 @@ import logging
 import sys
 
 import torch
+
+__version__ = "0.1.0"
 
 logger = logging.getLogger("imcui_tpu_torch")
 logger.setLevel(logging.INFO)

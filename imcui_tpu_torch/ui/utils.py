@@ -1,6 +1,9 @@
-"""Application-layer orchestration: model zoo resolution and geometric
-verification. Counterpart of the part of ``imcui_tpu/ui/utils.py`` that
-needs no OpenCV: same function names, same pred keys in and out.
+"""Application-layer orchestration: config and model zoo resolution,
+geometric verification and the per-request pipeline. Counterpart of the
+part of ``imcui_tpu/ui/utils.py`` that needs neither OpenCV nor
+matplotlib: same function names, same pred keys in and out.
+``wrap_images`` and ``generate_warp_images`` feed only the gradio WebUI
+and wait with ``ui/viz.py``.
 
 The estimator is the batched RANSAC of ``ops/ransac.py`` on the model's
 device, under the registry key the JAX package gave its on-device
@@ -10,18 +13,21 @@ need the cv2 package, which this package does not import: asking for one
 raises ``NotImplementedError``.
 """
 
+import pickle
 from copy import deepcopy
+from pathlib import Path
 from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 
-from .. import resolve_device
+from .. import logger, resolve_device
 from ..configs import confs_dict
 from ..models import extractors as extractors_mod
 from ..models import matchers as matchers_mod
 from ..ops import ransac as ransac_ops
 from ..utils.base_model import dynamic_load
+from ..utils.io import read_yaml
 
 DEFAULT_SETTING_THRESHOLD = 0.1
 DEFAULT_SETTING_MAX_FEATURES = 2000
@@ -47,6 +53,21 @@ ransac_zoo = {
     "CV2_USAC_ACCURATE": None,
     "CV2_USAC_PARALLEL": None,
 }
+
+
+def load_config(config_path):
+    """An app.yaml (``utils/io.py::read_yaml``)."""
+    return read_yaml(config_path)
+
+
+def get_matcher_zoo(matcher_zoo):
+    """The enabled zoo entries, each resolved by ``parse_match_config``."""
+    out = {}
+    for key, conf in matcher_zoo.items():
+        if not conf.get("enable", True):
+            continue
+        out[key] = parse_match_config(conf)
+    return out
 
 
 def parse_match_config(conf):
@@ -216,4 +237,103 @@ def filter_matches(pred, ransac_method=DEFAULT_RANSAC_METHOD,
     geom_info.pop("mask_h", None)
     geom_info.pop("mask_f", None)
     pred["geom_info"] = geom_info
+    return pred
+
+
+def run_matching(
+    image0,
+    image1,
+    match_threshold=DEFAULT_MATCHING_THRESHOLD,
+    extract_max_keypoints=DEFAULT_SETTING_MAX_FEATURES,
+    keypoint_threshold=DEFAULT_DEFAULT_KEYPOINT_THRESHOLD,
+    key="superpoint+lightglue",
+    ransac_method=DEFAULT_RANSAC_METHOD,
+    ransac_reproj_threshold=DEFAULT_RANSAC_REPROJ_THRESHOLD,
+    ransac_confidence=DEFAULT_RANSAC_CONFIDENCE,
+    ransac_max_iter=DEFAULT_RANSAC_MAX_ITER,
+    choice_geometry_type=DEFAULT_SETTING_GEOMETRY,
+    matcher_zoo=None,
+    force_resize=False,
+    image_width=640,
+    image_height=480,
+    use_cached_model=True,
+    device="cuda",
+):
+    """One pair through the zoo entry ``key`` on ``device``: extraction and
+    matching (or the dense matcher), then the RANSAC filter. Returns the
+    pred dict. As in the JAX package, ``match_threshold`` and
+    ``extract_max_keypoints`` (and the extractor's ``keypoint_threshold``)
+    are written into the zoo entry's conf in place, and the global model
+    cache keys on that conf; here it keys on the device too. An entry
+    whose model is not ported raises ``NotImplementedError`` naming it."""
+    from ..pipeline import extract_features, match_dense, match_features
+    from .modelcache import get_global_cache
+
+    if image0 is None or image1 is None:
+        raise ValueError("Error: No images found! Please upload two images.")
+    if matcher_zoo is None:
+        raise ValueError("matcher_zoo is required")
+    dev = resolve_device(device)
+    model = matcher_zoo[key]
+    match_conf = model["matcher"]
+    # update match config with UI values
+    match_conf["model"]["match_threshold"] = match_threshold
+    match_conf["model"]["max_keypoints"] = extract_max_keypoints
+
+    cache = get_global_cache()
+    matcher = cache.load_model((match_conf["model"]["name"], str(dev)),
+                               lambda c: get_model(c, dev), match_conf)
+    resize = ({"force_resize": True, "width": image_width,
+               "height": image_height} if force_resize else {})
+    if model["dense"]:
+        pconf = {**match_conf.get("preprocessing", {}), **resize}
+        pred = match_dense.match_images(matcher, image0, image1, pconf)
+    else:
+        extract_conf = model["feature"]
+        extract_conf["model"]["max_keypoints"] = extract_max_keypoints
+        extract_conf["model"]["keypoint_threshold"] = keypoint_threshold
+        extractor = cache.load_model(
+            (extract_conf["model"]["name"], str(dev)),
+            lambda c: get_feature_model(c, dev), extract_conf)
+        pconf = {**extract_conf.get("preprocessing", {}), **resize}
+        pred0 = extract_features.extract(extractor, image0, pconf)
+        pred1 = extract_features.extract(extractor, image1, pconf)
+        pred = match_features.match_images(matcher, pred0, pred1)
+        pred["image0_orig"] = image0
+        pred["image1_orig"] = image1
+
+    return filter_matches(
+        pred,
+        ransac_method=ransac_method,
+        ransac_reproj_threshold=ransac_reproj_threshold,
+        ransac_confidence=ransac_confidence,
+        ransac_max_iter=ransac_max_iter,
+        device=dev,
+    )
+
+
+def run_ransac(state_cache, choice_geometry_type, ransac_method,
+               ransac_reproj_threshold, ransac_confidence, ransac_max_iter,
+               output_dir=None, device="cuda",
+               sample=ransac_ops.sample_indices):
+    """The RANSAC filter again on a cached pred dict; with ``output_dir``
+    the result is also pickled to ``<output_dir>/output.pkl``. ``sample``
+    draws the hypotheses, as in ``filter_matches``."""
+    if not state_cache:
+        logger.info("Error: re-run failed, no state cached!")
+        return None
+    pred = filter_matches(
+        state_cache,
+        ransac_method=ransac_method,
+        ransac_reproj_threshold=ransac_reproj_threshold,
+        ransac_confidence=ransac_confidence,
+        ransac_max_iter=ransac_max_iter,
+        device=device,
+        sample=sample,
+    )
+    if output_dir is not None:
+        output = Path(output_dir) / "output.pkl"
+        output.parent.mkdir(exist_ok=True, parents=True)
+        with open(output, "wb") as f:
+            pickle.dump(pred, f)
     return pred

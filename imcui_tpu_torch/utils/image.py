@@ -1,9 +1,13 @@
-"""Host-side request preprocessing without OpenCV.
+"""Host-side image reading and request preprocessing without OpenCV.
 
-Counterpart of ``imcui_tpu/utils/image.py``'s ``preprocess``,
-``load_conf``, ``bucket_size`` and ``keypoints_to_original``. The JAX
-package converts to grayscale and resizes with OpenCV; this module
-restates both in numpy: ``to_grayscale`` as ``cv2.cvtColor(...,
+Counterpart of ``imcui_tpu/utils/image.py``'s ``read_image``,
+``preprocess``, ``load_conf``, ``bucket_size`` and
+``keypoints_to_original``. The JAX package reads files, converts to
+grayscale and resizes with OpenCV; this module restates them in numpy.
+``read_image`` and ``decode_image_bytes`` read PNG (``utils/png.py``) and
+binary PGM/PPM (P5/P6, maxval 255) only: there is no JPEG decoder here,
+and JPEG, GIF, BMP, TIFF and WebP data raise ``ValueError`` naming the
+format. The other restatements: ``to_grayscale`` as ``cv2.cvtColor(...,
 COLOR_RGB2GRAY)`` (fixed-point for uint8), ``resize_area`` as
 ``cv2.resize(..., INTER_AREA)`` for downscaling, each output pixel the
 coverage-weighted mean of the source box it spans, and ``resize_linear``
@@ -11,9 +15,14 @@ as ``cv2.resize(..., INTER_LINEAR)``. The other OpenCV and PIL
 interpolations are not restated and raise ``NotImplementedError``.
 """
 
+import re
+from pathlib import Path
 from types import SimpleNamespace
 
 import numpy as np
+
+from .png import SIGNATURE as PNG_SIGNATURE
+from .png import decode_png
 
 DEFAULT_BUCKETS = (256, 320, 384, 448, 512, 640, 768, 896, 1024, 1152, 1280,
                    1536, 2048)
@@ -32,6 +41,81 @@ def to_grayscale(image):
     rgb = image.astype(np.float32)
     return (rgb[..., 0] * np.float32(0.299) + rgb[..., 1] * np.float32(0.587)
             + rgb[..., 2] * np.float32(0.114)).astype(image.dtype)
+
+
+# leading bytes of the formats this module cannot decode
+_OTHER_FORMATS = ((b"\xff\xd8\xff", "JPEG"), (b"GIF8", "GIF"), (b"BM", "BMP"),
+                  (b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"),
+                  (b"\x00\x00\x00\x0cjP", "JPEG 2000"))
+_PNM_HEADER = re.compile(rb"(P[56])(?:\s|#[^\n]*\n)+(\d+)(?:\s|#[^\n]*\n)+"
+                         rb"(\d+)(?:\s|#[^\n]*\n)+(\d+)\s")
+
+
+def _png_gray(rgb):
+    """libpng's RGB → gray, which OpenCV's PNG reader applies for
+    IMREAD_GRAYSCALE: coefficients 0.299, 0.587 in 15-bit fixed point,
+    truncated (a gray pixel stays itself: the three sum to 2^15)."""
+    x = rgb.astype(np.int32)
+    return ((x[..., 0] * 9797 + x[..., 1] * 19234 + x[..., 2] * 3737)
+            >> 15).astype(np.uint8)
+
+
+def _pnm_gray(rgb):
+    """OpenCV's PGM/PPM reader's RGB → gray: 14-bit fixed point, rounded."""
+    x = rgb.astype(np.int32)
+    return ((x[..., 0] * 4899 + x[..., 1] * 9617 + x[..., 2] * 1868 + 8192)
+            >> 14).astype(np.uint8)
+
+
+def decode_image_bytes(data, grayscale=False):
+    """PNG or binary PGM/PPM bytes → (H, W, 3) RGB uint8, or (H, W) gray
+    as OpenCV's IMREAD_GRAYSCALE reads the file when ``grayscale``. RGB is
+    what PIL's ``convert("RGB")`` gives (alpha dropped, gray repeated)."""
+    data = bytes(data)
+    if data.startswith(PNG_SIGNATURE):
+        rgb = decode_png(data)
+        return _png_gray(rgb) if grayscale else rgb
+    m = _PNM_HEADER.match(data)
+    if m:
+        kind, w, h, maxval = m.group(1), *map(int, m.groups()[1:])
+        if maxval != 255:
+            raise ValueError(f"PGM/PPM maxval {maxval} is not supported "
+                             "(8-bit samples, maxval 255, only)")
+        c = 1 if kind == b"P5" else 3
+        body = np.frombuffer(data, np.uint8, h * w * c, m.end()) \
+            if len(data) >= m.end() + h * w * c else None
+        if body is None:
+            raise ValueError("truncated PGM/PPM data")
+        pix = body.reshape(h, w, c)
+        if c == 1:
+            return pix[..., 0].copy() if grayscale else np.repeat(pix, 3, -1)
+        return _pnm_gray(pix) if grayscale else pix.copy()
+    for magic, name in _OTHER_FORMATS:
+        if data.startswith(magic):
+            break
+    else:
+        name = "RIFF WebP" if data[:4] == b"RIFF" and data[8:12] == b"WEBP" \
+            else None
+    if name:
+        raise ValueError(f"{name} images cannot be decoded: this package "
+                         "reads PNG and binary PGM/PPM only")
+    raise ValueError("unknown image format (this package reads PNG and "
+                     "binary PGM/PPM only)")
+
+
+def read_image(path, grayscale=False):
+    """An image file as (H, W, 3) RGB uint8, or (H, W) gray when
+    ``grayscale``, as the JAX package's OpenCV reader gives it, for PNG and
+    binary PGM/PPM files. Other formats, JPEG first among them, raise
+    ``ValueError`` naming the format: this package has no JPEG decoder."""
+    try:
+        data = Path(path).read_bytes()
+    except OSError as e:
+        raise ValueError(f"Cannot read image {path}: {e}") from None
+    try:
+        return decode_image_bytes(data, grayscale)
+    except ValueError as e:
+        raise ValueError(f"Cannot read image {path}: {e}") from None
 
 
 def _area_weights(src, dst):

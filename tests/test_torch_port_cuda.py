@@ -25,12 +25,13 @@ def gen():
 # The conv tile (csrc/stage_conv.cuh) is 4 conv rows x 64 columns: shapes at
 # its edges (W 2, 62, 64, 66, 130; H on both sides of 4 and 8), three images
 # of different scales (a read across images would show), the paths' shapes
-# and the full ones.
+# (the served request's 1 x 768 x 1024 view and its stage 2 among them) and
+# the full ones.
 STAGE_SHAPES = [(3, 40, 72), (1, 16, 32), (2, 130, 66),
                 (1, 2, 2), (2, 6, 62), (1, 4, 64), (2, 10, 66), (1, 8, 130),
                 (2, 2, 130), (3, 6, 66), (3, 12, 130),
-                (8, 512, 512), (1, 640, 1024), (8, 1024, 1024),
-                (1, 1280, 2048)]
+                (8, 512, 512), (1, 640, 1024), (1, 384, 512), (1, 768, 1024),
+                (8, 1024, 1024), (1, 1280, 2048)]
 SCALED = {(3, 6, 66): (1.0, 8.0, 0.125), (3, 12, 130): (0.125, 1.0, 8.0)}
 
 
@@ -76,9 +77,10 @@ NMS_CASES = [
     (2, 60, 188, 5, "rand", 0), (1, 124, 380, 6, "plateau", 0),
     (1, 260, 580, 3, "signed", 8), (3, 132, 260, 4, "offset", 4),
     (2, 132, 260, 6, "offset", 0),
-    # the paths' shapes: the turbo step, the general canvas, a 2048 x 1536
-    # batch at radius 3
+    # the paths' shapes: the turbo step, the general canvas, the served
+    # request's view, a 2048 x 1536 batch at radius 3
     (8, 1024, 1024, 4, "rand", 4), (8, 1024, 1024, 4, "ties", 4),
+    (1, 768, 1024, 4, "rand", 4), (1, 768, 1024, 4, "plateau", 4),
     (1, 1280, 2048, 4, "plateau", 4), (2, 1536, 2048, 3, "ties", 4)]
 
 
@@ -1140,3 +1142,89 @@ def test_roma_fpn_corr_on_card_matches_cpu(gen):
     assert got_w.shape == (30, 40, 2)
     assert float((got_w.cpu() - want_w).abs().max()) <= 1e-3
     assert float((got_c.cpu() - want_c).abs().max()) <= 1e-3
+
+
+@pytest.mark.parametrize("kind", ["nearest_neighbor", "dual_softmax"])
+@pytest.mark.parametrize("conf", [{}, {"ratio_threshold": 0.8,
+                                       "do_mutual_check": False}])
+def test_descriptor_matchers_on_card_match_cpu(gen, kind, conf):
+    """NearestNeighbor and DualSoftMax at 2 x 256 x (512, 384) with padded
+    masks: the same matches as on the CPU (the similarity is strict f32;
+    ties go to the lowest index on both), scores within 1e-6."""
+    from imcui_tpu_torch.models.matchers.dual_softmax import DualSoftMax
+    from imcui_tpu_torch.models.matchers.nearest_neighbor import \
+        NearestNeighbor
+
+    if kind == "dual_softmax" and conf:
+        conf = {"inv_temperature": 10, "match_threshold": 0.05}
+    cls = NearestNeighbor if kind == "nearest_neighbor" else DualSoftMax
+    rng = np.random.default_rng(4)
+    d0 = rng.standard_normal((2, 256, 512)).astype(np.float32)
+    d1 = np.concatenate([d0[:, :, rng.permutation(512)[:200]]
+                         + 0.3 * rng.standard_normal((2, 256, 200)),
+                         rng.standard_normal((2, 256, 184))], 2)
+    d0 /= np.linalg.norm(d0, axis=1, keepdims=True)
+    d1 = (d1 / np.linalg.norm(d1, axis=1, keepdims=True)).astype(np.float32)
+    data = {"descriptors0": d0, "descriptors1": d1,
+            "mask0": np.arange(512)[None].repeat(2, 0) < [[450], [512]],
+            "mask1": np.arange(384)[None].repeat(2, 0) < [[350], [300]]}
+    got = cls(conf)(data)
+    want = cls(conf, device="cpu")(data)
+    assert got["matches0"].device.type == "cuda"
+    np.testing.assert_array_equal(got["matches0"].cpu().numpy(),
+                                  want["matches0"].numpy())
+    assert (want["matches0"] > -1).sum() > 100
+    np.testing.assert_allclose(got["matching_scores0"].cpu().numpy(),
+                               want["matching_scores0"].numpy(), atol=1e-6)
+
+
+def test_served_request_launches_k1_and_k2_and_holds_no_tensor(gen):
+    """MatchingService(device="cuda") on the packaged api.yaml (bf16
+    SuperPoint at nms_radius 4 + mutual NN) answers one planted PNG pair
+    over HTTP: stage_tail and nms_cellmax are launched, the response is
+    plain JSON, and the gate of chip_smoke.py phase 8 holds."""
+    import json
+    import threading
+
+    import chip_smoke
+    from imcui_tpu_torch.api import client, server
+    from imcui_tpu_torch.utils.png import encode_png
+
+    service = server.MatchingService(device="cuda")
+    assert service.api.extractor.conf["precision"] == "bf16"
+    httpd = server.serve_stdlib(service, "127.0.0.1", 0)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        img0, img1, hm = chip_smoke.synthetic_pair(100, 800, 600)
+        body, ctype = chip_smoke.multipart_body(
+            {"image0": encode_png(img0), "image1": encode_png(img1)})
+        before = (cuda_stage1.stage_tail.launches,
+                  cuda_nms.nms_cellmax.launches)
+        out = json.loads(_post_body(
+            f"http://127.0.0.1:{httpd.server_address[1]}/v1/match", body,
+            ctype))
+        assert cuda_stage1.stage_tail.launches > before[0]
+        assert cuda_nms.nms_cellmax.launches == before[1] + 2
+        direct = service.match(img0, img1)
+        json.dumps(direct)
+        assert not any(isinstance(v, torch.Tensor) for v in direct.values())
+        assert set(out) == set(direct)
+        assert client.get_api_version(
+            f"http://127.0.0.1:{httpd.server_address[1]}")["version"]
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    err = chip_smoke.transfer_errors(hm, np.array(out["mmkeypoints0_orig"]),
+                                     np.array(out["mmkeypoints1_orig"]))
+    assert len(err) >= chip_smoke.GATE_MIN_INLIERS
+    assert np.median(err) <= chip_smoke.GATE_MEDIAN_PX
+
+
+def _post_body(url, body, ctype):
+    import urllib.request
+
+    req = urllib.request.Request(url, data=body,
+                                 headers={"Content-Type": ctype})
+    with urllib.request.urlopen(req, timeout=120) as resp:
+        return resp.read()
