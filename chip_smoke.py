@@ -54,7 +54,8 @@ Phases, each of which passes or ends the run with a non-zero exit:
      gate on every pair, the card against the port's CPU run (IoU of the
      valid coarse pairs), ms per request, per-stage CUDA-event times and
      the idle share; then one request of each LoFTR-family matcher
-     (eloftr, se2loftr, xoftr, aspanformer, topicfm, matchformer) and of
+     (eloftr, se2loftr, xoftr, aspanformer, topicfm, matchformer, the
+     four LoMa confs, jamma, rdd_dense), of the sparse rdd(sparse) and of
      RoMa's fpn-corr backbone at their registry confs on seeded random
      weights, each held to finite outputs and to its CPU run. This path
      launches none of the hand-written kernels;
@@ -70,7 +71,16 @@ Phases, each of which passes or ends the run with a non-zero exit:
      subprocesses from the repository root: --version, match with the
      default superpoint+lightglue and with superpoint+mnn (the printed line
      and the pickle's keys), and serve on a free port until it answers a
-     match request, each timed from process start.
+     match request, each timed from process start;
+  9. pose and evaluation: the planted relative-pose chain (fundamental
+     RANSAC, essential, cheirality) on 3 synthetic scenes and PnP on a
+     planted scene; `eval pose` on the flagship (superpoint+lightglue,
+     subpixel) in a subprocess over synthetic-pose pairs of textured
+     photos, held to the JAX tests' AUC@20 and median bars; the same pairs
+     in this process as the main path (its kernels against their plain
+     versions on its arguments, launch counts, seconds per pair, device
+     busy and idle share), against the port's CPU run (raw-match IoU) and
+     through loftr; evaluate_warp on the trained flagship.
 Near the end it prints one JSON line {"timing": ...}, one {"kernels":
 [...]} and the card's name and power limit; the last line is {"ok": true,
 "device": {...}}. Without a CUDA device, or without the rest of the
@@ -142,6 +152,8 @@ L_MATCHER = "loftr"
 L_SIZE = (1600, 1200)
 L_SEEDS = (700, 701, 702)
 L_TRAINED = os.path.join("weights", "loftr_selftrained.npz")
+SP_TRAINED = os.path.join("weights", "superpoint_adapted.npz")
+LG_TRAINED = os.path.join("weights", "lightglue_selftrained.npz")
 # Card against the port's CPU run on one pair: the IoU of the sets of valid
 # coarse (idx0, idx1) pairs must reach this (measured on an H100: f32 1.0,
 # bf16 0.991 and 0.993, where cuDNN and oneDNN round the bf16 trunk in
@@ -157,7 +169,17 @@ L_COARSE_IOU = {"fp32": 0.99, "bf16": 0.97}
 # L_FAMILY_IOU and the median |image-1 point difference| over the common
 # ones at most L_FAMILY_PX.
 L_FAMILY = {"eloftr": 1e-3, "se2loftr": 1e-3, "xoftr": 0.3,
-            "aspanformer": 0.2, "topicfm": 0.2, "matchformer": 1e-6}
+            "aspanformer": 0.2, "topicfm": 0.2, "matchformer": 1e-6,
+            "loma-b": 1e-4, "loma-l": 1e-4, "loma-g": 1e-4, "loma-r": 1e-4,
+            "jamma": 1e-6, "rdd_dense": 1e-7}
+# ... and the sparse rdd(sparse) zoo entry (the rdd extractor on a seeded
+# random tree with mutual NN): the card against the CPU on view 0's
+# extraction, the IoU of the valid keypoints (the same within L_FAMILY_PX)
+# at least L_RDD_IOU and their descriptors within L_RDD_DESC (set from an
+# H100 reading of IoU 0.9942 and descriptors within 5.07e-7: a bf16
+# descriptor head would err by ~1e-4).
+L_RDD_IOU = 0.98
+L_RDD_DESC = 1e-5
 L_FAMILY_TOL = 1e-4
 L_FAMILY_NEAR = 0.99
 L_FAMILY_IOU = 0.9
@@ -179,6 +201,49 @@ S_EXTRACT_KPTS = (256, 512)
 # The kernels of the served request: bf16 SuperPoint's stage 1 (the stem
 # kernel), stage 2 (K1) and its NMS (K2), once per view.
 SERVED_KERNELS = ("stem_tail", "stage_tail", "nms_cellmax")
+# Pose and evaluation (phase 9). (a) The planted chain of
+# tests/test_pose_eval.py:29-56 (3 scenes at 640 x 480, 0.75 px, 2048
+# hypotheses) must close to under E_CHAIN_DEG; PnP on test_ops_pnp.py's
+# scene must recover R within E_PNP_DEG and t within E_PNP_T. (b, c) A
+# corpus of E_CORPUS textured photos at 480 x 640, E_POSES pose draws each
+# (eval/synthpose, seed 0), through `eval pose` (the flagship,
+# superpoint+lightglue with subpixel peaks) and through evaluate_matcher
+# on loftr, RANSAC at 1.5 px: each held to tests/test_pose_eval.py's bars
+# (AUC@20 >= 0.5 and median error <= 10 degrees). The JAX package on the
+# CPU clears them on these pairs: E_JAX_CPU (tests/jax_eval_reference.py;
+# 12 pairs), reported beside.
+E_CHAIN_DEG = 1.5
+E_PNP_DEG, E_PNP_T = 2.0, 0.2
+E_CORPUS = (900, 901, 902, 903)
+E_POSES = 3
+E_SIZE = (480, 640)
+E_RANSAC_PX = 1.5
+E_AUC20_MIN, E_MEDIAN_MAX = 0.5, 10.0
+E_JAX_CPU = {
+    "superpoint+lightglue": {"auc@5": 0.6123, "auc@10": 0.7478,
+                             "auc@20": 0.8322, "median_err_deg": 1.1337,
+                             "mean_matches": 182.42},
+    "loftr": {"auc@5": 0.4908, "auc@10": 0.5831, "auc@20": 0.6715,
+              "median_err_deg": 2.0162, "mean_matches": 1559.42}}
+# (d) evaluate_warp on one textured 480 x 640 photo (this seed), the 5
+# default warps, the trained flagship as tests/test_accuracy_warp.py
+# builds it: the JAX package on the CPU (tests/jax_eval_reference.py)
+# gives median recall 1.0, 109 matches and a corner error of 0.822 px;
+# the gate is recall >= 0.95, matches >= 82 (three quarters) and corner
+# error <= 1.64 px (twice).
+E_WARP_SEED = 950
+E_WARP_GATE = {"median_recall": 0.95, "median_matches": 82,
+               "median_h_corner_err": 1.64}
+# (e) The card against the port's CPU run on the first E_CPU_PAIRS pairs:
+# the IoU of the raw match sets before RANSAC, as phase 8 (S_IOU at
+# S_TOL_PX; the two devices' generators draw different RANSAC streams, so
+# the per-pair errors are not compared).
+E_CPU_PAIRS = 2
+# The kernels of the flagship's eval pair: bf16 SuperPoint's stem kernel,
+# K1 and K2 (nms_radius 3) once per view, and LightGlue's self-attention
+# (K3: 1024 keypoints, under the 2048 of the blockwise route) and
+# cross-attention (K4) in each layer it runs.
+EVAL_KERNELS = SERVED_KERNELS + ("fused_attention", "bidirectional_attention")
 # The keys of the JAX package's run_matching pred dict, which the CLI's
 # match command pickles.
 PRED_KEYS = {"H", "geom_info", "image0_orig", "image1_orig", "keypoints0",
@@ -2102,6 +2167,42 @@ def phase7():
                         "tokens_near": near, "token_err_card_vs_cpu": e_tok,
                         "iou_card_vs_cpu": iou, "median_px": dk}
 
+    # rdd(sparse): the rdd extractor with mutual NN, one request, then the
+    # extractor on that request's view 0 on the card and on the CPU
+    conf = ui.parse_match_config({"feature": "rdd", "matcher": "NN-mutual",
+                                  "dense": False})
+    api = ImageMatchingAPI(conf, device="cuda")
+    if api.extractor.meta["pretrained"] is not False:
+        fail("rdd claims trained weights that do not exist")
+    seen = {}
+    hook = api.extractor.register_forward_pre_hook(
+        lambda mod, args: seen.setdefault("data", args[0]))
+    t0 = time.perf_counter()
+    res = api(*pairs[0][:2])
+    ms = (time.perf_counter() - t0) * 1e3
+    hook.remove()
+    n = len(res["mkeypoints0_orig"])
+    if not (n and all(np.isfinite(res[k]).all() for k in (
+            "keypoints0_orig", "mkeypoints0_orig", "mkeypoints1_orig"))):
+        fail(f"rdd(sparse): {n} raw matches, or outputs not finite")
+    cpu_ext = type(api.extractor)(api.extractor.conf, device="cpu")
+    outs = [{k: v[0].cpu().numpy() for k, v in m(seen["data"]).items()}
+            for m in (api.extractor, cpu_ext)]
+    kp = [o["keypoints"][o["mask"]] for o in outs]
+    iou, ia, ib = common_points(kp[0], kp[1], L_FAMILY_PX)
+    dd = [o["descriptors"][:, o["mask"]] for o in outs]
+    e_d = float(np.abs(dd[0][:, ia] - dd[1][:, ib]).max()) if len(ia) \
+        else float("inf")
+    log(f"  rdd(sparse): {len(res['keypoints0_orig'])} keypoints, {n} raw "
+        f"matches, {len(res['mmkeypoints0_orig'])} RANSAC inliers, {ms:.1f} "
+        f"ms; card against CPU on view 0: {len(kp[0])} and {len(kp[1])} "
+        f"keypoints, IoU {iou:.4f} (bound {L_RDD_IOU}), descriptors within "
+        f"{e_d:.2e} (bound {L_RDD_DESC})")
+    if iou < L_RDD_IOU or e_d > L_RDD_DESC:
+        problems.append("rdd(sparse): card and CPU disagree")
+    result["rdd(sparse)"] = {"ms_per_request": ms, "raw_matches": n,
+                             "iou_card_vs_cpu": iou, "desc_err": e_d}
+
     # RoMa's fpn-corr backbone at the registry's roma entry
     api = api_for("roma", backbone="fpn-corr")
     model = api.matcher
@@ -2135,6 +2236,263 @@ def phase7():
     if problems:
         fail("; ".join(problems))
     return result
+
+
+def _planted_pose_checks():
+    """Phase 9 (a): the planted chain on 3 synthetic scenes and PnP on a
+    planted scene, on the card. Returns the errors."""
+    import torch
+
+    from imcui_tpu_torch.eval import synthpose
+    from imcui_tpu_torch.ops import pnp, pose
+
+    def card(a):
+        return torch.as_tensor(np.asarray(a), dtype=torch.float32,
+                               device="cuda")
+
+    rng = np.random.default_rng(0)
+    errs = []
+    for trial in range(3):
+        scene = synthpose.sample_scene(rng, 640, 480)
+        u0, u1 = synthpose.gt_correspondences(scene, 640, 480, rng, n=512)
+        p0, p1 = (np.zeros((512, 2), np.float32) for _ in range(2))
+        m = np.zeros(512, bool)
+        p0[:len(u0)], p1[:len(u0)], m[:len(u0)] = u0, u1, True
+        out = pose.estimate_pose(
+            p0, p1, m, scene["K"], scene["K"],
+            torch.Generator(device="cuda").manual_seed(trial),
+            threshold_px=0.75, num_hypotheses=2048, device="cuda")
+        errs.append(float(pose.pose_error(out["R"], out["t"],
+                                          card(scene["R"]),
+                                          card(scene["t"]))))
+    log(f"  (a) planted chain, 3 scenes at 640x480 ({len(u0)} GT matches "
+        f"the last): pose errors {[round(e, 4) for e in errs]} degrees "
+        f"(bound {E_CHAIN_DEG})")
+    if max(errs) >= E_CHAIN_DEG:
+        fail(f"the planted pose chain did not close: {errs}")
+
+    # tests/test_ops_pnp.py's scene: 80 points, 40 outliers, 0.5 px noise,
+    # and the last 8 correspondences masked out
+    r = np.random.RandomState(0)
+    K = np.array([[900.0, 0, 480], [0, 900.0, 360], [0, 0, 1]])
+    a, b = 0.4, 0.2
+    R = np.array([[np.cos(a), -np.sin(a), 0], [np.sin(a), np.cos(a), 0],
+                  [0, 0, 1]]) @ np.array([[1, 0, 0],
+                                          [0, np.cos(b), -np.sin(b)],
+                                          [0, np.sin(b), np.cos(b)]])
+    t = np.array([0.3, -0.2, 4.0])
+    X = r.uniform(-3, 3, (80, 3)) + np.array([0, 0, 2.0])
+    x = (X @ R.T + t) @ K.T
+    p2 = np.concatenate([x[:, :2] / x[:, 2:] + r.randn(80, 2) * 0.5,
+                         r.uniform(0, 900, (40, 2))]).astype(np.float32)
+    p3 = np.concatenate([X, r.uniform(-3, 3, (40, 3)) + np.array(
+        [0, 0, 2.0])]).astype(np.float32)
+    mask = np.ones(120, bool)
+    mask[-8:] = False
+    out = pnp.ransac_pnp(p2, p3, mask, K,
+                         torch.Generator(device="cuda").manual_seed(0),
+                         threshold_px=4.0, num_hypotheses=512,
+                         device="cuda")
+    inl = out["inliers"].cpu().numpy()
+    e_r = float(pose.rotation_angle_deg(out["R"], card(R)))
+    e_t = float(np.linalg.norm(out["t"].cpu().numpy() - t))
+    log(f"  (a) PnP: {int(out['num_inliers'])} inliers ({int(inl[:80].sum())}"
+        f" of the 80 planted, {int(inl[80:].sum())} of the outliers, "
+        f"{int(inl[-8:].sum())} masked), rotation error {e_r:.4f} degrees, "
+        f"|t - t_gt| {e_t:.4f}")
+    if not (bool(out["success"]) and inl[:80].sum() >= 72
+            and inl[80:].sum() <= 3 and not inl[-8:].any()
+            and e_r < E_PNP_DEG and e_t < E_PNP_T):
+        fail("PnP did not recover the planted pose within the mask")
+    return {"chain_err_deg": errs, "pnp_rot_err_deg": e_r, "pnp_t_err": e_t}
+
+
+def _eval_run(api, pairs, kernels, tag):
+    """evaluate_pairs through ``api`` on the card as the main path: every
+    count at 0 before, read after; seconds per pair on the host clock, the
+    device busy ms per pair from a profiler window over two pairs, and the
+    idle share of the unprofiled pair time. Returns the result with
+    those."""
+    import torch
+
+    from imcui_tpu_torch.eval import megadepth
+
+    fn = megadepth.api_matcher_fn(api)
+
+    def run(ps):
+        return megadepth.evaluate_pairs(fn, ps, E_RANSAC_PX, device="cuda")
+
+    for kfn in kernels:
+        kfn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = run(pairs)
+    torch.cuda.synchronize()
+    sec = (time.perf_counter() - t0) / len(pairs)
+    launches = {k.__name__: k.launches for k in kernels}
+    device_ms, evs = device_window(lambda i: run(pairs[i:i + 1]), 2)
+    idle = 1 - device_ms / (sec * 1e3)
+    summary = {k: v for k, v in res.items() if k != "errors"}
+    log(f"  {tag}: {json.dumps(summary)}; {sec:.4f} s per pair (host "
+        f"clock, mean of {len(pairs)}); device busy {device_ms:.2f} ms per "
+        f"pair, idle share {idle:.3f}; launches {launches}; top device "
+        f"time per pair:")
+    for e in sorted(evs, key=lambda e: e.self_device_time_total,
+                    reverse=True)[:6]:
+        log(f"    {e.self_device_time_total / 2e3:9.3f} ms  x{e.count / 2:g}"
+            f"  {e.key[:90]}")
+    if res["auc@20"] < E_AUC20_MIN or res["median_err_deg"] > E_MEDIAN_MAX:
+        fail(f"{tag}: AUC@20 {res['auc@20']:.4f} (bar {E_AUC20_MIN}), "
+             f"median {res['median_err_deg']:.3f} degrees (bar "
+             f"{E_MEDIAN_MAX})")
+    return {**summary, "errors": res["errors"], "s_per_pair": sec,
+            "device_busy_ms": device_ms, "device_idle_share": idle,
+            "launches": launches}
+
+
+def phase9():
+    """Pose and evaluation on the card: (a) the planted chain and PnP; (b)
+    ``eval pose`` on the flagship in a subprocess as a user runs it, then
+    its pairs in this process as the main path (launch counts, each kernel
+    against its plain version on the path's arguments, seconds per pair,
+    device busy and idle share); (c) the same pairs through loftr; (d)
+    evaluate_warp on the trained flagship; (e) the card against the CPU.
+    Returns (launches of the main path, measurements)."""
+    import re
+    import tempfile
+
+    from imcui_tpu_torch.api.core import ImageMatchingAPI
+    from imcui_tpu_torch.eval import megadepth, warp
+    from imcui_tpu_torch.utils.png import encode_png
+
+    t_phase = time.perf_counter()
+    out = {"planted": _planted_pose_checks()}
+    mods = _served_modules(EVAL_KERNELS)
+    kernels = [getattr(mods[n][0], n) for n in EVAL_KERNELS]
+    cwd = os.getcwd()
+    os.chdir(ROOT)  # the zoo of config/app.yaml, as the CLI from the root
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            corpus = os.path.join(tmp, "corpus")
+            os.makedirs(corpus)
+            for i, seed in enumerate(E_CORPUS):
+                img = textured_image(np.random.default_rng(seed), *E_SIZE)
+                with open(os.path.join(corpus, f"photo{i}.png"), "wb") as f:
+                    f.write(encode_png(np.repeat(img[..., None], 3, -1)))
+            res_dir = os.path.join(tmp, "out")
+            proc, sec = _cli(
+                "eval", "pose", "--corpus", corpus, "--n-images",
+                str(len(E_CORPUS)), "--n-poses", str(E_POSES), "--height",
+                str(E_SIZE[0]), "--width", str(E_SIZE[1]), "--subpixel",
+                "--ransac-threshold-px", str(E_RANSAC_PX), "--out", res_dir,
+                "--device", "cuda")
+            if proc.returncode:
+                fail(f"eval pose: exit {proc.returncode}: "
+                     f"{proc.stderr[-2000:]}")
+            line = next((ln for ln in proc.stdout.splitlines()
+                         if ln.startswith("pose eval [")), "")
+            hit = re.fullmatch(r"pose eval \[superpoint\+lightglue\] on "
+                               r"synthpose\((\d+) photos x (\d+) poses\): "
+                               r"(\{.*\})", line)
+            with open(os.path.join(res_dir,
+                                   "pose_superpoint+lightglue.json")) as f:
+                rec = json.load(f)
+            keys = {"matcher", "source", "n_pairs", "auc@5", "auc@10",
+                    "auc@20", "median_err_deg", "mean_matches", "errors"}
+            if not hit or set(rec) != keys or json.loads(hit.group(3))[
+                    "auc@20"] != round(rec["auc@20"], 4):
+                fail(f"eval pose printed {line!r}, wrote {sorted(rec)}")
+            log(f"  (b) eval pose (subprocess, {sec:.1f} s from process "
+                f"start): {line}")
+            log(f"      the JAX package on the CPU, same pairs: "
+                f"{E_JAX_CPU['superpoint+lightglue']}")
+            if rec["auc@20"] < E_AUC20_MIN or \
+                    rec["median_err_deg"] > E_MEDIAN_MAX:
+                fail(f"eval pose misses the bars: {line}")
+            out["cli"] = {"seconds": sec, "n_pairs": rec["n_pairs"],
+                          **{k: rec[k] for k in keys if k.startswith("auc")
+                             or k in ("median_err_deg", "mean_matches")}}
+            with open(os.path.join(res_dir, "pairs", "pairs.json")) as f:
+                pairs = json.load(f)
+
+            # the main path in this process: the flagship's API, its
+            # kernels checked on a warm-up pair's arguments, then counted
+            conf = megadepth.matcher_conf("superpoint+lightglue",
+                                          {"subpixel": True})
+            api = ImageMatchingAPI(conf, device="cuda")
+            if not (api.extractor.meta["pretrained"]
+                    and api.matcher.meta["pretrained"]):
+                fail("the flagship did not load the weights/ npz trees")
+            fn = megadepth.api_matcher_fn(api)
+            seen = _capture_kernel_args(
+                lambda: fn(pairs[0]["img0"], pairs[0]["img1"]), EVAL_KERNELS)
+            out["kernel_checks"] = _check_served_kernels(seen, "eval pair")
+            del seen
+            out["superpoint+lightglue"] = _eval_run(
+                api, pairs, kernels, "(b) in process, superpoint+lightglue")
+            launches = out["superpoint+lightglue"]["launches"]
+            missing = [n for n in EVAL_KERNELS if not launches[n]]
+            if missing:
+                fail(f"the eval path launched no {missing}")
+
+            # (e) the card against the port's CPU run, raw matches
+            cpu_fn = megadepth.api_matcher_fn(ImageMatchingAPI(
+                conf, device="cpu"))
+            ious = []
+            for p in pairs[:E_CPU_PAIRS]:
+                a, b = fn(p["img0"], p["img1"]), cpu_fn(p["img0"], p["img1"])
+                ious.append(raw_match_iou(
+                    {"mkeypoints0_orig": a[0], "mkeypoints1_orig": a[1]},
+                    {"mkeypoints0_orig": b[0], "mkeypoints1_orig": b[1]},
+                    S_TOL_PX))
+            log(f"  (e) card against CPU, raw matches of pairs "
+                f"0..{E_CPU_PAIRS - 1}: IoU {[round(i, 4) for i in ious]} "
+                f"(bound {S_IOU})")
+            if min(ious) < S_IOU:
+                fail("eval pairs: card and CPU raw matches disagree")
+            out["raw_iou_card_vs_cpu"] = ious
+
+            # (c) loftr, the dense branch on its trained tree
+            api_l = ImageMatchingAPI(megadepth.matcher_conf("loftr"),
+                                     device="cuda")
+            if not api_l.matcher.meta["pretrained"]:
+                fail(f"loftr weights: {api_l.matcher.meta}")
+            log(f"      the JAX package on the CPU, same pairs: "
+                f"{E_JAX_CPU['loftr']}")
+            out["loftr"] = _eval_run(api_l, pairs, kernels,
+                                     "(c) in process, loftr (bf16)")
+            del api_l
+    finally:
+        os.chdir(cwd)
+
+    # (d) evaluate_warp on the trained flagship (test_accuracy_warp.py's)
+    wconf = {
+        "feature": {"output": "feats-superpoint",
+                    "model": {"name": "superpoint", "max_keypoints": 1024,
+                              "keypoint_threshold": 5e-4, "checkpoint_npz":
+                              os.path.join(ROOT, SP_TRAINED)},
+                    "preprocessing": {"grayscale": True, "resize_max": 480,
+                                      "dfactor": 8}},
+        "matcher": {"output": "matches-lightglue",
+                    "model": {"name": "lightglue", "features": "superpoint",
+                              "match_threshold": 0.1, "checkpoint_npz":
+                              os.path.join(ROOT, LG_TRAINED)}},
+        "dense": False, "standalone": False}
+    img = textured_image(np.random.default_rng(E_WARP_SEED), *E_SIZE)
+    per, agg = warp.evaluate_warp(ImageMatchingAPI(wconf, device="cuda"),
+                                  np.repeat(img[..., None], 3, -1),
+                                  device="cuda")
+    log(f"  (d) evaluate_warp, 5 warps of a 480x640 photo: {agg}; per warp "
+        f"{per}; gate {E_WARP_GATE}")
+    g = E_WARP_GATE
+    if agg["median_recall"] < g["median_recall"] or agg["median_matches"] < \
+            g["median_matches"] or agg["median_h_corner_err"] > \
+            g["median_h_corner_err"]:
+        fail(f"evaluate_warp misses its gate: {agg}")
+    out["warp"] = agg
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase 9: {out['phase_s']:.1f} s")
+    return launches, out
 
 
 def _http(url, body=None, ctype="application/json"):
@@ -2426,25 +2784,34 @@ def _serve_checks(url, service, server, client, files, kernels, tmp):
             "served_kernel_checks": kernel_checks}
 
 
-def _served_modules():
-    """{name: module} of each wrapper in SERVED_KERNELS."""
-    from imcui_tpu_torch.ops import cuda_nms, cuda_stage1
+def _served_modules(names=SERVED_KERNELS):
+    """{name: (the module that defines the wrapper, the modules whose
+    attribute the path calls)} of each wrapper in ``names`` (LightGlue
+    imports the attention wrappers by name)."""
+    from imcui_tpu_torch.models.matchers import lightglue
+    from imcui_tpu_torch.ops import attention, cuda_nms, cuda_stage1
 
-    return dict(zip(SERVED_KERNELS, (cuda_stage1, cuda_stage1, cuda_nms)))
+    where = {"stem_tail": (cuda_stage1, [cuda_stage1]),
+             "stage_tail": (cuda_stage1, [cuda_stage1]),
+             "nms_cellmax": (cuda_nms, [cuda_nms]),
+             "fused_attention": (attention, [lightglue]),
+             "bidirectional_attention": (attention, [lightglue])}
+    return {name: where[name] for name in names}
 
 
-def _capture_kernel_args(run):
-    """The arguments of every launch of K6, K1 and K2 while ``run`` runs,
-    copied on the card: {name: [(args, kwargs), ...]}. Each wrapper is
-    replaced by one that records and calls it; while it is, the wrapper
-    adds its launches to the replacement's count, not to its own."""
+def _capture_kernel_args(run, names=SERVED_KERNELS):
+    """The arguments of every launch of the kernels ``names`` (K6, K1 and
+    K2 by default) while ``run`` runs, copied on the card: {name: [(args,
+    kwargs), ...]}. Each wrapper is replaced by one that records and calls
+    it; while it is, the wrapper adds its launches to the replacement's
+    count, not to its own."""
     import torch
 
     def copy(x):
         return x.clone() if isinstance(x, torch.Tensor) else x
 
-    mods = _served_modules()
-    real = {name: getattr(mod, name) for name, mod in mods.items()}
+    mods = _served_modules(names)
+    real = {name: getattr(mod, name) for name, (mod, _) in mods.items()}
     seen = {name: [] for name in mods}
 
     def recording(name):
@@ -2455,32 +2822,36 @@ def _capture_kernel_args(run):
         call.launches = 0
         return call
 
-    for name, mod in mods.items():
-        setattr(mod, name, recording(name))
+    for name, (_, callers) in mods.items():
+        for mod in callers:
+            setattr(mod, name, recording(name))
     try:
         run()
     finally:
-        for name, mod in mods.items():
-            setattr(mod, name, real[name])
+        for name, (_, callers) in mods.items():
+            for mod in callers:
+                setattr(mod, name, real[name])
     return seen
 
 
-def _check_served_kernels(seen):
+def _check_served_kernels(seen, what="served request"):
     """Each recorded launch again, the kernel against its plain version on
     the same card tensors: K6 and K1 within one bf16 rounding step of the
-    result (1e-3 + 2^-7·|plain|, as phase 1), K2 exact. Fails on any
-    excess, or on a kernel of the path that the request did not launch."""
+    result (1e-3 + 2^-7·|plain|, as phase 1), K2 exact, K3 and K4 within
+    1e-5·max(1, max|plain|) (float32 sums in another order, as phase 1).
+    Fails on any excess, or on a kernel of the path that ``what`` did not
+    launch."""
     import torch
 
     from imcui_tpu_torch.models.layers import full_fp32
 
-    mods = _served_modules()
+    mods = _served_modules(tuple(seen))
     out = {}
     for name, calls in seen.items():
         if not calls:
-            fail(f"the served request launched no {name}")
-        kernel, plain = (getattr(mods[name], name),
-                         getattr(mods[name], f"{name}_plain"))
+            fail(f"the {what} launched no {name}")
+        kernel, plain = (getattr(mods[name][0], name),
+                         getattr(mods[name][0], f"{name}_plain"))
         for args, kw in calls:
             with full_fp32():
                 got, want = kernel(*args, **kw), plain(*args, **kw)
@@ -2491,6 +2862,14 @@ def _check_served_kernels(seen):
                 top = want[0].abs().max().item()
                 over = sum(int((g != w).sum()) for g, w in zip(got, want))
                 tol = "exact"
+            elif name.endswith("attention"):
+                if isinstance(got, torch.Tensor):
+                    got, want = (got,), (want,)
+                err = max((g - w).abs().max().item()
+                          for g, w in zip(got, want))
+                top = max(w.abs().max().item() for w in want)
+                over = int(err > 1e-5 * max(1.0, top))
+                tol = "1e-5*max(1,max|plain|)"
             else:
                 diff = (got.float() - want.float()).abs()
                 err, top = diff.max().item(), want.float().abs().max().item()
@@ -2502,11 +2881,11 @@ def _check_served_kernels(seen):
             out.setdefault(name, []).append(
                 {"shape": f"{shape} {dtype}", "max_abs_err": err,
                  "max_plain": top, "over": over})
-            log(f"  served shapes: {name} [{shape} {dtype}]: err {err:.3g} "
+            log(f"  {what} shapes: {name} [{shape} {dtype}]: err {err:.3g} "
                 f"(max|plain| {top:.3g}; {over} over {tol})")
             if over:
-                fail(f"{name} [{shape} {dtype}] of the served request "
-                     f"differs from its plain version")
+                fail(f"{name} [{shape} {dtype}] of the {what} differs from "
+                     f"its plain version")
     return out
 
 
@@ -2885,6 +3264,9 @@ def main():
     launches_surfaces, timing["surfaces"] = phase8()
     timing["surfaces"]["phase_s"] = time.perf_counter() - t8
     log(f"  phase 8: {timing['surfaces']['phase_s']:.1f} s")
+    log("phase 9: pose and evaluation (the planted chain, PnP, eval pose on "
+        "the flagship, loftr, evaluate_warp)")
+    launches_eval, timing["eval"] = phase9()
     for r in rows:
         by_path = {
             "turbo": launches.get(r["name"], 0),
@@ -2893,7 +3275,8 @@ def main():
             "dense bf16": timing["dense"]["bf16"]["launches"].get(
                 r["name"], 0),
             "probes": launches_probes.get(r["name"], 0),
-            "surfaces": launches_surfaces.get(r["name"], 0)}
+            "surfaces": launches_surfaces.get(r["name"], 0),
+            "eval": launches_eval.get(r["name"], 0)}
         r["launches_by_path"] = by_path
         r["launches"] = sum(by_path.values())
         if r["launches"] == 0:

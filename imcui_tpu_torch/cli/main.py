@@ -1,20 +1,27 @@
 """Command line. Counterpart of ``imcui_tpu/cli/main.py`` on ``argparse``:
 the same group options (``--server-name/-s``, ``--server-port/-p``,
 ``--config/-c``, ``--example-data-root/-d``, ``--verbose/-v``,
-``--version``), the same config resolution order and the ``serve`` and
-``match`` commands, each with ``--device`` (``cuda`` by default, which
-raises without a card; ``cpu`` runs the plain PyTorch path).
+``--version``), the same config resolution order and the ``serve``,
+``match`` and ``eval pose`` commands, each with ``--device`` (``cuda`` by
+default, which raises without a card; ``cpu`` runs the plain PyTorch
+path).
 
     python -m imcui_tpu_torch.cli.main serve [--host H] [--port P] \\
         [--api-config api.yaml] [--device cuda|cpu]
     python -m imcui_tpu_torch.cli.main match a.png b.png \\
         [--matcher superpoint+lightglue] [-o pred.pkl] [--device cuda|cpu]
+    python -m imcui_tpu_torch.cli.main eval pose [--corpus DIR | \\
+        --pairs-json pairs.json] [--matcher superpoint+lightglue] \\
+        [--subpixel] [--ransac-threshold-px 0.75] [--out runs/pose_eval] \\
+        [--device cuda|cpu]
 
-``webui``, ``train`` and ``eval`` are registered and exit with status 2
-naming what they wait for. As in the JAX package, ``match`` resolves its
-zoo from ``get_default_config_path()`` and ignores the group's
-``--config``; from the repository root that is ``config/app.yaml``, whose
-zoo is not the packaged one.
+``eval`` without a command prints its help and exits with status 2, as
+the JAX package's click group does. ``webui`` and ``train`` are registered
+and exit with status 2 naming what they wait for. As in the JAX package,
+``match`` and ``eval pose`` resolve their zoo from
+``get_default_config_path()`` and ignore the group's ``--config``; from
+the repository root that is ``config/app.yaml``, whose zoo is not the
+packaged one.
 """
 
 import argparse
@@ -30,7 +37,6 @@ WAITING = {
     "webui": "the WebUI needs the gradio package, which is not installed "
              "here; it is not ported",
     "train": "training is not ported yet (ROADMAP.md, section A.8)",
-    "eval": "the evaluations are not ported yet (ROADMAP.md, section A.3)",
 }
 
 
@@ -86,7 +92,36 @@ def build_parser():
     match.add_argument("image1", type=_existing_path)
     match.add_argument("--matcher", default="superpoint+lightglue")
     match.add_argument("--output", "-o", default=None)
-    for cmd in (serve, match):
+    ev = sub.add_parser(
+        "eval", help="Accuracy evaluations (relative pose AUC).",
+        description="Accuracy evaluations (relative pose AUC). Consumes "
+                    "real MegaDepth pair lists when available, or "
+                    "manufactures calibrated synthetic-pose pairs offline.")
+    ev.set_defaults(eval_help=ev.print_help)
+    ev_sub = ev.add_subparsers(dest="eval_command", metavar="COMMAND")
+    pose = ev_sub.add_parser(
+        "pose", help="Relative-pose AUC@5/10/20 through the full on-device "
+                     "chain (match -> fundamental RANSAC -> essential -> "
+                     "pose recovery).")
+    pose.add_argument("--pairs-json", default=None, type=_existing_path,
+                      help="Existing pair list (eval/megadepth schema). "
+                           "Omitted = synthesise pairs from --corpus.")
+    pose.add_argument("--corpus", default="runs/corpus_clean",
+                      help="Photo dir for synthetic pairs.")
+    pose.add_argument("--n-images", default=10, type=int)
+    pose.add_argument("--n-poses", default=3, type=int,
+                      help="Pose draws per image.")
+    pose.add_argument("--height", default=480, type=int)
+    pose.add_argument("--width", default=640, type=int)
+    pose.add_argument("--matcher", default="superpoint+lightglue")
+    pose.add_argument("--max-pairs", default=None, type=int)
+    pose.add_argument("--ransac-threshold-px", default=0.75, type=float)
+    pose.add_argument("--subpixel", action="store_true",
+                      help="Soft-argmax peak refinement on the sparse "
+                           "extractor.")
+    pose.add_argument("--out", default="runs/pose_eval")
+    pose.add_argument("--seed", default=0, type=int)
+    for cmd in (serve, match, pose):
         cmd.add_argument("--device", default="cuda",
                          help="cuda (default) or cpu")
     return parser
@@ -120,6 +155,43 @@ def match(args):
     return 0
 
 
+def eval_pose(args):
+    import json
+
+    from ..eval import megadepth, synthpose
+
+    out_dir = Path(args.out)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    if args.pairs_json:
+        with open(args.pairs_json) as f:
+            pairs = json.load(f)
+        source = args.pairs_json
+    else:
+        photos = sorted(
+            p for p in Path(args.corpus).iterdir()
+            if p.suffix.lower() in (".png", ".jpg", ".jpeg", ".ppm",
+                                    ".bmp"))[:args.n_images]
+        pairs = synthpose.generate_pairs(
+            photos, out_dir / "pairs", n_pose_per_image=args.n_poses,
+            size=(args.height, args.width), seed=args.seed)
+        source = f"synthpose({len(photos)} photos x {args.n_poses} poses)"
+    result = megadepth.evaluate_matcher(
+        pairs, args.matcher, max_pairs=args.max_pairs,
+        ransac_threshold_px=args.ransac_threshold_px,
+        feature_opts={"subpixel": True} if args.subpixel else None,
+        device=args.device)
+    summary = {k: (round(v, 4) if isinstance(v, float) else v)
+               for k, v in result.items() if k != "errors"}
+    print(f"pose eval [{args.matcher}] on {source}: {json.dumps(summary)}")
+    name = f"pose_{args.matcher.replace('/', '_')}.json"
+    rec = {"matcher": args.matcher, "source": source, "n_pairs": len(pairs),
+           **result}
+    with open(out_dir / name, "w") as f:
+        json.dump(rec, f)
+    print(f"wrote {out_dir}/{name}")
+    return 0
+
+
 def main(argv=None):
     """Parse ``argv`` and run the command; the exit status."""
     args = build_parser().parse_args(argv)
@@ -129,6 +201,11 @@ def main(argv=None):
     if command in WAITING:
         print(f"{PROG} {command}: {WAITING[command]}", file=sys.stderr)
         return 2
+    if command == "eval":
+        if args.eval_command is None:
+            args.eval_help(sys.stderr)
+            return 2
+        return eval_pose(args)
     return {"serve": serve, "match": match}[command](args)
 
 

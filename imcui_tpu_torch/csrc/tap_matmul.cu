@@ -341,8 +341,11 @@ __global__ void __launch_bounds__(THREADS, 1)
 
       // epilogue: bf16 into the output stage and one TMA store per box of
       // 64 columns, each its own bulk group, so a box waits only for its
-      // own store of the previous item while the other box's drains
+      // own store of the previous item while the other box's drains. A
+      // warpgroup whose rows all lie past M skips it whole: it commits no
+      // group, so its writes would not wait for the last box still stored
       const long long row0 = mt * BM + cw * 128;
+      if (row0 >= M) continue;
 #pragma unroll
       for (int b = 0; b < 2; ++b) {
         if (t == 0) bulk_wait_read<1>();  // box b's last store has read it
@@ -361,7 +364,7 @@ __global__ void __launch_bounds__(THREADS, 1)
             }
         asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
         named_sync(1 + cw);
-        if (t == 0 && row0 < M) {
+        if (t == 0) {
           tma_store(&omap, ob + b * OUT_BOX, nt * BN + 64 * b, int(row0),
                     policy);
           bulk_commit();

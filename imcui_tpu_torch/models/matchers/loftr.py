@@ -455,20 +455,23 @@ def forward_pair(params, image0, image1, wh0, wh1, conf):
     return finish(idx0, idx1, score, valid, offsets1, wc)
 
 
-def forward_pairs(pair_fn, params, data, conf, device):
+def forward_pairs(pair_fn, params, data, conf, device, gray=True):
     """The standalone wrapper's batch: image0/1 (B, 1 or 3, H, W) in [0, 1]
-    (3 channels are averaged to gray, not weighted as by cv2), size0/1
-    (B, 2) the valid (width, height) of each padded view (default: the
-    whole image). Runs ``pair_fn(params, img0, img1, wh0, wh1, conf)`` on
-    each pair with TF32 off and stacks the outputs; ``mconf`` repeats
-    ``scores``."""
+    (with ``gray`` 3 channels are averaged to gray, not weighted as by
+    cv2; without it gray is repeated to 3 channels), size0/1 (B, 2) the
+    valid (width, height) of each padded view (default: the whole image).
+    Runs ``pair_fn(params, img0, img1, wh0, wh1, conf)`` on each pair with
+    TF32 off and stacks the outputs; ``mconf`` repeats ``scores``."""
     img0 = torch.as_tensor(data["image0"], dtype=torch.float32,
                            device=device)
     img1 = torch.as_tensor(data["image1"], dtype=torch.float32,
                            device=device)
-    if img0.shape[1] == 3:
+    if gray and img0.shape[1] == 3:
         img0 = img0.mean(1, keepdim=True)
         img1 = img1.mean(1, keepdim=True)
+    elif not gray and img0.shape[1] == 1:
+        img0 = img0.repeat(1, 3, 1, 1)
+        img1 = img1.repeat(1, 3, 1, 1)
     b = img0.shape[0]
 
     def wh(key, img):

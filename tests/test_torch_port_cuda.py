@@ -966,6 +966,19 @@ def test_tap_matmul_kernel_matches_plain(gen, m, n, layout, r, dtype):
     _assert_tap_close(got, want, dtype)
 
 
+def test_tap_matmul_partial_last_row_tile_repeated(gen):
+    """M = 256 k + 77: the second consumer warpgroup's rows of the last
+    row tile all lie past M, so it stores nothing there; its epilogue once
+    overwrote the output stage while the previous item's last box was
+    still being stored (zeros in ~2.5 % of launches at this shape). 400
+    launches, each against the plain version."""
+    m = 132 * 256 * 3 + 77
+    x, w = _tap_inputs(gen, m, 2048, 1, "bf16")
+    want = tap_matmul.tap_matmul_plain(x, w)
+    for _ in range(400):
+        _assert_tap_close(tap_matmul.tap_matmul(x, w), want, "bf16")
+
+
 @pytest.mark.parametrize("xs, ws, r", [((0, 128), (0, 128), 8),
                                        ((100, 128), (100, 128), 9),
                                        ((-128, -100), (100, 128), 9)])
@@ -1090,7 +1103,8 @@ def test_loftr_phase7_gate_on_card(gen):
 
 FAMILY_CLASSES = {"eloftr": "ELoFTR", "se2loftr": "Se2LoFTR",
                   "xoftr": "XoFTR", "aspanformer": "ASpanFormer",
-                  "topicfm": "TopicFM", "matchformer": "MatchFormer"}
+                  "topicfm": "TopicFM", "matchformer": "MatchFormer",
+                  "loma": "LoMa", "jamma": "JamMa", "rdd_dense": "RddDense"}
 
 
 @pytest.mark.parametrize("name", list(FAMILY_CLASSES))
@@ -1228,3 +1242,105 @@ def _post_body(url, body, ctype):
                                  headers={"Content-Type": ctype})
     with urllib.request.urlopen(req, timeout=120) as resp:
         return resp.read()
+
+
+def test_pose_chain_and_pnp_on_card(gen):
+    """tests/test_pose_eval.py's planted chain on the card (3 scenes at 640
+    x 480, 2048 hypotheses from a CUDA generator): < 1.5°; and PnP on
+    tests/test_ops_pnp.py's scene recovers R and t with the mask kept."""
+    from imcui_tpu_torch.eval import synthpose
+    from imcui_tpu_torch.ops import pnp, pose
+
+    rng = np.random.default_rng(0)
+    for trial in range(3):
+        scene = synthpose.sample_scene(rng, 640, 480)
+        u0, u1 = synthpose.gt_correspondences(scene, 640, 480, rng, n=512)
+        p0, p1 = np.zeros((512, 2), np.float32), np.zeros((512, 2),
+                                                            np.float32)
+        m = np.zeros(512, bool)
+        p0[:len(u0)], p1[:len(u0)], m[:len(u0)] = u0, u1, True
+        out = pose.estimate_pose(
+            p0, p1, m, scene["K"], scene["K"],
+            torch.Generator(device="cuda").manual_seed(trial),
+            threshold_px=0.75)
+        assert out["R"].device.type == "cuda"
+        err = float(pose.pose_error(out["R"], out["t"], *(
+            torch.as_tensor(scene[k], dtype=torch.float32, device="cuda")
+            for k in ("R", "t"))))
+        assert err < 1.5, (trial, err)
+
+    r = np.random.RandomState(0)
+    K = np.array([[900.0, 0, 480], [0, 900.0, 360], [0, 0, 1]])
+    a = 0.4
+    R = np.array([[np.cos(a), -np.sin(a), 0], [np.sin(a), np.cos(a), 0],
+                  [0, 0, 1]])
+    t = np.array([0.3, -0.2, 4.0])
+    X = r.uniform(-3, 3, (80, 3)) + np.array([0, 0, 2.0])
+    x = (X @ R.T + t) @ K.T
+    p2 = np.concatenate([x[:, :2] / x[:, 2:] + r.randn(80, 2) * 0.5,
+                         r.uniform(0, 900, (40, 2))]).astype(np.float32)
+    p3 = np.concatenate([X, r.uniform(-3, 3, (40, 3))]).astype(np.float32)
+    mask = np.ones(120, bool)
+    mask[-10:] = False
+    out = pnp.ransac_pnp(p2, p3, mask, K,
+                         torch.Generator(device="cuda").manual_seed(0),
+                         threshold_px=4.0)
+    inl = out["inliers"].cpu().numpy()
+    assert bool(out["success"]) and inl[:80].sum() >= 72
+    assert not inl[-10:].any() and inl[80:].sum() <= 3
+    assert float(pose.rotation_angle_deg(out["R"], torch.as_tensor(
+        R, dtype=torch.float32, device="cuda"))) < 2.0
+    assert float(np.linalg.norm(out["t"].cpu().numpy() - t)) < 0.2
+
+
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 4800, 9600])
+def test_chunked_scan_on_card_matches_cpu(gen, n):
+    """loma.linear_scan on the card against the CPU, within 1e-5 of the
+    largest state, at lengths on both sides of the 64-token chunk and at
+    the registry's 640 x 480 (one view, both views joined)."""
+    from imcui_tpu_torch.models.layers import full_fp32
+    from imcui_tpu_torch.models.matchers import loma
+
+    rng = np.random.default_rng(n)
+    log_decay = -(rng.exponential(1.0, (n, 16)) * rng.exponential(
+        1.0, (1, 16))).clip(max=30).astype(np.float32)
+    drive = rng.normal(size=(n, 16)).astype(np.float32)
+    with full_fp32():
+        got = loma.linear_scan(torch.from_numpy(log_decay).cuda(),
+                               torch.from_numpy(drive).cuda()).cpu()
+        want = loma.linear_scan(torch.from_numpy(log_decay),
+                                torch.from_numpy(drive))
+    assert torch.isfinite(got).all()
+    assert float((got - want).abs().max()) <= 1e-5 * float(
+        want.abs().max())
+
+
+def test_eval_pair_through_the_api_on_card(gen, tmp_path):
+    """One synthetic pose pair at 640 x 480 through evaluate_matcher on
+    the flagship (superpoint+lightglue, subpixel) on the card: matches
+    found, error < 10°, and the pair went through the fused self-attention
+    (K3) and the bidirectional cross-attention (K4) at 1024 keypoints."""
+    import os
+
+    import chip_smoke
+    from imcui_tpu_torch.eval import megadepth, synthpose
+    from imcui_tpu_torch.utils.png import encode_png
+
+    img = chip_smoke.textured_image(np.random.default_rng(900), 480, 640)
+    (tmp_path / "p.png").write_bytes(encode_png(np.repeat(img[..., None], 3,
+                                                          -1)))
+    pairs = synthpose.generate_pairs([tmp_path / "p.png"], tmp_path / "o",
+                                     n_pose_per_image=1, size=(480, 640))
+    before = (attention.fused_attention.launches,
+              attention.bidirectional_attention.launches)
+    cwd = os.getcwd()
+    os.chdir(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    try:
+        res = megadepth.evaluate_matcher(
+            pairs, "superpoint+lightglue", ransac_threshold_px=1.5,
+            feature_opts={"subpixel": True})
+    finally:
+        os.chdir(cwd)
+    assert res["mean_matches"] >= 50 and res["median_err_deg"] < 10.0, res
+    assert attention.fused_attention.launches > before[0]
+    assert attention.bidirectional_attention.launches > before[1]

@@ -380,11 +380,22 @@ def test_cli_config_resolution_order_equals_jax(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("argv,what", [
     ([], "gradio"), (["webui"], "gradio"),
-    (["train", "lightglue", "--steps", "3"], "A.8"), (["eval"], "A.3"),
+    (["train", "lightglue", "--steps", "3"], "A.8"),
 ])
 def test_cli_commands_not_ported_exit_nonzero(capsys, argv, what):
     assert tcli.main(argv) == 2
     assert what in capsys.readouterr().err
+
+
+def test_cli_eval_without_a_command_exits_as_the_jax_group(capsys):
+    """``eval`` is ported: alone it prints its help, which names ``pose``,
+    and exits 2, as the JAX package's click group does."""
+    from click.testing import CliRunner
+
+    res = CliRunner().invoke(jcli.cli, ["eval"])
+    assert tcli.main(["eval"]) == res.exit_code == 2
+    err = capsys.readouterr().err
+    assert "pose" in err and "pose" in res.output and "A.3" not in err
 
 
 def test_cli_run_maps_keyboard_interrupt_to_130(monkeypatch):

@@ -567,8 +567,9 @@ def test_dinov2_init_tree_and_pos_embed():
 # --------------------------------------------------------------------------
 
 def test_port_imports_no_jax_cv2_pil_or_jax_package():
-    """Import every module of imcui_tpu_torch in a fresh interpreter and
-    look at sys.modules."""
+    """Import every module of imcui_tpu_torch in a fresh interpreter (the
+    evaluations in imcui_tpu_torch/eval/ among them) and look at
+    sys.modules."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import imcui_tpu_torch\n"
@@ -578,8 +579,11 @@ def test_port_imports_no_jax_cv2_pil_or_jax_package():
         "    importlib.import_module(n)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'cv2', 'PIL', 'imcui_tpu', 'h5py', 'triton'))\n"
-        "print(len(names), bad)\n"
-        "sys.exit(1 if bad or len(names) < 30 else 0)\n")
+        "evals = {'imcui_tpu_torch.eval.' + m for m in "
+        "('megadepth', 'synthpose', 'warp')}\n"
+        "print(len(names), bad, sorted(evals - set(names)))\n"
+        "sys.exit(1 if bad or len(names) < 30 or evals - set(names) "
+        "else 0)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
