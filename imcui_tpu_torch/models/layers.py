@@ -1,7 +1,9 @@
 """Building blocks of the serving path, on torch-layout parameters.
 
 Counterpart of ``imcui_tpu/models/layers.py`` (what SuperPoint, LightGlue,
-the ViT backbones and RoMa use). Parameters are plain dicts of tensors, conv kernels OIHW
+the ViT backbones, RoMa and the sparse extractors use; the pools and
+``selu`` of ALIKE and ALIKED are the extractors' own helpers in the JAX
+package). Parameters are plain dicts of tensors, conv kernels OIHW
 and linear weights ``(dout, din)`` (utils/weights.py). Activations of the
 conv layers are NCHW tensors, kept channels-last in memory where a kernel
 reads them as NHWC.
@@ -102,6 +104,14 @@ def batch_norm_inference(p, x, eps=1e-5):
     return y
 
 
+def instance_norm(x, eps=1e-5):
+    """Parameter-free instance norm over the spatial dims of (B, C, H, W)
+    (DISK's and XFeat's)."""
+    mean = x.mean((2, 3), keepdim=True)
+    var = ((x - mean) ** 2).mean((2, 3), keepdim=True)
+    return (x - mean) * torch.rsqrt(var + eps)
+
+
 def l2_normalize(x, dim=-1, eps=1e-8):
     return x / torch.linalg.vector_norm(x, dim=dim, keepdim=True).clamp_min(
         eps)
@@ -158,9 +168,20 @@ def leaky_relu(x, slope=0.01):
     return F.leaky_relu(x, slope)
 
 
-def max_pool(x):
-    """2×2 / stride-2 max-pool of (B, C, H, W)."""
-    return F.max_pool2d(x, 2, 2)
+def selu(x):
+    """Scaled ELU (torch's and ``jax.nn.selu``'s constants)."""
+    return F.selu(x)
+
+
+def max_pool(x, window=2, stride=2):
+    """window × window max-pool of (B, C, H, W) at ``stride``, VALID."""
+    return F.max_pool2d(x, window, stride)
+
+
+def avg_pool(x, k):
+    """k × k / stride-k average pool of (B, C, H, W), VALID: the window sum
+    over k², as ``lax.reduce_window`` with ``add`` and a division."""
+    return F.avg_pool2d(x, k, k)
 
 
 # ---------------------------------------------------------------------------

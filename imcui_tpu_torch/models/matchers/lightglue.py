@@ -22,6 +22,7 @@ from ...ops.attention import (NEG_INF, apply_rotary, bidirectional_attention,
 from ...utils import weights
 from ...utils.base_model import BaseModel
 from ..layers import full_fp32, gelu, layer_norm, linear
+from .nearest_neighbor import pair_masks, pair_sizes
 
 NUM_HEADS = 4
 # self-attention over more key slots than this takes the blockwise kernel
@@ -385,26 +386,10 @@ class LightGlue(BaseModel):
             desc0 = desc0.transpose(1, 2)
         if desc1.shape[1] != kpts1.shape[1]:
             desc1 = desc1.transpose(1, 2)
-        b = kpts0.shape[0]
-
-        def mask(key, n):
-            if data.get(key) is None:
-                return torch.ones((b, n), dtype=torch.bool, device=dev)
-            return torch.as_tensor(data[key], device=dev).bool()
-
-        def size(key_img, key_wh, kpts):
-            if key_wh in data:
-                return f32(data[key_wh])
-            img = data.get(key_img)
-            if img is not None and hasattr(img, "shape") \
-                    and len(img.shape) == 4:
-                h, w = img.shape[-2:]
-                return f32([[w, h]]).expand(b, 2)
-            return kpts[..., :2].amax(1) + 1.0  # the keypoints' extent
-
         args = (self.params, kpts0, kpts1, desc0, desc1,
-                mask("mask0", kpts0.shape[1]), mask("mask1", kpts1.shape[1]),
-                size("image0", "size0", kpts0), size("image1", "size1", kpts1))
+                *pair_masks(data, kpts0.shape[0], kpts0.shape[1],
+                            kpts1.shape[1], dev),
+                *pair_sizes(data, kpts0, kpts1))
         depth_confidence = float(self.conf.get("depth_confidence") or 0)
         if depth_confidence:
             return forward_pair_adaptive(

@@ -1,5 +1,9 @@
 """Keypoint detection ops: window NMS, border masking, fixed-k selection,
-sub-pixel refinement, descriptor sampling. Counterpart of ``imcui_tpu/ops/nms.py``.
+sub-pixel refinement, descriptor sampling (SuperPoint's on its 1/8 grid,
+``sample_bilinear`` on a full-resolution map for ALIKE and ALIKED).
+Counterpart of ``imcui_tpu/ops/nms.py``, but for its cell-max route of
+``select_topk_keypoints`` (``_select_topk_cellmax``), which no ported
+caller takes: bf16 SuperPoint selects through ``ops/cuda_nms.py``.
 
 Shapes stay fixed: ``k`` keypoint slots and a validity mask instead of a
 dynamic keypoint count.
@@ -109,6 +113,33 @@ def sample_descriptors(kpts, desc_map, s=8):
             + at(y1, x1) * (wx * wy))
     norm = torch.linalg.vector_norm(desc, dim=1, keepdim=True)
     return desc / norm.clamp_min(1e-8)
+
+
+def sample_bilinear(fmap, kpts):
+    """Bilinear interpolation of a full-resolution map at pixel
+    coordinates: torch ``grid_sample(..., align_corners=True)`` with
+    ALIKE's normalisation ``kpts / [w - 1, h - 1] * 2 - 1``, which maps a
+    pixel coordinate back to itself. Coordinates are clamped to the map.
+    fmap: (B, C, H, W); kpts: (B, k, 2) xy pixels → (B, C, k), not
+    normalised."""
+    b, c, h, w = fmap.shape
+    gx = kpts[..., 0].clamp(0.0, w - 1.0)
+    gy = kpts[..., 1].clamp(0.0, h - 1.0)
+    x0 = torch.floor(gx).long().clamp(0, w - 1)
+    y0 = torch.floor(gy).long().clamp(0, h - 1)
+    x1 = (x0 + 1).clamp(0, w - 1)
+    y1 = (y0 + 1).clamp(0, h - 1)
+    wx = (gx - x0)[:, None]
+    wy = (gy - y0)[:, None]
+    flat = fmap.reshape(b, c, h * w)
+
+    def at(yy, xx):
+        return torch.gather(flat, 2, (yy * w + xx)[:, None].expand(-1, c, -1))
+
+    return (at(y0, x0) * (1 - wx) * (1 - wy)
+            + at(y0, x1) * wx * (1 - wy)
+            + at(y1, x0) * (1 - wx) * wy
+            + at(y1, x1) * wx * wy)
 
 
 def depth_to_space(x, block):

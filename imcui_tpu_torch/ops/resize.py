@@ -17,8 +17,15 @@ kernel with a = −0.75 and does not antialias by default. Here, as in
 
 Each axis is one (n_out, n_in) weight matrix, built in float32 and cast
 to the input's dtype; an axis whose size does not change is left alone.
+
+``torch_interpolate`` is the other function of the JAX module, in the one
+mode the port calls (ALIKE's and ALIKED's feature aggregation): bilinear
+``F.interpolate`` with ``align_corners=True``, restated as the JAX
+function does it, two taps per output gathered along one axis at a time
+with float64 weights cast to the input's dtype.
 """
 
+import numpy as np
 import torch
 
 
@@ -72,3 +79,37 @@ def resize(x, size, method="bilinear", dims=(-2, -1)):
         out = torch.matmul(moved.float(), w.float().t()).to(x.dtype)
         x = out.movedim(-1, dim)
     return x
+
+
+def _axis_indices(n_in, n_out, align_corners):
+    """Source coordinate of each output sample along one axis (float64)."""
+    i = np.arange(n_out, dtype=np.float64)
+    if align_corners and n_out > 1:
+        return i * (n_in - 1) / (n_out - 1)
+    return (i + 0.5) * n_in / n_out - 0.5
+
+
+def torch_interpolate(x, size, mode="bilinear", align_corners=False):
+    """``F.interpolate(x, size, mode="bilinear", align_corners=True)`` for
+    ``x`` (..., H, W) (the JAX function takes channel-last (..., H, W,
+    C)); ``size`` = (H_out, W_out). The JAX function's other modes have no
+    caller in this package and raise."""
+    if mode != "bilinear" or not align_corners:
+        raise NotImplementedError(
+            f"torch_interpolate mode {mode!r} with align_corners="
+            f"{align_corners} is not ported (bilinear with align_corners="
+            "True is; the half-pixel bilinear resize is ``resize``)")
+    out = x
+    for axis, n_out in zip((x.dim() - 2, x.dim() - 1), size):
+        n_in = out.shape[axis]
+        src = _axis_indices(n_in, n_out, True)
+        base = np.clip(np.floor(src).astype(np.int64), 0, n_in - 1)
+        nxt = np.clip(base + 1, 0, n_in - 1)
+        shape = [1] * out.dim()
+        shape[axis] = n_out
+        t = torch.from_numpy(src - np.floor(src)).to(
+            device=out.device, dtype=out.dtype).reshape(shape)
+        lo = out.index_select(axis, torch.from_numpy(base).to(out.device))
+        hi = out.index_select(axis, torch.from_numpy(nxt).to(out.device))
+        out = lo * (1 - t) + hi * t
+    return out

@@ -12,7 +12,10 @@ and linear weights ``(din, dout)``. This package keeps torch's layouts:
 conv kernels OIHW ``(cout, cin, kh, kw)`` for ``F.conv2d`` and linear
 weights ``(dout, din)`` for ``F.linear``. Every 4-D leaf named ``w`` is a
 conv kernel and every 2-D leaf named ``w`` a linear weight (including
-LightGlue's ``posenc.Wr.w``); all other leaves keep their shape.
+LightGlue's ``posenc.Wr.w`` and SuperGlue's 1 × 1 Conv1d layers, which
+the JAX tree already holds as linears); all other leaves keep their
+shape: biases, norm statistics, PReLU gains and SuperGlue's scalar
+``bin_score``. A ``None`` leaf stays ``None``.
 """
 
 import os
@@ -49,14 +52,16 @@ def tree_from_flat(flat):
 
 
 def flatten_tree(tree, prefix=""):
-    """Nested dicts/lists → {dotted path: leaf}."""
+    """Nested dicts/lists → {dotted path: leaf}. A ``None`` leaf (a
+    placeholder, as DISK's absent last gate) has no entry, as in the JAX
+    package's ``save_tree_npz``."""
     out = {}
     items = tree.items() if isinstance(tree, dict) else enumerate(tree)
     for k, v in items:
         path = f"{prefix}.{k}" if prefix else str(k)
         if isinstance(v, (dict, list)):
             out.update(flatten_tree(v, path))
-        else:
+        elif v is not None:
             out[path] = v
     return out
 
@@ -73,7 +78,7 @@ def _map_leaves(tree, fn, name=None):
         return {k: _map_leaves(v, fn, k) for k, v in tree.items()}
     if isinstance(tree, list):
         return [_map_leaves(v, fn, name) for v in tree]
-    return fn(name, tree)
+    return None if tree is None else fn(name, tree)
 
 
 def params_from_jax(tree, device="cpu"):
@@ -98,7 +103,7 @@ def params_to_jax(tree):
             a = a.transpose(2, 3, 1, 0)
         elif name == "w" and a.ndim == 2:
             a = a.T
-        return np.ascontiguousarray(a)
+        return np.array(a, order="C")  # keeps a 0-d leaf 0-d
 
     return _map_leaves(tree, conv)
 
@@ -164,7 +169,7 @@ def _read_like(path, init, name, device):
         if isinstance(node, list):
             return [like(v, f"{prefix}.{i}" if prefix else str(i))
                     for i, v in enumerate(node)]
-        return flat[prefix]
+        return None if node is None else flat[prefix]
 
     return like(init, "")
 

@@ -1344,3 +1344,165 @@ def test_eval_pair_through_the_api_on_card(gen, tmp_path):
     assert res["mean_matches"] >= 50 and res["median_err_deg"] < 10.0, res
     assert attention.fused_attention.launches > before[0]
     assert attention.bidirectional_attention.launches > before[1]
+
+
+# --------------------------------------------------------------------------
+# the head of the sparse zoo (chip_smoke.py phase 10)
+# --------------------------------------------------------------------------
+
+def _to_cpu(model, card):
+    """``model`` (built on the CPU) on ``card``'s tree."""
+    model.params = weights.to_device(card.params, "cpu")
+    return model
+
+
+@pytest.mark.parametrize("name,cls,conf", [
+    ("disk", "DISK", {"max_keypoints": 1024}),
+    ("alike", "Alike", {"model_name": "alike-n", "max_keypoints": 1024}),
+    ("aliked", "ALIKED", {"model_name": "aliked-n16"}),
+    ("xfeat", "XFeat", {"max_keypoints": 1024, "keypoint_threshold": 0.015}),
+])
+def test_sparse_extractor_on_card_matches_cpu(gen, name, cls, conf):
+    """Each extractor of the zoo on its seeded random tree at its registry
+    widths on a 384 x 512 planted image: card against CPU, strict f32 on
+    both, the valid keypoint sets at IoU >= 0.98 within 0.01 px and the
+    descriptors at common keypoints within 1e-4."""
+    import importlib
+
+    import chip_smoke
+
+    mod = importlib.import_module(f"imcui_tpu_torch.models.extractors.{name}")
+    card = getattr(mod, cls)(conf)
+    assert card.meta["pretrained"] is False
+    cpu = _to_cpu(getattr(mod, cls)(conf, device="cpu"), card)
+    img = chip_smoke.synthetic_pair(110, 512, 384)[0]
+    data = {"image": img.transpose(2, 0, 1)[None].astype(np.float32) / 255,
+            "valid_wh": np.array([[500, 380]])}
+    if name == "xfeat":
+        data["image"] = data["image"].mean(1, keepdims=True)
+    out = []
+    for model in (card, cpu):
+        o = {k: v[0].cpu().numpy() for k, v in model(data).items()}
+        out.append((o["keypoints"][o["mask"]], o["descriptors"][:, o["mask"]]))
+    iou, ia, ib = chip_smoke.common_points(out[0][0], out[1][0], 1e-2)
+    assert len(out[1][0]) > 50 and iou >= 0.98, iou
+    assert np.abs(out[0][1][:, ia] - out[1][1][:, ib]).max() <= 1e-4
+
+
+def test_superglue_and_adalam_on_card_match_cpu(gen):
+    """SuperGlue at the registry's widths (18 layers, 50 iterations) on its
+    seeded random tree and AdaLAM, on 2 x (1024, 900) keypoint slots with
+    padded masks: the log assignment within 1e-4 of its largest valid
+    entry, and the same matches for AdaLAM (strict f32 on both)."""
+    from imcui_tpu_torch.models.matchers.adalam import AdaLAM
+    from imcui_tpu_torch.models.matchers.superglue import SuperGlue
+
+    rng = np.random.default_rng(9)
+    k0 = rng.uniform(0, [1024, 768], (2, 1024, 2)).astype(np.float32)
+    k1 = k0[:, :900] @ np.array([[1.02, 0.05], [-0.04, 0.98]], np.float32) \
+        + 5.0
+    d0 = rng.standard_normal((2, 256, 1024)).astype(np.float32)
+    d1 = d0[:, :, :900] + 0.2 * rng.standard_normal((2, 256, 900))
+    d0 /= np.linalg.norm(d0, axis=1, keepdims=True)
+    d1 = (d1 / np.linalg.norm(d1, axis=1, keepdims=True)).astype(np.float32)
+    data = {"keypoints0": k0, "keypoints1": k1.astype(np.float32),
+            "descriptors0": d0, "descriptors1": d1,
+            "scores0": rng.uniform(0, 1, (2, 1024)).astype(np.float32),
+            "scores1": rng.uniform(0, 1, (2, 900)).astype(np.float32),
+            "mask0": np.arange(1024)[None].repeat(2, 0) < [[1000], [1024]],
+            "mask1": np.arange(900)[None].repeat(2, 0) < [[900], [850]],
+            "size0": np.array([[1024, 768]] * 2, np.float32),
+            "size1": np.array([[1024, 768]] * 2, np.float32)}
+    card = SuperGlue({})
+    cpu = _to_cpu(SuperGlue({}, device="cpu"), card)
+    z = [m.log_assignment(data).cpu().numpy() for m in (card, cpu)]
+    v0 = np.pad(data["mask0"], ((0, 0), (0, 1)), constant_values=True)
+    v1 = np.pad(data["mask1"], ((0, 0), (0, 1)), constant_values=True)
+    valid = v0[:, :, None] & v1[:, None, :]
+    assert np.abs(z[0] - z[1])[valid].max() <= 1e-4 * max(
+        1.0, np.abs(z[1][valid]).max())
+    got, want = AdaLAM({})(data), AdaLAM({}, device="cpu")(data)
+    assert got["matches0"].device.type == "cuda"
+    np.testing.assert_array_equal(got["matches0"].cpu().numpy(),
+                                  want["matches0"].numpy())
+    assert (want["matches0"] > -1).sum() > 1000
+
+
+@pytest.mark.parametrize("cin,cout,h,w", [(32, 64, 96, 128),
+                                          (64, 64, 96, 128),
+                                          (64, 128, 24, 32),
+                                          (128, 128, 24, 32)])
+def test_deform_conv2d_on_card_matches_cpu(gen, cin, cout, h, w):
+    """ALIKED-n16's four deformable convs at the served 768 x 1024 canvas
+    (blocks 3 and 4 at 1/8 and 1/32), offsets clamped to ±max(h, w)/4 as
+    the model does: card against CPU within 1e-5 of the largest output."""
+    from imcui_tpu_torch.ops.deform import deform_conv2d
+
+    x = torch.randn((1, cin, h, w), generator=gen, device="cuda")
+    off = (torch.randn((1, 18, h, w), generator=gen, device="cuda") * 3
+           ).clamp(-max(h, w) / 4, max(h, w) / 4)
+    wt = torch.randn((cout, cin, 3, 3), generator=gen, device="cuda") * 0.1
+    with full_fp32():
+        got = deform_conv2d(x, off, wt)
+    want = deform_conv2d(x.cpu(), off.cpu(), wt.cpu())
+    assert float((got.cpu() - want).abs().max()) <= 1e-5 * max(
+        1.0, float(want.abs().max()))
+
+
+@pytest.mark.parametrize("mode", ["bicubic", "bilinear", "nearest"])
+def test_grid_sample_on_card_matches_cpu_at_the_xfeat_shapes(gen, mode):
+    """XFeat's 1/8 descriptor map of the served 1280 x 2048 canvas (64 x 160
+    x 256) sampled at 1024 keypoints through xfeat_grid, some on and past
+    the border: card against CPU within 1e-5."""
+    from imcui_tpu_torch.ops import sampling
+
+    fmap = torch.randn((64, 160, 256), generator=gen, device="cuda")
+    kp = torch.rand((1024, 2), generator=gen, device="cuda") \
+        * torch.tensor([2060.0, 1290.0], device="cuda") - 6.0
+    grid = sampling.xfeat_grid(kp, 1280, 2048)
+    got = sampling.grid_sample(fmap, grid, mode=mode)
+    want = sampling.grid_sample(fmap.cpu(), grid.cpu(), mode=mode)
+    assert got.shape == (64, 1024)
+    assert float((got.cpu() - want).abs().max()) <= 1e-5
+
+
+def test_adalam_zoo_entry_passes_the_gate_on_card(gen):
+    """The packaged zoo's superpoint+adalam (bf16 SuperPoint on the trained
+    tree, K6, K1 and K2) on chip_smoke.py phase 10's planted pairs: >= 50
+    inliers at a median transfer error <= 2 px on each."""
+    import chip_smoke
+
+    api = chip_smoke._zoo_api("superpoint+adalam", "cuda")
+    assert api.extractor.meta["pretrained"]
+    before = cuda_nms.nms_cellmax.launches
+    for seed in chip_smoke.Z_SEEDS:
+        img0, img1, hm = chip_smoke.synthetic_pair(seed, *chip_smoke.Z_SIZE)
+        pred = api(img0, img1)
+        err = chip_smoke.transfer_errors(hm, pred["mmkeypoints0_orig"],
+                                         pred["mmkeypoints1_orig"])
+        assert len(err) >= chip_smoke.GATE_MIN_INLIERS, (seed, len(err))
+        assert np.median(err) <= chip_smoke.GATE_MEDIAN_PX
+    assert cuda_nms.nms_cellmax.launches == before + 2 * len(
+        chip_smoke.Z_SEEDS)
+
+
+def test_aliked_lightglue_request_launches_k5_and_k4_held_to_plain(gen):
+    """The packaged zoo's aliked+lightglue on one planted 1600 x 1200 pair:
+    ALIKED serves 4096 slots (it reads max_num_keypoints, not the API's
+    max_keypoints), so LightGlue's self-attention takes K5 and its
+    cross-attention K4; each launch of the request held against its plain
+    version on its own tensors (chip_smoke.py's tolerances)."""
+    import chip_smoke
+
+    api = chip_smoke._zoo_api("aliked+lightglue", "cuda")
+    assert api.extractor._max_kpts == 4096
+    img0, img1, _ = chip_smoke.synthetic_pair(chip_smoke.Z_SEEDS[0],
+                                              *chip_smoke.Z_SIZE)
+    names = ("flash_attention", "bidirectional_attention", "fused_attention")
+    seen = chip_smoke._capture_kernel_args(lambda: api(img0, img1), names)
+    assert seen["flash_attention"] and seen["bidirectional_attention"]
+    assert not seen["fused_attention"]
+    assert seen["flash_attention"][0][0][0].shape[1] == 4096
+    checks = chip_smoke._check_served_kernels(
+        {n: c for n, c in seen.items() if c}, "aliked+lightglue request")
+    assert all(not c["over"] for cs in checks.values() for c in cs)

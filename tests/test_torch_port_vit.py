@@ -265,8 +265,9 @@ def test_grid_sample_matches_jax_with_out_of_range_taps():
     assert want16.dtype == jnp.float32 and got16.dtype == torch.float32
     np.testing.assert_allclose(got16.permute(1, 2, 0).numpy(),
                                np.asarray(want16), atol=1e-5)
-    with pytest.raises(NotImplementedError):
-        tsampling.grid_sample(tf, torch.from_numpy(grid), mode="bicubic")
+    # the bicubic and nearest modes: tests/test_torch_port_sparse_zoo.py
+    with pytest.raises(ValueError, match="unknown mode"):
+        tsampling.grid_sample(tf, torch.from_numpy(grid), mode="lanczos")
 
 
 # --------------------------------------------------------------------------
@@ -568,8 +569,9 @@ def test_dinov2_init_tree_and_pos_embed():
 
 def test_port_imports_no_jax_cv2_pil_or_jax_package():
     """Import every module of imcui_tpu_torch in a fresh interpreter (the
-    evaluations in imcui_tpu_torch/eval/ among them) and look at
-    sys.modules."""
+    evaluations in imcui_tpu_torch/eval/ and the sparse zoo's models among
+    them) and look at sys.modules: no JAX, cv2, PIL, h5py, triton or
+    torchvision."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import imcui_tpu_torch\n"
@@ -578,9 +580,14 @@ def test_port_imports_no_jax_cv2_pil_or_jax_package():
         "for n in names:\n"
         "    importlib.import_module(n)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'cv2', 'PIL', 'imcui_tpu', 'h5py', 'triton'))\n"
-        "evals = {'imcui_tpu_torch.eval.' + m for m in "
-        "('megadepth', 'synthpose', 'warp')}\n"
+        "('jax', 'jaxlib', 'cv2', 'PIL', 'imcui_tpu', 'h5py', 'triton', "
+        "'torchvision'))\n"
+        "evals = {'imcui_tpu_torch.' + m for m in "
+        "('eval.megadepth', 'eval.synthpose', 'eval.warp', 'ops.sinkhorn', "
+        "'ops.deform', 'models.matchers.superglue', "
+        "'models.matchers.adalam', 'models.extractors.aliked', "
+        "'models.extractors.disk', 'models.extractors.alike', "
+        "'models.extractors.xfeat')}\n"
         "print(len(names), bad, sorted(evals - set(names)))\n"
         "sys.exit(1 if bad or len(names) < 30 or evals - set(names) "
         "else 0)\n")
