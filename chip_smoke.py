@@ -81,19 +81,27 @@ Phases, each of which passes or ends the run with a non-zero exit:
      versions on its arguments, launch counts, seconds per pair, device
      busy and idle share), against the port's CPU run (raw-match IoU) and
      through loftr; evaluate_warp on the trained flagship;
- 10. the head of the sparse zoo: ImageMatchingAPI(device="cuda") on the
-     packaged app.yaml's superglue, superpoint+adalam, disk, alike,
-     aliked+lightglue and xfeat(sparse) at the API's defaults, one planted
-     1600x1200 pair each (seeded random trees but for SuperPoint's; ALIKED
-     serves 4096 slots, so LightGlue's self-attention takes K5): finite
-     outputs, every kernel launch of a request held against its plain
-     version on the request's tensors (the stem kernel, K1 and K2 for the
-     SuperPoint entries, K5 and K4 for aliked+lightglue), the counts of
-     three timed requests (a kernel launched and not held fails), ms per
-     request, device busy and idle share, the card against the port's CPU
-     run (keypoints, descriptors, raw matches, SuperGlue's log
-     assignment), and superpoint+adalam's planted-pair gate on three
-     pairs beside the JAX package's CPU numbers.
+ 10. the sparse zoo: ImageMatchingAPI(device="cuda") at the API's
+     defaults on one planted 1600x1200 pair each, seeded random trees but
+     for SuperPoint's: the packaged app.yaml's superglue,
+     superpoint+adalam, disk, alike, aliked+lightglue, xfeat(sparse),
+     xfeat(dense), dedode and rord, the root config/app.yaml's
+     xfeat+lightglue, superpoint+sphereglue, d2net, sfd2+imp and sfd2+mnn,
+     and the registry's disk + sgmnet (ALIKED and the standalone
+     xfeat+lightglue serve 4096 slots, so LightGlue's self-attention takes
+     K5): finite outputs, every kernel launch of a request held against
+     its plain version on the request's tensors (the stem kernel, K1 and
+     K2 for the SuperPoint entries, K5 and K4 for the LightGlue entries),
+     the counts of three timed requests (a kernel launched and not held
+     fails; K5 and K4 once each per LightGlue layer run), ms per request,
+     device busy and idle share, the ATen operations of a request and
+     their float32 bound, the card against the port's CPU run (keypoints,
+     descriptors, raw matches with the random learned matchers at
+     threshold 1e-6, the graph matchers also on the card's inputs,
+     SuperGlue's log assignment; DeDoDe at resize_max 320, D2-Net, RoRD
+     and DISK + SGMNet at 640 on both devices), and superpoint+adalam's
+     planted-pair gate on three pairs beside the JAX package's CPU
+     numbers.
 Near the end it prints one JSON line {"timing": ...}, one {"kernels":
 [...]} and the card's name and power limit; the last line is {"ok": true,
 "device": {...}}. Without a CUDA device, or without the rest of the
@@ -262,8 +270,53 @@ EVAL_KERNELS = SERVED_KERNELS + ("fused_attention", "bidirectional_attention")
 # (1024 keypoints at 0.015, which ALIKED does not read: it serves 4096 at
 # 0.2, so LightGlue's self-attention takes K5) on planted pairs of Z_SIZE,
 # on seeded random trees but for SuperPoint's.
+# Then the sparse zoo on parts already ported: the packaged xfeat(dense),
+# dedode and rord, the root config/app.yaml's xfeat+lightglue (standalone:
+# XFeat keeps its 4096 slots, so LightGlue's self-attention takes K5),
+# superpoint+sphereglue (bf16 superpoint_max: the stem kernel, K1 and K2),
+# d2net, sfd2+imp and sfd2+mnn, and the registry's disk + sgmnet, all on
+# seeded random trees but for SuperPoint's.
 Z_ENTRIES = ("superglue", "superpoint+adalam", "disk", "alike",
-             "aliked+lightglue", "xfeat(sparse)")
+             "aliked+lightglue", "xfeat(sparse)", "xfeat(dense)", "dedode",
+             "rord", "xfeat+lightglue", "superpoint+sphereglue", "d2net",
+             "sfd2+imp", "sfd2+mnn", "disk+sgmnet")
+# where an entry's conf comes from: the packaged zoo
+# (imcui_tpu_torch/config/app.yaml) unless named here; "registry" joins
+# the feature and matcher names of the key with parse_match_config
+Z_SOURCE = {"xfeat+lightglue": "root", "superpoint+sphereglue": "root",
+            "d2net": "root", "sfd2+imp": "root", "sfd2+mnn": "root",
+            "disk+sgmnet": "registry"}
+# The kernels each entry must launch on every request.
+Z_EXPECTED = {"superglue": SERVED_KERNELS,
+              "superpoint+adalam": SERVED_KERNELS,
+              "superpoint+sphereglue": SERVED_KERNELS,
+              "aliked+lightglue": ("flash_attention",
+                                   "bidirectional_attention"),
+              "xfeat+lightglue": ("flash_attention",
+                                  "bidirectional_attention")}
+# The entries whose learned matcher decodes few or no matches at its
+# threshold on a random tree: their card-against-CPU check runs the matcher
+# at Z_LOW_THRESHOLD on both devices, where every mutual arg-max counts.
+Z_LOW = ("dedode", "xfeat+lightglue", "superpoint+sphereglue", "sfd2+imp",
+         "disk+sgmnet")
+Z_LOW_THRESHOLD = 1e-6
+# The graph matchers are also held on the same inputs, the card's
+# features fed to both devices' matcher at Z_LOW_THRESHOLD: the share of
+# view-0 slots whose match agrees, against the f32 raw-match bound.
+# Behind bf16 SuperPoint the pair's raw matches are not gated: the two
+# devices' features differ in ~3 % of keypoints (the bf16 bound's IoU),
+# and SphereGlue's kNN graph and Chebyshev filter carry each difference
+# to the neighbours of that keypoint (raw-match IoU 0.85 at 1e-6 on pair
+# 100 on an NVIDIA H100 80GB HBM3), so that check would hold the
+# extractor's rounding, which the keypoint and descriptor bounds hold.
+Z_SAME_INPUTS = ("superpoint+sphereglue", "sfd2+imp", "disk+sgmnet")
+Z_PAIR_UNGATED = ("superpoint+sphereglue",)
+# The card-against-CPU check of these entries runs at this resize_max on
+# both devices (their timed requests run at full size): at the full 1280 x
+# 2048 canvas DeDoDe's CPU run would cost ~72 TFLOP, and D2-Net's (RoRD's)
+# and DISK's CPU runs take 26-35 s an entry on an 8-core host.
+Z_CPU_RESIZE = {"dedode": 320, "d2net": 640, "rord": 640,
+                "disk+sgmnet": 640}
 Z_SEEDS = (100, 101, 102)
 Z_SIZE = (1600, 1200)
 # superpoint+adalam runs on the trained SuperPoint and must pass the gate
@@ -2938,15 +2991,63 @@ def _check_served_kernels(seen, what="served request"):
     return out
 
 
-def _zoo_api(key, device):
-    """ImageMatchingAPI on ``device`` for the packaged zoo's entry ``key``
-    (imcui_tpu_torch/config/app.yaml), at the API's defaults."""
-    from imcui_tpu_torch.api.core import ImageMatchingAPI
+def _zoo_conf(key):
+    """The conf of the zoo entry ``key`` (Z_SOURCE says from where)."""
     from imcui_tpu_torch.ui import utils as ui
 
-    zoo = ui.get_matcher_zoo(ui.load_config(os.path.join(
-        ROOT, "imcui_tpu_torch", "config", "app.yaml"))["matcher_zoo"])
-    return ImageMatchingAPI(zoo[key], device=device)
+    src = Z_SOURCE.get(key, "packaged")
+    if src == "registry":
+        feature, matcher = key.split("+")
+        return ui.parse_match_config({"feature": feature, "matcher": matcher,
+                                      "dense": False})
+    where = ("imcui_tpu_torch", "config") if src == "packaged" else (
+        "config",)
+    return ui.get_matcher_zoo(ui.load_config(os.path.join(
+        ROOT, *where, "app.yaml"))["matcher_zoo"])[key]
+
+
+def _zoo_api(key, device):
+    """ImageMatchingAPI on ``device`` for the zoo entry ``key``, at the
+    API's defaults."""
+    from imcui_tpu_torch.api.core import ImageMatchingAPI
+
+    return ImageMatchingAPI(_zoo_conf(key), device=device)
+
+
+def _feature_model(api):
+    """The model that detects: the API's extractor, or the extractor
+    inside a standalone XFeat pipeline."""
+    return api.extractor if api.extractor is not None else \
+        api.matcher.extractor
+
+
+def _set_threshold(api, value):
+    """``match_threshold`` of the matcher and of every model inside it."""
+    for mod in api.matcher.modules():
+        if "match_threshold" in getattr(mod, "conf", {}):
+            mod.conf["match_threshold"] = value
+
+
+def _copy_trees(src, dst):
+    """Every parameter tree of the model ``src`` (and the models inside
+    it) into the same place of ``dst``, on the CPU."""
+    from imcui_tpu_torch.utils import weights
+
+    for a, b in zip(src.modules(), dst.modules()):
+        if getattr(a, "params", None) is not None:
+            b.params = weights.to_device(a.params, "cpu")
+
+
+def zoo_flops(run):
+    """Floating-point operations of the ATen calls (convolutions and
+    matrix products) ``run`` makes, by torch's FlopCounterMode: the
+    hand-written kernels' work is not in it."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    counter = FlopCounterMode(display=False)
+    with counter:
+        run()
+    return counter.get_total_flops()
 
 
 def _wrappers(names=ALL_KERNELS):
@@ -2962,19 +3063,29 @@ def _wrappers(names=ALL_KERNELS):
 def _zoo_card_vs_cpu(key, api, img0, img1):
     """The entry on the card against the port's CPU run on the same tree
     and image: the extraction of view 0 (keypoint IoU within Z_KPT_PX,
-    descriptors at the common keypoints), the raw matches of the pair, and
-    for SuperGlue its log assignment on the card's matcher inputs."""
+    descriptors at the common keypoints), the raw matches of the pair
+    (Z_LOW's learned matchers at Z_LOW_THRESHOLD on both devices), and
+    for SuperGlue its log assignment on the card's matcher inputs, for
+    Z_SAME_INPUTS the matcher on the card's inputs. Z_CPU_RESIZE's entries
+    run at a cut resize_max on both devices."""
     import torch
 
     from imcui_tpu_torch.pipeline import extract_features
-    from imcui_tpu_torch.utils import weights
 
     cpu = _zoo_api(key, "cpu")
-    cpu.extractor.params = weights.to_device(api.extractor.params, "cpu")
-    if hasattr(api.matcher, "params"):
-        cpu.matcher.params = weights.to_device(api.matcher.params, "cpu")
-    pre = api.extract_conf["preprocessing"]
-    feats = [extract_features.extract(a.extractor, img0, pre)
+    for a, c in ((api.extractor, cpu.extractor), (api.matcher, cpu.matcher)):
+        if a is not None:
+            _copy_trees(a, c)
+    conf = api.match_conf if api.extractor is None else api.extract_conf
+    pre = dict(conf.get("preprocessing", {}))
+    if key in Z_CPU_RESIZE:
+        pre["resize_max"] = Z_CPU_RESIZE[key]
+        for a in (api, cpu):
+            a.extract_conf["preprocessing"] = pre
+    if key in Z_LOW:
+        for a in (api, cpu):
+            _set_threshold(a, Z_LOW_THRESHOLD)
+    feats = [extract_features.extract(_feature_model(a), img0, pre)
              for a in (api, cpu)]
     kp = [f["keypoints"][0][f["mask"][0]] for f in feats]
     iou, ia, ib = common_points(kp[0], kp[1], Z_KPT_PX)
@@ -2986,9 +3097,19 @@ def _zoo_card_vs_cpu(key, api, img0, img1):
         lambda mod, args: captured.update(data=args[0]))
     preds = [a(img0, img1) for a in (api, cpu)]
     hook.remove()
-    out = {"kpt_iou": iou, "desc_err": derr,
+    out = {"kpt_iou": iou, "desc_err": derr, "keypoints": [len(k) for k in kp],
            "match_iou": raw_match_iou(preds[0], preds[1], S_TOL_PX),
-           "raw_matches": [len(p["mkeypoints0_orig"]) for p in preds]}
+           "raw_matches": [len(p["mkeypoints0_orig"]) for p in preds],
+           "resize_max": pre.get("resize_max"),
+           "match_threshold": Z_LOW_THRESHOLD if key in Z_LOW else None}
+    if key in Z_SAME_INPUTS:
+        data = captured["data"]
+        m = [a.matcher(data)["matches0"][0].cpu().numpy() for a in (api, cpu)]
+        valid = np.asarray(data["mask0"][0]).astype(bool)
+        out["same_inputs_agree"] = float((m[0] == m[1])[valid].mean())
+        out["same_inputs_matches"] = [int((x[valid] > -1).sum()) for x in m]
+    if key == "superpoint+sphereglue":
+        out.update(_sphere_graphs(captured["data"]))
     if key == "superglue":
         data = captured["data"]
         z = [m.log_assignment(data).float().cpu().numpy()
@@ -3006,39 +3127,63 @@ def _zoo_card_vs_cpu(key, api, img0, img1):
     return out
 
 
-def phase10():
-    """The head of the sparse zoo on the card: each Z_ENTRIES entry of the
-    packaged app.yaml through ImageMatchingAPI at the API's defaults on a
-    planted Z_SIZE pair: finite outputs of the expected shape, each kernel
-    the request launches held against its plain version on the request's
-    own tensors, every count at 0 before three timed requests and read
-    after (a launch of a kernel that was not held fails), ms per request,
-    device busy and idle share, the card against the port's CPU run, and
-    superpoint+adalam's gate on every pair of Z_SEEDS. Returns (launches
-    of the main path, measurements)."""
+def _sphere_graphs(data):
+    """SphereGlue's kNN graph of view 0 on the card and the CPU. From the
+    same cosines (the card's ``dots``) the two must be equal; from each
+    device's own ``xyz @ xyzᵀ`` a last-bit difference can move a row's
+    KNN-th neighbour, so those rows are counted, not gated."""
+    import torch
+
+    from imcui_tpu_torch.models.layers import full_fp32
+    from imcui_tpu_torch.models.matchers import sphereglue as sg
+    from imcui_tpu_torch.models.matchers.nearest_neighbor import pair_sizes
+
+    dots = {}
+    for dev in ("cuda", "cpu"):
+        kp = torch.as_tensor(data["keypoints0"], dtype=torch.float32,
+                             device=dev)
+        mask = torch.as_tensor(data["mask0"], device=dev).bool()
+        xyz = sg.to_sphere(kp, pair_sizes(data, kp, kp)[0])
+        with full_fp32():
+            dots[dev] = sg.masked_dots(xyz, mask)
+    card = sg.knn_adjacency(dots["cuda"]).cpu()
+    same = sg.knn_adjacency(dots["cuda"].cpu())
+    own = sg.knn_adjacency(dots["cpu"])
+    return {"graph_equal_from_same_dots": bool(torch.equal(card, same)),
+            "graph_rows_differ_from_own_dots": int(
+                (card != own).any(-1).sum())}
+
+
+def phase10(peaks):
+    """The sparse zoo on the card: each Z_ENTRIES entry through
+    ImageMatchingAPI at the API's defaults on a planted Z_SIZE pair: finite
+    outputs of the expected shape, each kernel the request launches held
+    against its plain version on the request's own tensors, every count at
+    0 before three timed requests and read after (a launch of a kernel that
+    was not held fails; LightGlue's K5 and K4 once each per layer it ran),
+    ms per request, device busy and idle share, the ATen operations of one
+    request and their float32 bound, the card against the port's CPU run,
+    and superpoint+adalam's gate on every pair of Z_SEEDS. Returns
+    (launches of the main path, measurements)."""
     import torch
 
     t_phase = time.perf_counter()
     pairs = [synthetic_pair(seed, *Z_SIZE) for seed in Z_SEEDS]
     fns = _wrappers()
-    expected = {"superglue": SERVED_KERNELS,
-                "superpoint+adalam": SERVED_KERNELS,
-                "aliked+lightglue": ("flash_attention",
-                                     "bidirectional_attention")}
     capture = SERVED_KERNELS + ("fused_attention", "bidirectional_attention",
                                 "flash_attention")
     launches, out = {}, {}
     for key in Z_ENTRIES:
         t0 = time.perf_counter()
         api = _zoo_api(key, "cuda")
-        ext, mat = api.extractor, api.matcher
-        cap = getattr(ext, "_max_kpts", ext.conf.get("max_keypoints"))
-        log(f"  {key}: {type(ext).__name__} {ext.conf} (keypoint slots "
-            f"{cap}), weights {ext.meta}; {type(mat).__name__} {mat.conf}, "
+        feat, mat = _feature_model(api), api.matcher
+        cap = getattr(feat, "_max_kpts", feat.conf.get("max_keypoints"))
+        log(f"  {key}: {type(feat).__name__} {feat.conf} (keypoint slots "
+            f"{cap}), weights {feat.meta}; {type(mat).__name__} {mat.conf}, "
             f"weights {mat.meta}; built in {time.perf_counter() - t0:.1f} s")
-        if key == "aliked+lightglue" and cap != 4096:
-            fail(f"{key}: ALIKED serves {cap} slots, not the 4096 its conf "
-                 f"gives (max_num_keypoints -1)")
+        if key in ("aliked+lightglue", "xfeat+lightglue") and cap != 4096:
+            fail(f"{key}: the extractor serves {cap} slots, not the 4096 its "
+                 f"conf gives")
         img0, img1, hm = pairs[0]
         api(img0, img1)  # warm-up: cuDNN's choices, the allocator
         seen = _capture_kernel_args(lambda: api(img0, img1), capture)
@@ -3046,6 +3191,14 @@ def phase10():
         checks = _check_served_kernels(seen, f"{key} request") if seen \
             else {}
         del seen
+        # what the timed requests detect and how deep LightGlue runs
+        found, stops = [], []
+        hooks = [feat.register_forward_hook(lambda m, a, o: found.append(
+            int(o["mask"][0].sum())))]
+        hooks += [m.register_forward_hook(lambda m, a, o: stops.append(
+            int(o["stop_layer"].sum()) if "stop_layer" in o
+            else len(m.params["transformers"])))
+            for m in mat.modules() if type(m).__name__ == "LightGlue"]
         for fn in fns.values():
             fn.launches = 0
         ms = []
@@ -3056,37 +3209,49 @@ def phase10():
             torch.cuda.synchronize()
             ms.append((time.perf_counter() - t1) * 1e3)
         got = {n: fn.launches for n, fn in fns.items() if fn.launches}
+        for h in hooks:
+            h.remove()
         for n, c in got.items():
             launches[n] = launches.get(n, 0) + c
         if set(got) - set(checks):
             fail(f"{key}: launched {sorted(set(got) - set(checks))} without "
                  f"holding it against its plain version")
-        missing = [n for n in expected.get(key, ()) if not got.get(n)]
+        missing = [n for n in Z_EXPECTED.get(key, ()) if not got.get(n)]
         if missing:
             fail(f"{key}: the request launched no {missing}")
+        if stops and "flash_attention" in Z_EXPECTED.get(key, ()) and not (
+                got.get("flash_attention") == got.get(
+                    "bidirectional_attention") == sum(stops)):
+            fail(f"{key}: K5 {got.get('flash_attention')} and K4 "
+                 f"{got.get('bidirectional_attention')} launches, not one each "
+                 f"per layer run ({sum(stops)} layers in 3 requests)")
         for k in ("keypoints0_orig", "keypoints1_orig", "mkeypoints0_orig",
                   "mkeypoints1_orig", "mconf"):
             v = np.asarray(pred[k])
             if not np.isfinite(v).all() or (v.ndim == 2 and v.shape[1] != 2):
                 fail(f"{key}: {k} is not finite or not (n, 2): {v.shape}")
-        if not len(pred["keypoints0_orig"]) or len(pred["keypoints0_orig"]) \
-                > cap:
-            fail(f"{key}: {len(pred['keypoints0_orig'])} keypoints in {cap} "
-                 f"slots")
+        if not found or min(found) < 1 or max(found) > cap:
+            fail(f"{key}: {found} keypoints in {cap} slots")
         med = float(np.median(ms))
         busy, evs = device_window(lambda i: api(img0, img1), 2)
+        flops = zoo_flops(lambda: api(img0, img1))
         res = {"ms_per_request": med, "ms_runs": ms,
                "device_busy_ms": busy, "device_idle_share": 1 - busy / med,
-               "keypoints": [len(pred["keypoints0_orig"]),
-                             len(pred["keypoints1_orig"])],
+               "keypoints": found[-2:],
                "raw_matches": len(pred["mkeypoints0_orig"]),
                "launches_per_request": {n: c / 3 for n, c in got.items()},
+               "lightglue_layers": stops,
+               "aten_tflop": flops / 1e12,
+               "aten_fp32_bound_ms": flops / peaks["fp32"] * 1e3,
                "kernel_checks": checks}
         log(f"  {key}: {med:.2f} ms per request (median of 3 after a "
             f"warm-up; {[round(m, 2) for m in ms]}), device busy "
             f"{busy:.2f} ms, idle share {res['device_idle_share']:.3f}; "
             f"{res['keypoints']} keypoints, {res['raw_matches']} raw matches;"
-            f" launches per request {res['launches_per_request']}; top "
+            f" launches per request {res['launches_per_request']}"
+            + (f" (LightGlue layers run {stops})" if stops else "")
+            + f"; ATen work {res['aten_tflop']:.4f} TFLOP a request, "
+            f"{res['aten_fp32_bound_ms']:.2f} ms at the float32 peak; top "
             f"device time per request:")
         for e in sorted(evs, key=lambda e: e.self_device_time_total,
                         reverse=True)[:5]:
@@ -3113,23 +3278,45 @@ def phase10():
             res["gate"] = gates
 
         vs = _zoo_card_vs_cpu(key, api, img0, img1)
-        b = Z_BOUNDS["bf16" if key in ("superglue", "superpoint+adalam")
-                     else "f32"]
-        log(f"  {key}: card against CPU on pair {Z_SEEDS[0]}: keypoint IoU "
-            f"{vs['kpt_iou']:.4f} (bound {b['kpt_iou']}), descriptors within "
+        b = Z_BOUNDS["bf16" if key.startswith("superpoint") or key ==
+                     "superglue" else "f32"]
+        log(f"  {key}: card against CPU on pair {Z_SEEDS[0]}"
+            + (f" at resize_max {vs['resize_max']}" if key in Z_CPU_RESIZE
+               else "")
+            + (f", the matcher at threshold {vs['match_threshold']:g}"
+               if vs["match_threshold"] is not None else "")
+            + f": keypoint IoU {vs['kpt_iou']:.4f} (bound {b['kpt_iou']}; "
+            f"keypoints {vs['keypoints']}), descriptors within "
             f"{vs['desc_err']:.3g} at the common keypoints (bound "
             f"{b['desc']}), raw-match IoU {vs['match_iou']:.4f} (bound "
             f"{b['match_iou']}; raw matches {vs['raw_matches']})"
+            + (" (not gated: Z_PAIR_UNGATED)" if key in Z_PAIR_UNGATED
+               else "")
+            + (f", the matcher on the card's inputs agrees on "
+               f"{vs['same_inputs_agree']:.4f} of view 0's slots (bound "
+               f"{Z_BOUNDS['f32']['match_iou']}; matches "
+               f"{vs['same_inputs_matches']})"
+               if "same_inputs_agree" in vs else "")
+            + (f", kNN graphs from the same cosines equal: "
+               f"{vs['graph_equal_from_same_dots']} (rows that differ from "
+               f"each device's own cosines: "
+               f"{vs['graph_rows_differ_from_own_dots']})"
+               if "graph_equal_from_same_dots" in vs else "")
             + (f", log assignment within {vs['log_assignment_err']:.3g} of "
                f"the largest (bound {Z_BOUNDS['log_assignment']})"
                if "log_assignment_err" in vs else ""))
         if vs["kpt_iou"] < b["kpt_iou"] or vs["desc_err"] > b["desc"] or (
-                max(vs["raw_matches"]) and vs["match_iou"] < b["match_iou"]) \
+                max(vs["raw_matches"]) and vs["match_iou"] < b["match_iou"]
+                and key not in Z_PAIR_UNGATED) \
+                or vs.get("same_inputs_agree", 1.0) < Z_BOUNDS["f32"][
+                    "match_iou"] \
+                or not vs.get("graph_equal_from_same_dots", True) \
                 or vs.get("log_assignment_err", 0) > Z_BOUNDS[
                     "log_assignment"]:
             fail(f"{key}: the card and the CPU disagree: {vs}")
         res["card_vs_cpu"] = vs
         res["seconds"] = time.perf_counter() - t0
+        log(f"  {key}: {res['seconds']:.1f} s")
         out[key] = res
         del api
         torch.cuda.empty_cache()
@@ -3516,9 +3703,9 @@ def main():
     log("phase 9: pose and evaluation (the planted chain, PnP, eval pose on "
         "the flagship, loftr, evaluate_warp)")
     launches_eval, timing["eval"] = phase9()
-    log("phase 10: the head of the sparse zoo (ImageMatchingAPI on the "
-        f"packaged app.yaml's {', '.join(Z_ENTRIES)})")
-    launches_zoo, timing["zoo"] = phase10()
+    log("phase 10: the sparse zoo (ImageMatchingAPI on "
+        f"{', '.join(Z_ENTRIES)})")
+    launches_zoo, timing["zoo"] = phase10(peaks)
     for r in rows:
         by_path = {
             "turbo": launches.get(r["name"], 0),

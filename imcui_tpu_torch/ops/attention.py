@@ -24,11 +24,15 @@ from . import _build
 NEG_INF = -1e9
 
 
-def mha(q, k, v, mask_k=None):
+def mha(q, k, v, mask_k=None, bias=None):
     """Masked multi-head attention. q: (..., Nq, Dh), k/v: (..., Nk, Dh);
-    mask_k: bool broadcastable to (..., 1, Nk)."""
+    mask_k: bool broadcastable to (..., 1, Nk); bias: an additive term of
+    the logits broadcastable to (..., Nq, Nk) (IMP's epipolar gate), added
+    before the mask, as in the JAX function."""
     dh = q.shape[-1]
     logits = torch.matmul(q, k.transpose(-1, -2)) / (dh ** 0.5)
+    if bias is not None:
+        logits = logits + bias
     if mask_k is not None:
         logits = torch.where(mask_k, logits, logits.new_tensor(NEG_INF))
     return torch.matmul(torch.softmax(logits, -1), v)

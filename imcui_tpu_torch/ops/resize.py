@@ -18,11 +18,23 @@ kernel with a = −0.75 and does not antialias by default. Here, as in
 Each axis is one (n_out, n_in) weight matrix, built in float32 and cast
 to the input's dtype; an axis whose size does not change is left alone.
 
-``torch_interpolate`` is the other function of the JAX module, in the one
-mode the port calls (ALIKE's and ALIKED's feature aggregation): bilinear
-``F.interpolate`` with ``align_corners=True``, restated as the JAX
-function does it, two taps per output gathered along one axis at a time
-with float64 weights cast to the input's dtype.
+``torch_interpolate`` is the other function of the JAX module:
+``F.interpolate`` semantics restated as the JAX function does it, one
+axis at a time with taps gathered along it and float64 weights cast to
+the input's dtype:
+
+- ``"bicubic"``: the cubic kernel with a = −0.75 (torch's, not the
+  Keys a = −0.5 of ``resize``), four taps an output, indices clamped to
+  the edge (replicate);
+- ``"nearest"``: torch's legacy nearest, the source index
+  floor(i · n_in / n_out);
+- ``"bilinear"`` with ``align_corners=True``: two taps an output;
+- ``"bilinear"`` with ``align_corners=False``: the JAX function calls
+  ``jax.image.resize``, which antialiases when an axis shrinks, so it is
+  ``resize(x, size, "bilinear")`` here, not ``F.interpolate``.
+
+``align_corners`` moves the bicubic taps as it does in torch; nearest
+ignores it, as the JAX function does.
 """
 
 import numpy as np
@@ -89,27 +101,66 @@ def _axis_indices(n_in, n_out, align_corners):
     return (i + 0.5) * n_in / n_out - 0.5
 
 
+def _cubic_weights(src, a=-0.75):
+    """Per-output base index and (n_out, 4) cubic weights of the taps at
+    offsets -1..2 (float64)."""
+    base = np.floor(src).astype(np.int64)
+    t = src - base
+    ax = np.abs(np.stack([t + 1.0, t, 1.0 - t, 2.0 - t], -1))
+    w = np.where(ax <= 1.0,
+                 (a + 2.0) * ax ** 3 - (a + 3.0) * ax ** 2 + 1.0,
+                 a * ax ** 3 - 5.0 * a * ax ** 2 + 8.0 * a * ax - 4.0 * a)
+    return base, w
+
+
+def _take(x, axis, idx):
+    return x.index_select(axis, torch.from_numpy(idx).to(x.device))
+
+
+def _along(x, axis, weights):
+    """A float64 weight vector as x's dtype, shaped to scale ``axis``."""
+    shape = [1] * x.dim()
+    shape[axis] = len(weights)
+    return torch.from_numpy(np.ascontiguousarray(weights)).to(
+        device=x.device, dtype=x.dtype).reshape(shape)
+
+
 def torch_interpolate(x, size, mode="bilinear", align_corners=False):
-    """``F.interpolate(x, size, mode="bilinear", align_corners=True)`` for
-    ``x`` (..., H, W) (the JAX function takes channel-last (..., H, W,
-    C)); ``size`` = (H_out, W_out). The JAX function's other modes have no
-    caller in this package and raise."""
-    if mode != "bilinear" or not align_corners:
-        raise NotImplementedError(
-            f"torch_interpolate mode {mode!r} with align_corners="
-            f"{align_corners} is not ported (bilinear with align_corners="
-            "True is; the half-pixel bilinear resize is ``resize``)")
+    """``F.interpolate(x, size, mode, align_corners)`` as the JAX function
+    computes it, for ``x`` (..., H, W) (the JAX function takes
+    channel-last (..., H, W, C)); ``size`` = (H_out, W_out); ``mode`` one
+    of bicubic, nearest and bilinear (see the module docstring)."""
+    axes = (x.dim() - 2, x.dim() - 1)
+    if mode == "bicubic":
+        out = x
+        for axis, n_out in zip(axes, size):
+            n_in = out.shape[axis]
+            base, w = _cubic_weights(_axis_indices(n_in, n_out,
+                                                   align_corners))
+            acc = None
+            for tap in range(4):
+                idx = np.clip(base + tap - 1, 0, n_in - 1)
+                term = _take(out, axis, idx) * _along(out, axis, w[:, tap])
+                acc = term if acc is None else acc + term
+            out = acc
+        return out
+    if mode == "nearest":
+        out = x
+        for axis, n_out in zip(axes, size):
+            n_in = out.shape[axis]
+            out = _take(out, axis, np.floor(
+                np.arange(n_out) * n_in / n_out).astype(np.int64))
+        return out
+    if mode != "bilinear":
+        raise ValueError(f"unknown mode {mode}")
+    if not align_corners:
+        return resize(x, size, "bilinear")
     out = x
-    for axis, n_out in zip((x.dim() - 2, x.dim() - 1), size):
+    for axis, n_out in zip(axes, size):
         n_in = out.shape[axis]
         src = _axis_indices(n_in, n_out, True)
         base = np.clip(np.floor(src).astype(np.int64), 0, n_in - 1)
         nxt = np.clip(base + 1, 0, n_in - 1)
-        shape = [1] * out.dim()
-        shape[axis] = n_out
-        t = torch.from_numpy(src - np.floor(src)).to(
-            device=out.device, dtype=out.dtype).reshape(shape)
-        lo = out.index_select(axis, torch.from_numpy(base).to(out.device))
-        hi = out.index_select(axis, torch.from_numpy(nxt).to(out.device))
-        out = lo * (1 - t) + hi * t
+        t = _along(out, axis, src - np.floor(src))
+        out = _take(out, axis, base) * (1 - t) + _take(out, axis, nxt) * t
     return out

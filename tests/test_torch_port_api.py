@@ -82,7 +82,7 @@ def test_merge_confs_and_dynamic_load():
     assert tbase.dynamic_load(textractors, "superpoint") is SuperPoint
     assert tbase.dynamic_load(tmatchers, "lightglue") is LightGlue
     with pytest.raises(NotImplementedError, match="not ported"):
-        tbase.dynamic_load(tmatchers, "sgmnet")
+        tbase.dynamic_load(tmatchers, "gluestick")
     assert tmodels.__name__ == "imcui_tpu_torch.models"
 
 

@@ -1,6 +1,6 @@
 """The head of the sparse zoo in the port against the JAX package on the
 CPU: ``ops/deform.py``, ``ops/nms.py::sample_bilinear``,
-``ops/resize.py::torch_interpolate``, the bicubic and nearest modes of
+``ops/resize.py::torch_interpolate`` in every mode, the bicubic and nearest modes of
 ``ops/sampling.py::grid_sample`` and ``xfeat_grid``, and the DISK,
 ALIKED, ALIKE and XFeat extractors; then the zoo entries ``disk``,
 ``alike``, ``aliked+lightglue`` and ``xfeat(sparse)`` end to end through
@@ -115,27 +115,40 @@ def test_sample_bilinear_matches_jax_inside_on_and_past_the_border():
     np.testing.assert_allclose(got[0, :, 1].numpy(), fmap[8, 11], atol=1e-6)
 
 
+@pytest.mark.parametrize("mode,align", [("bilinear", True),
+                                        ("bilinear", False),
+                                        ("bicubic", False), ("bicubic", True),
+                                        ("nearest", False)])
 @pytest.mark.parametrize("src,dst", [((5, 7), (40, 56)), ((9, 16), (9, 32)),
                                      ((20, 30), (7, 11)), ((3, 4), (96, 128))])
-def test_torch_interpolate_matches_jax(src, dst):
-    """Bilinear with align_corners=True (ALIKE's and ALIKED's upsampling)
-    against the JAX function and F.interpolate; the modes without a
-    caller raise."""
+def test_torch_interpolate_matches_jax(src, dst, mode, align):
+    """Every mode of the JAX function, up- and down-sampling: bilinear with
+    align_corners=True (ALIKE's and ALIKED's upsampling) and bicubic
+    (DeDoDe's) and nearest against the JAX function and F.interpolate;
+    half-pixel bilinear (DeDoDe's context, which the JAX function sends to
+    jax.image.resize: it antialiases when an axis shrinks) against the JAX
+    function and the port's ``resize``."""
     rng = np.random.default_rng(2)
     x = rng.normal(size=(2, *src, 3)).astype(np.float32)
-    want = np.asarray(jresize.torch_interpolate(jnp.asarray(x), dst,
-                                                "bilinear", True))
-    got = tresize.torch_interpolate(_t(x).permute(0, 3, 1, 2), dst,
-                                    "bilinear", True)
+    want = np.asarray(jresize.torch_interpolate(jnp.asarray(x), dst, mode,
+                                                align))
+    got = tresize.torch_interpolate(_t(x).permute(0, 3, 1, 2), dst, mode,
+                                    align)
     assert got.shape == (2, 3, *dst)
     assert _rel(got.permute(0, 2, 3, 1).numpy(), want) < 1e-5
-    ref = torch.nn.functional.interpolate(
-        _t(x).permute(0, 3, 1, 2), size=dst, mode="bilinear",
-        align_corners=True)
+    if mode == "bilinear" and not align:
+        ref = tresize.resize(_t(x).permute(0, 3, 1, 2), dst, "bilinear")
+    else:
+        ref = torch.nn.functional.interpolate(
+            _t(x).permute(0, 3, 1, 2), size=dst, mode=mode,
+            align_corners=None if mode == "nearest" else align)
     assert _rel(got.numpy(), ref.numpy()) < 1e-5
-    for mode, align in (("bilinear", False), ("nearest", False)):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            tresize.torch_interpolate(_t(x), dst, mode, align)
+    if mode == "nearest":  # the JAX function ignores align_corners
+        again = tresize.torch_interpolate(_t(x).permute(0, 3, 1, 2), dst,
+                                          mode, True)
+        assert torch.equal(again, got)
+    with pytest.raises(ValueError):
+        tresize.torch_interpolate(_t(x), dst, "area", align)
 
 
 @pytest.mark.parametrize("mode", ["bicubic", "nearest"])
@@ -365,37 +378,69 @@ def test_the_api_conf_override_reaches_some_extractors_only(key):
 # --------------------------------------------------------------------------
 
 # the sparse entries of the packaged app.yaml the port serves: three before
-# this slice, six with it
+# the sparse zoo's head, nine with it, eleven with D2-Net/RoRD and DeDoDe
 SERVED_SPARSE = {"superpoint+lightglue", "superpoint+NN",
                  "superpoint+dual-softmax", "superglue", "superpoint+adalam",
-                 "disk", "alike", "aliked+lightglue", "xfeat(sparse)"}
-SERVED_DENSE = {"loftr", "eloftr", "roma"}
+                 "disk", "alike", "aliked+lightglue", "xfeat(sparse)",
+                 "dedode", "rord"}
+SERVED_DENSE = {"loftr", "eloftr", "roma", "xfeat(dense)"}
+# the entries of the repository's root config/app.yaml that the sparse zoo
+# on parts already ported serves
+SERVED_ROOT = {"xfeat+lightglue", "xfeat(dense)", "dedode",
+               "superpoint+sphereglue", "d2net", "rord", "sfd2+imp",
+               "sfd2+mnn"}
+
+
+def _resolve(conf):
+    """Load both models of a zoo entry's conf: the name of the first the
+    port lacks, or None."""
+    names = [(tmatchers, conf["matcher"]["model"]["name"])]
+    if not conf["dense"]:
+        names.append((textractors, conf["feature"]["model"]["name"]))
+    for root, name in names:
+        try:
+            tbase.dynamic_load(root, name)
+        except NotImplementedError as e:
+            assert repr(name) in str(e), str(e)
+            return name
+    return None
 
 
 def test_zoo_coverage_of_the_packaged_app_yaml():
     """Every enabled entry of the packaged zoo either resolves both its
     models in the port or raises NotImplementedError naming the missing
-    one. The nine sparse entries build on the CPU."""
+    one: fifteen are served, eight raise. The eleven sparse entries build
+    on the CPU."""
     zoo = tui.get_matcher_zoo(tui.load_config(APP_YAML)["matcher_zoo"])
-    served, missing = set(), {}
-    for key, conf in zoo.items():
-        names = [(tmatchers, conf["matcher"]["model"]["name"])]
-        if not conf["dense"]:
-            names.append((textractors, conf["feature"]["model"]["name"]))
-        try:
-            for root, name in names:
-                tbase.dynamic_load(root, name)
-        except NotImplementedError as e:
-            assert repr(name) in str(e), (key, str(e))
-            missing[key] = name
-        else:
-            served.add(key)
+    missing = {key: _resolve(conf) for key, conf in zoo.items()}
+    served = {key for key, name in missing.items() if name is None}
+    missing = {key: name for key, name in missing.items() if name}
     assert served == SERVED_SPARSE | SERVED_DENSE, sorted(served)
     assert set(zoo) == served | set(missing)
-    assert len(served) == 12 and len(missing) == len(zoo) - 12
+    assert len(served) == 15 and len(missing) == 8, sorted(missing)
     for key in sorted(SERVED_SPARSE):
         conf = zoo[key]
         if key == "superglue" or key.startswith("superpoint"):
+            conf["feature"]["model"]["checkpoint_npz"] = SP_NPZ
+        feat = tui.get_feature_model(conf["feature"], "cpu")
+        match = tui.get_model(conf["matcher"], "cpu")
+        assert feat.device.type == match.device.type == "cpu"
+
+
+def test_zoo_coverage_of_the_root_app_yaml():
+    """The eight entries of the repository's own WebUI zoo that this port
+    adds resolve both their models, and build on the CPU."""
+    zoo = tui.get_matcher_zoo(tui.load_config(
+        ROOT / "config" / "app.yaml")["matcher_zoo"])
+    assert {key: _resolve(zoo[key]) for key in SERVED_ROOT} == dict.fromkeys(
+        SERVED_ROOT)
+    for key in sorted(SERVED_ROOT):
+        conf = zoo[key]
+        if conf["dense"]:
+            model = tui.get_model(conf["matcher"], "cpu")
+            assert model.device.type == "cpu"
+            continue
+        if conf["feature"]["model"]["name"] == "superpoint":
             conf["feature"]["model"]["checkpoint_npz"] = SP_NPZ
         feat = tui.get_feature_model(conf["feature"], "cpu")
         match = tui.get_model(conf["matcher"], "cpu")

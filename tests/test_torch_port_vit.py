@@ -587,7 +587,11 @@ def test_port_imports_no_jax_cv2_pil_or_jax_package():
         "'ops.deform', 'models.matchers.superglue', "
         "'models.matchers.adalam', 'models.extractors.aliked', "
         "'models.extractors.disk', 'models.extractors.alike', "
-        "'models.extractors.xfeat')}\n"
+        "'models.extractors.xfeat', 'models.extractors.d2net', "
+        "'models.extractors.dedode', 'models.extractors.sfd2', "
+        "'models.backbones.resnet', 'models.matchers.xfeat_lightglue', "
+        "'models.matchers.xfeat_dense', 'models.matchers.sgmnet', "
+        "'models.matchers.imp', 'models.matchers.sphereglue')}\n"
         "print(len(names), bad, sorted(evals - set(names)))\n"
         "sys.exit(1 if bad or len(names) < 30 or evals - set(names) "
         "else 0)\n")
