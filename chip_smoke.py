@@ -276,16 +276,37 @@ EVAL_KERNELS = SERVED_KERNELS + ("fused_attention", "bidirectional_attention")
 # superpoint+sphereglue (bf16 superpoint_max: the stem kernel, K1 and K2),
 # d2net, sfd2+imp and sfd2+mnn, and the registry's disk + sgmnet, all on
 # seeded random trees but for SuperPoint's.
+# Then SIFT and DoG without OpenCV (ops/sift.py on the card): the packaged
+# sift+NN, sift+lightglue (SIFT's 1024 keypoints under the 2048 of the
+# blockwise route, so LightGlue's self-attention takes K3) and
+# dog-hardnet+NN, the root sosnet, sift+sphereglue and sift+sgmnet; and
+# the other extractors: the root r2d2, darkfeat, lanet, liftfeat(sparse)
+# and ripe(+mnn), each with mutual nearest neighbour. The root sift,
+# sift+lightglue and hardnet run models timed here already.
 Z_ENTRIES = ("superglue", "superpoint+adalam", "disk", "alike",
              "aliked+lightglue", "xfeat(sparse)", "xfeat(dense)", "dedode",
              "rord", "xfeat+lightglue", "superpoint+sphereglue", "d2net",
-             "sfd2+imp", "sfd2+mnn", "disk+sgmnet")
+             "sfd2+imp", "sfd2+mnn", "disk+sgmnet", "sift+NN",
+             "sift+lightglue", "dog-hardnet+NN", "sosnet", "sift+sphereglue",
+             "sift+sgmnet", "r2d2", "darkfeat", "lanet", "liftfeat(sparse)",
+             "ripe(+mnn)")
 # where an entry's conf comes from: the packaged zoo
 # (imcui_tpu_torch/config/app.yaml) unless named here; "registry" joins
 # the feature and matcher names of the key with parse_match_config
 Z_SOURCE = {"xfeat+lightglue": "root", "superpoint+sphereglue": "root",
             "d2net": "root", "sfd2+imp": "root", "sfd2+mnn": "root",
-            "disk+sgmnet": "registry"}
+            "disk+sgmnet": "registry", "sosnet": "root",
+            "sift+sphereglue": "root", "sift+sgmnet": "root", "r2d2": "root",
+            "darkfeat": "root", "lanet": "root", "liftfeat(sparse)": "root",
+            "ripe(+mnn)": "root"}
+# The entries whose keypoints SIFT's detector finds (ops/sift.py).
+Z_SIFT = ("sift+NN", "sift+lightglue", "dog-hardnet+NN", "sosnet",
+          "sift+sphereglue", "sift+sgmnet")
+# Extractor conf overrides: R2D2's seed-0 tree clears neither 0.7
+# threshold anywhere (0 keypoints on a planted pair), so it is served at
+# thresholds of 1e-6, where its NMS and ranking still run.
+Z_FEATURE_CONF = {"r2d2": {"reliability_threshold": 1e-6,
+                           "repetability_threshold": 1e-6}}
 # The kernels each entry must launch on every request.
 Z_EXPECTED = {"superglue": SERVED_KERNELS,
               "superpoint+adalam": SERVED_KERNELS,
@@ -293,12 +314,14 @@ Z_EXPECTED = {"superglue": SERVED_KERNELS,
               "aliked+lightglue": ("flash_attention",
                                    "bidirectional_attention"),
               "xfeat+lightglue": ("flash_attention",
-                                  "bidirectional_attention")}
+                                  "bidirectional_attention"),
+              "sift+lightglue": ("fused_attention",
+                                 "bidirectional_attention")}
 # The entries whose learned matcher decodes few or no matches at its
 # threshold on a random tree: their card-against-CPU check runs the matcher
 # at Z_LOW_THRESHOLD on both devices, where every mutual arg-max counts.
 Z_LOW = ("dedode", "xfeat+lightglue", "superpoint+sphereglue", "sfd2+imp",
-         "disk+sgmnet")
+         "disk+sgmnet", "sift+lightglue", "sift+sphereglue", "sift+sgmnet")
 Z_LOW_THRESHOLD = 1e-6
 # The graph matchers are also held on the same inputs, the card's
 # features fed to both devices' matcher at Z_LOW_THRESHOLD: the share of
@@ -309,14 +332,20 @@ Z_LOW_THRESHOLD = 1e-6
 # to the neighbours of that keypoint (raw-match IoU 0.85 at 1e-6 on pair
 # 100 on an NVIDIA H100 80GB HBM3), so that check would hold the
 # extractor's rounding, which the keypoint and descriptor bounds hold.
-Z_SAME_INPUTS = ("superpoint+sphereglue", "sfd2+imp", "disk+sgmnet")
+Z_SAME_INPUTS = ("superpoint+sphereglue", "sfd2+imp", "disk+sgmnet",
+                 "sift+sphereglue", "sift+sgmnet")
 Z_PAIR_UNGATED = ("superpoint+sphereglue",)
 # The card-against-CPU check of these entries runs at this resize_max on
 # both devices (their timed requests run at full size): at the full 1280 x
 # 2048 canvas DeDoDe's CPU run would cost ~72 TFLOP, and D2-Net's (RoRD's)
-# and DISK's CPU runs take 26-35 s an entry on an 8-core host.
+# and DISK's CPU runs take 26-35 s an entry on an 8-core host; SIFT's CPU
+# run over the doubled 1280 x 2048 canvas takes tens of seconds a view,
+# and DarkFeat's, LANet's, LiftFeat's and RIPE's 10-20 s an entry.
+# (R2D2 resizes every image to 640 x 480 itself.)
 Z_CPU_RESIZE = {"dedode": 320, "d2net": 640, "rord": 640,
-                "disk+sgmnet": 640}
+                "disk+sgmnet": 640, **dict.fromkeys(Z_SIFT, 640),
+                **dict.fromkeys(("darkfeat", "lanet", "liftfeat(sparse)",
+                                 "ripe(+mnn)"), 640)}
 Z_SEEDS = (100, 101, 102)
 Z_SIZE = (1600, 1200)
 # superpoint+adalam runs on the trained SuperPoint and must pass the gate
@@ -333,9 +362,37 @@ Z_JAX_CPU = {100: {"inliers": 546, "median_px": 1.4351},
 # largest). bf16 SuperPoint rounds in other places on the two devices
 # (phase 8's S_IOU); the float32 extractors and matchers run strict f32.
 Z_KPT_PX = 0.01
+# SIFT's descriptors are integers before RootSIFT: a histogram sum that
+# rounds apart on the two devices (the card adds its votes in another
+# order) can move one entry by one step, which moves a RootSIFT entry by
+# up to sqrt(1 / L1) ~ 0.02 (L1 ~ 2500-4000), hence 3e-2; the keypoint
+# sets may differ where an angle crosses a histogram bin's edge. DoG's
+# HardNet and SOSNet read the same keypoints.
 Z_BOUNDS = {"bf16": {"kpt_iou": 0.9, "desc": 2e-2, "match_iou": S_IOU},
             "f32": {"kpt_iou": 0.98, "desc": 1e-4, "match_iou": 0.95},
+            "sift": {"kpt_iou": 0.95, "desc": 3e-2, "match_iou": 0.9},
             "log_assignment": 1e-4}
+# SIFT's stages (phase 11): one textured T_SIZE image at the zoo's
+# contrast threshold, whose pyramid holds an odd-sized octave (15 x 20),
+# on the card against the port's CPU run of the same stages. The card and
+# the CPU do the same IEEE operations but for torch's cos, sin, exp and
+# pow and the order in which the histograms add their votes, so the
+# pyramids, the candidates and the refined samples are expected equal;
+# bounds: the pyramids within T_PYRAMID (grey levels), the candidate
+# counts equal, the refined keypoints' IoU within Z_KPT_PX at least
+# T_KPT_IOU, the common keypoints' angles within T_ANGLE_DEG and at least
+# T_DESC_SAME of their integer descriptors equal, none off by more than
+# T_DESC_STEP. The stage times are taken on the card at T_FULL, the canvas
+# of a Z_SIZE image.
+T_SIZE = (640, 480)
+T_SEED = 960
+T_CONTRAST = 0.0066667
+T_PYRAMID = 1e-4
+T_KPT_IOU = 0.99
+T_ANGLE_DEG = 0.01
+T_DESC_SAME = 0.99
+T_DESC_STEP = 1
+T_FULL = (2048, 1280)
 # Every wrapper of a hand-written kernel, for the count of launches that
 # phase 10 holds to what it checked.
 ALL_KERNELS = ("stem_tail", "stage_tail", "nms_cellmax", "fused_attention",
@@ -3008,10 +3065,13 @@ def _zoo_conf(key):
 
 def _zoo_api(key, device):
     """ImageMatchingAPI on ``device`` for the zoo entry ``key``, at the
-    API's defaults."""
+    API's defaults (and Z_FEATURE_CONF's overrides)."""
     from imcui_tpu_torch.api.core import ImageMatchingAPI
 
-    return ImageMatchingAPI(_zoo_conf(key), device=device)
+    conf = _zoo_conf(key)
+    if key in Z_FEATURE_CONF:
+        conf["feature"]["model"].update(Z_FEATURE_CONF[key])
+    return ImageMatchingAPI(conf, device=device)
 
 
 def _feature_model(api):
@@ -3085,18 +3145,34 @@ def _zoo_card_vs_cpu(key, api, img0, img1):
     if key in Z_LOW:
         for a in (api, cpu):
             _set_threshold(a, Z_LOW_THRESHOLD)
-    feats = [extract_features.extract(_feature_model(a), img0, pre)
-             for a in (api, cpu)]
+    captured, feats = {}, [[], []]
+    hooks = [api.matcher.register_forward_pre_hook(
+        lambda mod, args: captured.update(data=args[0]))]
+    if api.extractor is not None:
+        # view 0's extraction is the request's first extractor call
+        hooks += [a.extractor.register_forward_hook(
+            lambda mod, args, o, f=f: f.append(
+                {k: v.detach().cpu().numpy() for k, v in o.items()}))
+            for a, f in zip((api, cpu), feats)]
+    preds = [a(img0, img1) for a in (api, cpu)]
+    for h in hooks:
+        h.remove()
+    if api.extractor is None:  # a standalone pipeline: view 0 alone
+        feats = [extract_features.extract(_feature_model(a), img0, pre)
+                 for a in (api, cpu)]
+    else:
+        feats = [f[0] for f in feats]
     kp = [f["keypoints"][0][f["mask"][0]] for f in feats]
-    iou, ia, ib = common_points(kp[0], kp[1], Z_KPT_PX)
+    if "oris" in feats[0]:  # SIFT: one point may hold several angles
+        iou, ia, ib = oriented_pairs(
+            kp[0], np.degrees(feats[0]["oris"][0][feats[0]["mask"][0]]),
+            kp[1], np.degrees(feats[1]["oris"][0][feats[1]["mask"][0]]),
+            Z_KPT_PX)
+    else:
+        iou, ia, ib = common_points(kp[0], kp[1], Z_KPT_PX)
     desc = [f["descriptors"][0][:, f["mask"][0]] for f in feats]
     derr = float(np.abs(desc[0][:, ia] - desc[1][:, ib]).max()) \
         if len(ia) else float("inf")
-    captured = {}
-    hook = api.matcher.register_forward_pre_hook(
-        lambda mod, args: captured.update(data=args[0]))
-    preds = [a(img0, img1) for a in (api, cpu)]
-    hook.remove()
     out = {"kpt_iou": iou, "desc_err": derr, "keypoints": [len(k) for k in kp],
            "match_iou": raw_match_iou(preds[0], preds[1], S_TOL_PX),
            "raw_matches": [len(p["mkeypoints0_orig"]) for p in preds],
@@ -3108,7 +3184,7 @@ def _zoo_card_vs_cpu(key, api, img0, img1):
         valid = np.asarray(data["mask0"][0]).astype(bool)
         out["same_inputs_agree"] = float((m[0] == m[1])[valid].mean())
         out["same_inputs_matches"] = [int((x[valid] > -1).sum()) for x in m]
-    if key == "superpoint+sphereglue":
+    if key.endswith("sphereglue"):
         out.update(_sphere_graphs(captured["data"]))
     if key == "superglue":
         data = captured["data"]
@@ -3185,7 +3261,11 @@ def phase10(peaks):
             fail(f"{key}: the extractor serves {cap} slots, not the 4096 its "
                  f"conf gives")
         img0, img1, hm = pairs[0]
+        steps = {"build": time.perf_counter() - t0}
+        t_step = time.perf_counter()
         api(img0, img1)  # warm-up: cuDNN's choices, the allocator
+        steps["warm-up"] = time.perf_counter() - t_step
+        t_step = time.perf_counter()
         seen = _capture_kernel_args(lambda: api(img0, img1), capture)
         seen = {n: c for n, c in seen.items() if c}
         checks = _check_served_kernels(seen, f"{key} request") if seen \
@@ -3219,10 +3299,12 @@ def phase10(peaks):
         missing = [n for n in Z_EXPECTED.get(key, ()) if not got.get(n)]
         if missing:
             fail(f"{key}: the request launched no {missing}")
-        if stops and "flash_attention" in Z_EXPECTED.get(key, ()) and not (
-                got.get("flash_attention") == got.get(
-                    "bidirectional_attention") == sum(stops)):
-            fail(f"{key}: K5 {got.get('flash_attention')} and K4 "
+        self_k = next((n for n in ("flash_attention", "fused_attention")
+                       if n in Z_EXPECTED.get(key, ())), None)
+        if stops and self_k and not (
+                got.get(self_k) == got.get("bidirectional_attention")
+                == sum(stops)):
+            fail(f"{key}: {self_k} {got.get(self_k)} and K4 "
                  f"{got.get('bidirectional_attention')} launches, not one each "
                  f"per layer run ({sum(stops)} layers in 3 requests)")
         for k in ("keypoints0_orig", "keypoints1_orig", "mkeypoints0_orig",
@@ -3233,8 +3315,13 @@ def phase10(peaks):
         if not found or min(found) < 1 or max(found) > cap:
             fail(f"{key}: {found} keypoints in {cap} slots")
         med = float(np.median(ms))
-        busy, evs = device_window(lambda i: api(img0, img1), 2)
+        steps["capture and 3 timed"] = time.perf_counter() - t_step
+        t_step = time.perf_counter()
+        busy, evs = device_window(lambda i: api(img0, img1), 1)
+        steps["profiler window"] = time.perf_counter() - t_step
+        t_step = time.perf_counter()
         flops = zoo_flops(lambda: api(img0, img1))
+        steps["ATen count"] = time.perf_counter() - t_step
         res = {"ms_per_request": med, "ms_runs": ms,
                "device_busy_ms": busy, "device_idle_share": 1 - busy / med,
                "keypoints": found[-2:],
@@ -3255,8 +3342,8 @@ def phase10(peaks):
             f"device time per request:")
         for e in sorted(evs, key=lambda e: e.self_device_time_total,
                         reverse=True)[:5]:
-            log(f"    {e.self_device_time_total / 2e3:9.3f} ms  "
-                f"x{e.count / 2:g}  {e.key[:90]}")
+            log(f"    {e.self_device_time_total / 1e3:9.3f} ms  "
+                f"x{e.count:g}  {e.key[:90]}")
 
         if key == "superpoint+adalam":
             gates = []
@@ -3277,9 +3364,11 @@ def phase10(peaks):
                          f"inliers at a median <= {GATE_MEDIAN_PX} px")
             res["gate"] = gates
 
+        t_step = time.perf_counter()
         vs = _zoo_card_vs_cpu(key, api, img0, img1)
+        steps["card against CPU"] = time.perf_counter() - t_step
         b = Z_BOUNDS["bf16" if key.startswith("superpoint") or key ==
-                     "superglue" else "f32"]
+                     "superglue" else "sift" if key in Z_SIFT else "f32"]
         log(f"  {key}: card against CPU on pair {Z_SEEDS[0]}"
             + (f" at resize_max {vs['resize_max']}" if key in Z_CPU_RESIZE
                else "")
@@ -3316,13 +3405,181 @@ def phase10(peaks):
             fail(f"{key}: the card and the CPU disagree: {vs}")
         res["card_vs_cpu"] = vs
         res["seconds"] = time.perf_counter() - t0
-        log(f"  {key}: {res['seconds']:.1f} s")
+        res["step_s"] = steps
+        log(f"  {key}: {res['seconds']:.1f} s ("
+            + ", ".join(f"{k} {v:.1f}" for k, v in steps.items()) + ")")
         out[key] = res
         del api
         torch.cuda.empty_cache()
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"  phase 10: {out['phase_s']:.1f} s")
     return launches, out
+
+
+def oriented_pairs(pa, aa, pb, ab, tol):
+    """Keypoints of a and b paired by point (within ``tol`` px, max norm)
+    and then by the nearest angle (one point can hold several
+    orientations; degrees): (IoU, indices into a, indices into b)."""
+    from scipy.spatial import cKDTree
+
+    near = cKDTree(pb).query_ball_point(pa, tol, p=np.inf)
+    cand = sorted((abs((aa[i] - ab[j] + 180) % 360 - 180), i, j)
+                  for i, js in enumerate(near) for j in js)
+    used_a, used_b, ia, ib = set(), set(), [], []
+    for _, i, j in cand:
+        if i not in used_a and j not in used_b:
+            used_a.add(i)
+            used_b.add(j)
+            ia.append(i)
+            ib.append(j)
+    n = len(ia)
+    return (n / max(len(pa) + len(pb) - n, 1), np.array(ia, int),
+            np.array(ib, int))
+
+
+def _sift_stages(x):
+    """ops/sift.py's stages on the float32 uint8-valued (H, W) tensor
+    ``x``, each one's output kept: the pyramids, the candidates, the
+    refined keypoints, the oriented keypoints and their descriptors."""
+    from imcui_tpu_torch.ops import sift as ops
+
+    gauss, dogs = ops.build_pyramids(x)
+    cand = ops.find_candidates(dogs, T_CONTRAST)
+    dog, gst = ops.Flat(dogs), ops.Flat(gauss)
+    refined = ops.refine(dog, cand, T_CONTRAST, 10.0)
+    kp = ops.orientations(gst, refined)
+    return {"gauss": gauss, "dogs": dogs, "cand": cand, "refined": refined,
+            "kp": kp, "desc": ops.describe(gst, kp)}
+
+
+def _sift_stage_times(x, reps=3):
+    """Median CUDA-event ms of each SIFT stage on ``x`` (the stages run
+    in turn; the host waits at each stage's end), and the host
+    synchronisations of one full detection and description, counted by
+    torch's sync debug mode."""
+    import warnings
+
+    import torch
+
+    from imcui_tpu_torch.ops import sift as ops
+
+    def staged():
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+        ev[0].record()
+        gauss, dogs = ops.build_pyramids(x)
+        ev[1].record()
+        cand = ops.find_candidates(dogs, T_CONTRAST)
+        ev[2].record()
+        dog, gst = ops.Flat(dogs), ops.Flat(gauss)
+        kp = ops.refine(dog, cand, T_CONTRAST, 10.0)
+        ev[3].record()
+        kp = ops.orientations(gst, kp)
+        ev[4].record()
+        kp = ops.take(ops.retain_best(kp, 1024), 1024)
+        ops.describe(gst, kp)
+        ev[5].record()
+        torch.cuda.synchronize()
+        return [ev[i].elapsed_time(ev[i + 1]) for i in range(5)]
+
+    staged()
+    runs = [staged() for _ in range(reps)]
+    names = ("pyramids", "candidates", "refine", "orientations",
+             "cut and describe 1024")
+    times = {n: float(np.median([r[i] for r in runs]))
+             for i, n in enumerate(names)}
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            kp, gst = ops.detect(x, T_CONTRAST, n_features=1024)
+            ops.describe(gst, ops.take(kp, 1024))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [str(w.message).split("\n")[0] for w in seen
+             if "called a synchronizing CUDA operation" in str(w.message)]
+    return times, syncs
+
+
+def phase11():
+    """SIFT's stages (ops/sift.py) on the card against the port's CPU run
+    on one textured T_SIZE image: the Gaussian and DoG pyramids per
+    octave, the candidate counts per octave, the refined keypoints, the
+    angles and integer descriptors of the common keypoints, each beside
+    its bound; then each stage's time on the card at T_FULL and the host
+    synchronisations of a view."""
+    import torch
+
+    t_phase = time.perf_counter()
+    img = textured_image(np.random.default_rng(T_SEED), T_SIZE[1],
+                         T_SIZE[0]).astype(np.float32)
+    runs = {dev: _sift_stages(torch.from_numpy(img).to(dev))
+            for dev in ("cuda", "cpu")}
+    card, cpu = runs["cuda"], runs["cpu"]
+    out = {"octaves": [list(g.shape[1:]) for g in cpu["gauss"]]}
+    if not any(h % 2 or w % 2 for h, w in out["octaves"]):
+        fail(f"phase 11: no odd-sized octave in {out['octaves']}")
+    out["gauss_max_abs"] = [float((a.cpu() - b).abs().max())
+                            for a, b in zip(card["gauss"], cpu["gauss"])]
+    out["dog_max_abs"] = [float((a.cpu() - b).abs().max())
+                          for a, b in zip(card["dogs"], cpu["dogs"])]
+    n_oct = len(cpu["gauss"])
+    out["candidates"] = {dev: np.bincount(r["cand"][0].cpu().numpy(),
+                                          minlength=n_oct).tolist()
+                         for dev, r in runs.items()}
+
+    def points(kp):
+        return (torch.stack([kp["x"], kp["y"]], -1) * 0.5).cpu().numpy()
+
+    out["refined"] = [len(r["refined"]["x"]) for r in (card, cpu)]
+    out["refined_iou"] = common_points(points(card["refined"]),
+                                       points(cpu["refined"]), Z_KPT_PX)[0]
+    iou, ia, ib = oriented_pairs(
+        points(card["kp"]), card["kp"]["angle"].cpu().numpy(),
+        points(cpu["kp"]), cpu["kp"]["angle"].cpu().numpy(), Z_KPT_PX)
+    out["keypoints"] = [len(r["kp"]["x"]) for r in (card, cpu)]
+    out["oriented_iou"] = iou
+    da = card["kp"]["angle"].cpu().numpy()[ia] - cpu["kp"]["angle"].numpy()[ib]
+    out["angle_max_deg"] = float(np.abs((da + 180) % 360 - 180).max())
+    dd = np.abs(card["desc"].cpu().numpy()[ia] - cpu["desc"].numpy()[ib])
+    out["desc_same_share"] = float((dd.max(1) == 0).mean())
+    out["desc_max_step"] = float(dd.max())
+    log(f"  SIFT stages on a textured {T_SIZE[0]} x {T_SIZE[1]} image, the "
+        f"card against the CPU: octaves {out['octaves']}; Gaussian pyramid "
+        f"max |d| per octave {out['gauss_max_abs']}, DoG "
+        f"{out['dog_max_abs']} (bound {T_PYRAMID}); candidates per octave "
+        f"{out['candidates']} (bound: equal); refined keypoints "
+        f"{out['refined']}, IoU {out['refined_iou']:.4f} within {Z_KPT_PX} "
+        f"px (bound {T_KPT_IOU}); oriented keypoints {out['keypoints']}, "
+        f"IoU {iou:.4f} (bound {T_KPT_IOU}), angles within "
+        f"{out['angle_max_deg']:.3g} deg (bound {T_ANGLE_DEG}), descriptors"
+        f" equal on {out['desc_same_share']:.4f} of the common keypoints "
+        f"(bound {T_DESC_SAME}), none off by more than "
+        f"{out['desc_max_step']:g} (bound {T_DESC_STEP})")
+    if max(out["gauss_max_abs"] + out["dog_max_abs"]) > T_PYRAMID \
+            or out["candidates"]["cuda"] != out["candidates"]["cpu"] \
+            or out["refined_iou"] < T_KPT_IOU or iou < T_KPT_IOU \
+            or out["angle_max_deg"] > T_ANGLE_DEG \
+            or out["desc_same_share"] < T_DESC_SAME \
+            or out["desc_max_step"] > T_DESC_STEP:
+        fail(f"phase 11: SIFT's stages on the card and the CPU disagree: "
+             f"{out}")
+    del runs, card, cpu
+    big = textured_image(np.random.default_rng(T_SEED + 1), T_FULL[1],
+                         T_FULL[0]).astype(np.float32)
+    times, syncs = _sift_stage_times(torch.from_numpy(big).cuda())
+    out["stage_ms_full"] = times
+    out["host_syncs_per_view"] = len(syncs)
+    out["host_sync_sites"] = sorted(set(syncs))
+    log(f"  SIFT stages on the card at {T_FULL[0]} x {T_FULL[1]} (median of "
+        f"3 after a warm-up, ms): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in times.items())
+        + f"; {len(syncs)} host synchronisations a view (detect and "
+        f"describe 1024)")
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase 11: {out['phase_s']:.1f} s")
+    return out
 
 
 def _multipart_checks(url, client, pair, split):
@@ -3706,6 +3963,8 @@ def main():
     log("phase 10: the sparse zoo (ImageMatchingAPI on "
         f"{', '.join(Z_ENTRIES)})")
     launches_zoo, timing["zoo"] = phase10(peaks)
+    log("phase 11: SIFT's stages on the card against the CPU")
+    timing["sift"] = phase11()
     for r in rows:
         by_path = {
             "turbo": launches.get(r["name"], 0),

@@ -17,6 +17,7 @@ nothing. Tolerances: the same valid match set, keypoints within 1e-3 px,
 scores within 1e-4 (aspanformer's 2e-4, see FAMILY).
 """
 
+import functools
 import importlib
 
 import jax
@@ -89,16 +90,21 @@ def _conf(name, thr):
     return conf
 
 
-def _jax_init(name):
-    mod = _module(name)
-    if mod == "rdd_dense":
-        mod = "rdd"
-        pkg = "extractors"
-    else:
-        pkg = "matchers"
+@functools.lru_cache(maxsize=None)
+def _jax_tree(pkg, mod):
+    """The JAX init tree of ``imcui_tpu.models.<pkg>.<mod>`` as numpy, drawn
+    once for the module (the JAX init runs op by op: seconds a model).
+    Callers copy what they change."""
     jm = importlib.import_module(f"imcui_tpu.models.{pkg}.{mod}")
     return jax.tree_util.tree_map(np.asarray,
                                   jm.init_params(jax.random.PRNGKey(0)))
+
+
+def _jax_init(name):
+    mod = _module(name)
+    if mod == "rdd_dense":
+        return _jax_tree("extractors", "rdd")
+    return _jax_tree("matchers", mod)
 
 
 @pytest.fixture(scope="module")
@@ -300,8 +306,7 @@ def test_rdd_extractor_matches_jax():
     """The rdd extractor's apply on the JAX init tree at 128 × 160 with
     64 slots and a padded view: the same slots, keypoints within 1e-3 px,
     scores within 1e-5 and descriptors within 1e-4."""
-    tree = jax.tree_util.tree_map(
-        np.asarray, jrdd.init_params(jax.random.PRNGKey(0)))
+    tree = _jax_tree("extractors", "rdd")
     tp = weights.params_from_jax(tree)
     model = trdd.Rdd({"max_keypoints": 64}, device="cpu")
     assert model.meta["pretrained"] is False

@@ -65,6 +65,17 @@ def _offline():
     mp.undo()
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """torch on one thread: the tier-1 run puts six test workers on eight
+    cores, where this file's many small CPU ops would each wait at a
+    parallel region's barrier (several times slower)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _t(a):
     return torch.from_numpy(np.array(a, np.float32))
 
@@ -378,17 +389,23 @@ def test_the_api_conf_override_reaches_some_extractors_only(key):
 # --------------------------------------------------------------------------
 
 # the sparse entries of the packaged app.yaml the port serves: three before
-# the sparse zoo's head, nine with it, eleven with D2-Net/RoRD and DeDoDe
+# the sparse zoo's head, nine with it, eleven with D2-Net/RoRD and DeDoDe,
+# fourteen with SIFT and DoG
 SERVED_SPARSE = {"superpoint+lightglue", "superpoint+NN",
                  "superpoint+dual-softmax", "superglue", "superpoint+adalam",
                  "disk", "alike", "aliked+lightglue", "xfeat(sparse)",
-                 "dedode", "rord"}
+                 "dedode", "rord", "sift+NN", "sift+lightglue",
+                 "dog-hardnet+NN"}
 SERVED_DENSE = {"loftr", "eloftr", "roma", "xfeat(dense)"}
 # the entries of the repository's root config/app.yaml that the sparse zoo
 # on parts already ported serves
 SERVED_ROOT = {"xfeat+lightglue", "xfeat(dense)", "dedode",
                "superpoint+sphereglue", "d2net", "rord", "sfd2+imp",
-               "sfd2+mnn"}
+               "sfd2+mnn",
+               # SIFT and DoG, then the other extractors
+               "sift", "sift+lightglue", "sift+sphereglue", "sift+sgmnet",
+               "hardnet", "sosnet", "r2d2", "darkfeat", "lanet",
+               "liftfeat(sparse)", "ripe(+mnn)"}
 
 
 def _resolve(conf):
@@ -409,15 +426,17 @@ def _resolve(conf):
 def test_zoo_coverage_of_the_packaged_app_yaml():
     """Every enabled entry of the packaged zoo either resolves both its
     models in the port or raises NotImplementedError naming the missing
-    one: fifteen are served, eight raise. The eleven sparse entries build
-    on the CPU."""
+    one: eighteen are served, five raise (dkm, duster, gluestick, lisrd,
+    mast3r). The fourteen sparse entries build on the CPU."""
     zoo = tui.get_matcher_zoo(tui.load_config(APP_YAML)["matcher_zoo"])
     missing = {key: _resolve(conf) for key, conf in zoo.items()}
     served = {key for key, name in missing.items() if name is None}
     missing = {key: name for key, name in missing.items() if name}
     assert served == SERVED_SPARSE | SERVED_DENSE, sorted(served)
     assert set(zoo) == served | set(missing)
-    assert len(served) == 15 and len(missing) == 8, sorted(missing)
+    assert len(served) == 18 and len(missing) == 5, sorted(missing)
+    assert sorted(missing.values()) == ["dkm", "duster", "gluestick",
+                                        "lisrd", "mast3r"], missing
     for key in sorted(SERVED_SPARSE):
         conf = zoo[key]
         if key == "superglue" or key.startswith("superpoint"):
@@ -428,8 +447,9 @@ def test_zoo_coverage_of_the_packaged_app_yaml():
 
 
 def test_zoo_coverage_of_the_root_app_yaml():
-    """The eight entries of the repository's own WebUI zoo that this port
-    adds resolve both their models, and build on the CPU."""
+    """The nineteen entries of the repository's own WebUI zoo that the
+    sparse zoo's later slices add resolve both their models, and build on
+    the CPU."""
     zoo = tui.get_matcher_zoo(tui.load_config(
         ROOT / "config" / "app.yaml")["matcher_zoo"])
     assert {key: _resolve(zoo[key]) for key in SERVED_ROOT} == dict.fromkeys(

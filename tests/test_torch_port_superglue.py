@@ -52,6 +52,17 @@ def _offline():
     mp.undo()
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """torch on one thread: the tier-1 run puts six test workers on eight
+    cores, where this file's many small CPU ops would each wait at a
+    parallel region's barrier (several times slower)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _rel(got, want):
     return float(np.abs(got - want).max() / max(1.0, np.abs(want).max()))
 

@@ -591,7 +591,11 @@ def test_port_imports_no_jax_cv2_pil_or_jax_package():
         "'models.extractors.dedode', 'models.extractors.sfd2', "
         "'models.backbones.resnet', 'models.matchers.xfeat_lightglue', "
         "'models.matchers.xfeat_dense', 'models.matchers.sgmnet', "
-        "'models.matchers.imp', 'models.matchers.sphereglue')}\n"
+        "'models.matchers.imp', 'models.matchers.sphereglue', 'ops.sift', "
+        "'models.extractors.sift', 'models.extractors.dog', "
+        "'models.extractors.r2d2', 'models.extractors.darkfeat', "
+        "'models.extractors.lanet', 'models.extractors.liftfeat', "
+        "'models.extractors.ripe')}\n"
         "print(len(names), bad, sorted(evals - set(names)))\n"
         "sys.exit(1 if bad or len(names) < 30 or evals - set(names) "
         "else 0)\n")
