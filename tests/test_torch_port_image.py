@@ -1,7 +1,8 @@
 """The port's cv2-free preprocessing (imcui_tpu_torch/utils/image.py)
-against OpenCV and the JAX package's preprocess. Tolerances: 1e-3 on a
-0–255 scale for the area resize (OpenCV accumulates in float32, the port
-in float64), 1e-5 on the 0–1 canvas."""
+against OpenCV and the JAX package's preprocess. Tolerances: the area
+resize bit for bit on float32 (the port restates OpenCV's weight tables,
+its 2 × 2 SIMD sums and its float32 accumulation order), 1e-5 on the 0–1
+canvas."""
 
 import numpy as np
 import pytest
@@ -12,10 +13,21 @@ from imcui_tpu_torch.utils import image as timage
 cv2 = pytest.importorskip("cv2")
 
 
+# (h, w) → (h, w): the API's sizes (the dfactor floor of a 200 x 150
+# image, the 1024 side of a 1600 x 1200 one, an odd image to 448), integer
+# factors (2 x 2 with and without a SIMD tail, 3 x 3, 1 x 2) and odd sizes
 @pytest.mark.parametrize("src,dst", [((757, 1003), (752, 1000)),
                                      ((901, 1203), (767, 1024)),
                                      ((100, 120), (37, 61)),
-                                     ((64, 96), (32, 48))])
+                                     ((64, 96), (32, 48)),
+                                     ((150, 200), (144, 200)),
+                                     ((1200, 1600), (768, 1024)),
+                                     ((451, 601), (336, 448)),
+                                     ((480, 640), (240, 320)),
+                                     ((480, 642), (240, 321)),
+                                     ((99, 99), (33, 33)),
+                                     ((300, 200), (150, 200)),
+                                     ((97, 131), (31, 45))])
 @pytest.mark.parametrize("channels", [0, 3])
 def test_resize_area_matches_cv2(src, dst, channels):
     rng = np.random.default_rng(0)
@@ -23,8 +35,8 @@ def test_resize_area_matches_cv2(src, dst, channels):
     img = (rng.uniform(0, 255, shape)).astype(np.float32)
     want = cv2.resize(img, dst[::-1], interpolation=cv2.INTER_AREA)
     got = timage.resize_area(img, dst[::-1])
-    assert got.shape == want.shape
-    np.testing.assert_allclose(got, want, atol=1e-3)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.parametrize("dtype", [np.uint8, np.float32])

@@ -444,9 +444,8 @@ def _apis(yaml, key):
 @pytest.mark.parametrize("yaml,key", list(ENTRIES))
 def test_zoo_entry_end_to_end_matches_jax(yaml, key):
     """A planted 200 x 152 pair, whose sides are multiples of 8, so that
-    the API resizes nothing: the port's area resize differs from cv2's
-    float INTER_AREA in the last bit, and SIFT's truncation to uint8
-    turns such a bit into a whole grey level (ROADMAP.md, section C)."""
+    the API resizes nothing (the resized case is
+    ``test_sift_through_the_api_on_a_resized_pair_matches_jax``)."""
     planted = chip_smoke.synthetic_pair(101, 200, 152)
     japi, tapi = _apis(yaml, key)
     want = japi(planted[0], planted[1])
@@ -458,3 +457,20 @@ def test_zoo_entry_end_to_end_matches_jax(yaml, key):
     assert len(got["mkeypoints0_orig"]) >= 10, key
     iou = chip_smoke.raw_match_iou(got, want, tol=1e-2)
     assert iou >= 0.9, (key, iou)
+
+
+def test_sift_through_the_api_on_a_resized_pair_matches_jax():
+    """A planted 200 x 150 pair, which the API resizes to 200 x 144 (the
+    dfactor floor) by the area resize: the port's equals cv2's float
+    INTER_AREA bit for bit, so SIFT truncates the same grey levels and its
+    keypoints equal the JAX package's (IoU 1.0; fault C4 in ROADMAP.md
+    gave 0.67 here)."""
+    planted = chip_smoke.synthetic_pair(101, 200, 150)
+    japi, tapi = _apis("packaged", "sift+NN")
+    want = japi(planted[0], planted[1])
+    got = tapi(planted[0], planted[1])
+    for k in ("keypoints0_orig", "keypoints1_orig"):
+        assert len(got[k]) == len(want[k]) == 256, k
+        iou = chip_smoke.common_points(got[k], want[k], 1e-3)[0]
+        assert iou == 1.0, (k, iou)
+    assert chip_smoke.raw_match_iou(got, want, tol=1e-3) == 1.0
