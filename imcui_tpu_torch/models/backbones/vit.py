@@ -17,6 +17,9 @@ from ..layers import (conv2d, gelu, init_conv, init_layer_norm, init_linear,
 # (kernels K14/K3/K5 by shape); "flash": the blockwise kernel K5 (the JAX
 # package calls a library kernel of jax.experimental under this name).
 # float32 tokens always take the plain attention, as in the JAX package.
+# Deviation: blocks with RoPE (DUSt3R, MASt3R) rotate q and k in float32,
+# which in the JAX package keeps them from every kernel route; with
+# "fused" or "flash" the port rounds them back to bfloat16 and launches.
 ATTN_IMPL = "xla"
 
 
@@ -86,6 +89,11 @@ def attention_apply(p, x, num_heads, context=None, pos=None, kpos=None,
     if rope_base is not None and pos is not None:
         q = rope_2d(q, pos, rope_base)
         k = rope_2d(k, kpos if kpos is not None else pos, rope_base)
+        if ATTN_IMPL != "xla" and v.dtype == torch.bfloat16:
+            # RoPE's float32 cos and sin promote bf16 q and k to float32,
+            # so in the JAX package no RoPE block reaches a kernel under
+            # any ATTN_IMPL; here a kernel route takes them back to bf16
+            q, k = q.to(v.dtype), k.to(v.dtype)
     if ATTN_IMPL != "xla" and q.dtype == torch.bfloat16:
         q, k, v = (t.contiguous() for t in (q, k, v))
         if ATTN_IMPL == "flash":
@@ -93,7 +101,7 @@ def attention_apply(p, x, num_heads, context=None, pos=None, kpos=None,
         else:
             out = att_ops.mha_auto(q, k, v)
     else:
-        out = att_ops.mha_wide(q, k, v)
+        out = att_ops.mha_wide(q, k, v, x.dtype)
     return linear(p["proj"], out.transpose(0, 1).reshape(n, d))
 
 

@@ -287,15 +287,18 @@ def qtiled_plan(h, nq, nk):
             "busiest_sm_rows": -(-ctas // sms) * rows}
 
 
-def mha_wide(q, k, v):
+def mha_wide(q, k, v, dtype=None):
     """Plain unmasked attention with float32 logits and sums whatever the
-    inputs' dtype: the weights are rounded to q's dtype before the readout
-    and the result is in q's dtype (the JAX package's ``mha`` on bf16)."""
+    inputs' dtype: the weights are rounded to ``dtype`` (q's by default)
+    before the readout and the result is in ``dtype`` (the JAX package's
+    ``mha`` on bf16; its ViT blocks round to their tokens' dtype, which
+    RoPE's float32 q and k do not carry)."""
+    dtype = q.dtype if dtype is None else dtype
     dh = q.shape[-1]
     logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) / (
         dh ** 0.5)
-    attn = torch.softmax(logits, -1).to(q.dtype)
-    return torch.matmul(attn.float(), v.float()).to(q.dtype)
+    attn = torch.softmax(logits, -1).to(dtype)
+    return torch.matmul(attn.float(), v.float()).to(dtype)
 
 
 def mha_auto(q, k, v):
