@@ -178,6 +178,13 @@ def max_pool(x, window=2, stride=2):
     return F.max_pool2d(x, window, stride)
 
 
+def max_pool3_s2(x):
+    """torchvision's stem pool: 3 × 3 window, stride 2, padding 1 with
+    −inf, of (B, C, H, W) (not the 2 × 2 pool: same output shape on even
+    inputs, other values)."""
+    return F.max_pool2d(x, 3, 2, padding=1)
+
+
 def avg_pool(x, k):
     """k × k / stride-k average pool of (B, C, H, W), VALID: the window sum
     over k², as ``lax.reduce_window`` with ``add`` and a division."""

@@ -86,15 +86,6 @@ def init_params(gen, conf):
     return params
 
 
-def seeded_tree(init, conf, device):
-    """``init(generator, conf)`` drawn on ``device`` by a generator seeded
-    0: every factory call lands there, so no tree is built on the host and
-    copied."""
-    device = torch.device(device)
-    with device:
-        return init(torch.Generator(device).manual_seed(0), conf)
-
-
 def _rope(conf):
     return 100.0 if conf.get("pos_embed", "RoPE100") == "RoPE100" else None
 
@@ -246,7 +237,7 @@ class Duster(BaseModel):
         return init_params(gen, conf)
 
     def _init(self, conf):
-        init = seeded_tree(self.init_params, conf, self.device)
+        init = weights.seeded_init(self.init_params, self.device, conf)
         params, self.meta = weights.load_trained(conf, init, self.name,
                                                  self.device)
         self.params = apply_precision(params, conf.get("precision"))

@@ -127,6 +127,16 @@ def assert_tree_matches(tree, reference, name=""):
             f"extra={extra[:5]} shape={[(k, got[k], want[k]) for k in bad[:5]]}")
 
 
+def seeded_init(init, device, *args):
+    """``init(generator, *args)`` drawn on ``device`` by a generator seeded
+    0, every factory call of the init landing there: a large tree is never
+    built on the host and copied. Each device draws its own stream, so a
+    card's seed-0 tree is not the CPU's."""
+    device = torch.device(device)
+    with device:
+        return init(torch.Generator(device).manual_seed(0), *args)
+
+
 def load_or_init(path, init, name, device):
     """(tree, meta): the npz tree at ``path``, converted to this package's
     layout on ``device`` and checked against ``init``'s shapes, when the
