@@ -101,7 +101,18 @@ Phases, each of which passes or ends the run with a non-zero exit:
      SuperGlue's log assignment; DeDoDe at resize_max 320, D2-Net, RoRD
      and DISK + SGMNet at 640 on both devices), and superpoint+adalam's
      planted-pair gate on three pairs beside the JAX package's CPU
-     numbers.
+     numbers;
+ 11. SIFT's stages on the card against the port's CPU run;
+ 12. the rest of the zoo: REKD (the registry's rekd with mutual nearest
+     neighbour) and the root config/app.yaml's raco+lightglue through
+     phase 10's loop (K3 and K4 held and counted, keypoints equal to the
+     CPU's); DUSt3R and MASt3R at the registry's conf and full ViT-L
+     width, in float32 (no kernel) and in bfloat16 with vit.ATTN_IMPL =
+     "fused" (every block through K14, 96 launches a request, each held
+     against its plain version), ms per request, device busy and idle
+     share, the card against the CPU at resize_max 224; DKM at the
+     registry's conf and at coarse_res (544, 704), timed, the card against
+     the CPU on the warp and certainty.
 Near the end it prints one JSON line {"timing": ...}, one {"kernels":
 [...]} and the card's name and power limit; the last line is {"ok": true,
 "device": {...}}. Without a CUDA device, or without the rest of the
@@ -372,6 +383,43 @@ Z_BOUNDS = {"bf16": {"kpt_iou": 0.9, "desc": 2e-2, "match_iou": S_IOU},
             "f32": {"kpt_iou": 0.98, "desc": 1e-4, "match_iou": 0.95},
             "sift": {"kpt_iou": 0.95, "desc": 3e-2, "match_iou": 0.9},
             "log_assignment": 1e-4}
+# REKD and RaCo (phase 12), through phase 10's loop: the registry's rekd
+# extractor with mutual nearest neighbour, and the root config/app.yaml's
+# raco+lightglue (RaCo's 1024 slots, which it reads from its own
+# max_num_keypoints, under the 2048 of the blockwise route: LightGlue's
+# self-attention takes K3). Float32 extractors: the card holds the CPU's
+# keypoints exactly (Z_BOUNDS["exact"]).
+R_ENTRIES = ("rekd+NN-mutual", "raco+lightglue")
+Z_SOURCE.update({"rekd+NN-mutual": "registry", "raco+lightglue": "root"})
+Z_EXPECTED["raco+lightglue"] = ("fused_attention", "bidirectional_attention")
+Z_LOW += ("raco+lightglue",)
+Z_CPU_RESIZE.update(dict.fromkeys(R_ENTRIES, 640))
+Z_BOUNDS["exact"] = {"kpt_iou": 1.0, "desc": 1e-4, "match_iou": 0.95}
+# The pointmap matchers (phase 12) at the registry's conf (resize_max 512,
+# dfactor 16: a 1600 x 1200 pair becomes 512 x 384, its own canvas, 32 x
+# 24 = 768 tokens a view) and full ViT-L width (encoder 1024 wide,
+# 24 blocks, 16 heads; decoders 768 wide, 12 blocks, 12 heads; head dim
+# 64), in float32 at the default route (no kernel: RoPE's float32 q and k
+# take the plain attention) and in bfloat16 with vit.ATTN_IMPL = "fused":
+# every block through mha_auto to K14, V_K14 launches a request (2 x 24
+# encoder, 2 x 12 self and 2 x 12 cross), each held against its plain
+# version at phase 1's bf16 tolerance. The card against the CPU at
+# V_CPU_RESIZE on both devices on the card's tree: view 1's pointmap and
+# confidence (MASt3R: descriptors and their confidence) within V_CPU_TOL
+# of the largest (float32) or with a median within V_CPU_BF16 (bfloat16,
+# which the two devices round in other places).
+V_ENTRIES = ("duster", "mast3r")
+V_K14 = 2 * 24 + 2 * 2 * 12
+V_CPU_RESIZE = 224
+V_CPU_TOL = 1e-3
+V_CPU_BF16 = 2e-2
+# DKM (phase 12): the registry's dkm (80 x 60 forced, on a 256 x 256
+# canvas, which coarse_res None keeps), then at its published operating
+# point coarse_res (544, 704); the card against the CPU on the registry's
+# request: the warp (normalised units) and the certainty of the prepared
+# pair within K_CPU_TOL of the largest. No kernel lies on DKM's path.
+K_COARSE = (544, 704)
+K_CPU_TOL = 1e-3
 # SIFT's stages (phase 11): one textured T_SIZE image at the zoo's
 # contrast threshold, whose pyramid holds an odd-sized octave (15 x 20),
 # on the card against the port's CPU run of the same stages. The card and
@@ -1809,7 +1857,11 @@ def phase1_dense(peaks):
                             ("vit 16 x 1024", 16, 1024, 1024),
                             ("vit 12 x 1024", 12, 1024, 1024),
                             ("cross 1024 over 1601", 12, 1024, D_TOKENS),
-                            ("ragged 50 over 77", 3, 50, 77)):
+                            ("ragged 50 over 77", 3, 50, 77),
+                            # DUSt3R's and MASt3R's encoder and decoder
+                            # blocks at the registry's 768 tokens
+                            ("dust3r encoder 16 x 768", 16, 768, 768),
+                            ("dust3r decoder 12 x 768", 12, 768, 768)):
         q, k, v = rnd(h, nq, bf16), rnd(h, nk, bf16), rnd(h, nk, bf16)
         got = attention.qtiled_attention(q, k, v).float()
         want = attention.qtiled_attention_plain(q, k, v).float()
@@ -1827,7 +1879,7 @@ def phase1_dense(peaks):
             f" + 2^-9*max|v|); launch {launch}")
         if over or not torch.isfinite(got).all():
             fail(f"qtiled_attention [{name}] differs from its plain version")
-        if nq != nk or h != 16:
+        if nq != nk or (h != 16 and nq != 768):
             continue
         t = {"ms": cuda_ms(lambda: attention.qtiled_attention(q, k, v)),
              "queued_ms": cuda_ms_queued(
@@ -1864,6 +1916,8 @@ def phase1_dense(peaks):
         "replaces": "tools/try_vit_attn.py:27",
         "tolerance": "2^-7*max(1,|plain|) + 2^-9*max|v| (bf16)", **main,
         "sass": sass, "at_16x1024": timed["vit 16 x 1024"],
+        "at_16x768": timed["dust3r encoder 16 x 768"],
+        "at_12x768": timed["dust3r decoder 12 x 768"],
         "per": f"launch at {D_HEADS} x {D_TOKENS} x {D_TOKENS} x 64 bf16 "
                f"(one DINOv2 block of one view)"}
 
@@ -2950,7 +3004,8 @@ def _served_modules(names=SERVED_KERNELS):
              "nms_cellmax": (cuda_nms, [cuda_nms]),
              "fused_attention": (attention, [lightglue]),
              "bidirectional_attention": (attention, [lightglue]),
-             "flash_attention": (attention, [lightglue])}
+             "flash_attention": (attention, [lightglue]),
+             "qtiled_attention": (attention, [attention])}
     return {name: where[name] for name in names}
 
 
@@ -3018,6 +3073,13 @@ def _check_served_kernels(seen, what="served request"):
                 top = want[0].abs().max().item()
                 over = sum(int((g != w).sum()) for g, w in zip(got, want))
                 tol = "exact"
+            elif name == "qtiled_attention":
+                q, _, v = args
+                diff = (got.float() - want.float()).abs()
+                err, top = diff.max().item(), want.float().abs().max().item()
+                over = int((diff > 2.0 ** -7 * want.float().abs().clamp_min(
+                    1.0) + 2.0 ** -9 * v.float().abs().max()).sum())
+                tol = "2^-7*max(1,|plain|) + 2^-9*max|v|"
             elif name.endswith("attention"):
                 if isinstance(got, torch.Tensor):
                     got, want = (got,), (want,)
@@ -3029,6 +3091,15 @@ def _check_served_kernels(seen, what="served request"):
                     args[0].shape[1], args[1].shape[1]) >= 4096 else 1e-5
                 over = int(err > f * max(1.0, top))
                 tol = f"{f:g}*max(1,max|plain|)"
+                if over:
+                    # where the float32 plain version is itself that far
+                    # from exact (large logits), both are held against the
+                    # plain version in float64: the kernel within twice
+                    # the float32 plain version's own error
+                    e_k, e_p = _float64_errors(plain, args, got, want)
+                    over = int(e_k > max(f * max(1.0, top), 2 * e_p))
+                    tol += (f"; against float64: kernel {e_k:.3g}, plain "
+                            f"float32 {e_p:.3g} (bound twice that)")
             else:
                 diff = (got.float() - want.float()).abs()
                 err, top = diff.max().item(), want.float().abs().max().item()
@@ -3046,6 +3117,21 @@ def _check_served_kernels(seen, what="served request"):
                 fail(f"{name} [{shape} {dtype}] of the {what} differs from "
                      f"its plain version")
     return out
+
+
+def _float64_errors(plain, args, got, want):
+    """Largest |kernel − exact| and |plain float32 − exact| of one launch,
+    "exact" the plain version run in float64 on the same inputs."""
+    import torch
+
+    ref = plain(*(a.double() if isinstance(a, torch.Tensor) and
+                  a.is_floating_point() else a for a in args))
+    if isinstance(ref, torch.Tensor):
+        ref = (ref,)
+    return (max((g.double() - r).abs().max().item()
+                for g, r in zip(got, ref)),
+            max((w.double() - r).abs().max().item()
+                for w, r in zip(want, ref)))
 
 
 def _zoo_conf(key):
@@ -3230,8 +3316,8 @@ def _sphere_graphs(data):
                 (card != own).any(-1).sum())}
 
 
-def phase10(peaks):
-    """The sparse zoo on the card: each Z_ENTRIES entry through
+def phase10(peaks, entries=Z_ENTRIES, label="phase 10"):
+    """The sparse zoo on the card: each ``entries`` entry through
     ImageMatchingAPI at the API's defaults on a planted Z_SIZE pair: finite
     outputs of the expected shape, each kernel the request launches held
     against its plain version on the request's own tensors, every count at
@@ -3249,7 +3335,7 @@ def phase10(peaks):
     capture = SERVED_KERNELS + ("fused_attention", "bidirectional_attention",
                                 "flash_attention")
     launches, out = {}, {}
-    for key in Z_ENTRIES:
+    for key in entries:
         t0 = time.perf_counter()
         api = _zoo_api(key, "cuda")
         feat, mat = _feature_model(api), api.matcher
@@ -3368,7 +3454,8 @@ def phase10(peaks):
         vs = _zoo_card_vs_cpu(key, api, img0, img1)
         steps["card against CPU"] = time.perf_counter() - t_step
         b = Z_BOUNDS["bf16" if key.startswith("superpoint") or key ==
-                     "superglue" else "sift" if key in Z_SIFT else "f32"]
+                     "superglue" else "sift" if key in Z_SIFT else
+                     "exact" if key in R_ENTRIES else "f32"]
         log(f"  {key}: card against CPU on pair {Z_SEEDS[0]}"
             + (f" at resize_max {vs['resize_max']}" if key in Z_CPU_RESIZE
                else "")
@@ -3412,7 +3499,265 @@ def phase10(peaks):
         del api
         torch.cuda.empty_cache()
     out["phase_s"] = time.perf_counter() - t_phase
-    log(f"  phase 10: {out['phase_s']:.1f} s")
+    log(f"  {label}: {out['phase_s']:.1f} s")
+    return launches, out
+
+
+def _pointmap_maps(model, x0, x1):
+    """The dense maps a pointmap model's matching reads, for one prepared
+    pair: DUSt3R's view-1 pointmap and confidence, MASt3R's view-1
+    descriptors and their confidence, all float32."""
+    import torch
+
+    from imcui_tpu_torch.models.layers import full_fp32
+    from imcui_tpu_torch.models.matchers import duster, mast3r
+
+    c, p = model.conf, model.params
+    with torch.inference_mode(), full_fp32():
+        t0, grid = duster.encode(p, x0, c)
+        t1, _ = duster.encode(p, x1, c)
+        h0, h1 = duster.decode(p, t0, t1, grid, c)
+        if type(model).__name__ == "Mast3r":
+            return mast3r.desc_head_apply(
+                p["downstream_head2"]["head_local_features"], h1[0], h1[-1],
+                grid, c["patch"], c["desc_dim"])
+        return duster.head_to_pointmap(p["downstream_head2"], h1, grid,
+                                       c["patch"])
+
+
+def _cpu_twin(api_conf, model):
+    """ImageMatchingAPI on the CPU with the card model's tree, copied
+    (``weights.seeded_init``, which draws a seed-0 tree, hands it over
+    instead of drawing one on the host)."""
+    from imcui_tpu_torch.api.core import ImageMatchingAPI
+    from imcui_tpu_torch.utils import weights
+
+    real = weights.seeded_init
+    tree = weights.to_device(model.params, "cpu")
+    weights.seeded_init = lambda *a, **k: tree
+    try:
+        return ImageMatchingAPI(api_conf, device="cpu")
+    finally:
+        weights.seeded_init = real
+
+
+def _dense_request_times(api, img0, img1, fns):
+    """Counts at 0, three timed requests (ms each), the launches they made,
+    then one profiler window: (ms runs, launches, device busy ms, events,
+    the last prediction)."""
+    import torch
+
+    for fn in fns.values():
+        fn.launches = 0
+    ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        pred = api(img0, img1)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t1) * 1e3)
+    got = {n: fn.launches for n, fn in fns.items() if fn.launches}
+    busy, evs = device_window(lambda i: api(img0, img1), 1)
+    return ms, got, busy, evs, pred
+
+
+def _check_dense_pred(tag, pred, least=1):
+    for k in ("mkeypoints0_orig", "mkeypoints1_orig", "mconf"):
+        v = np.asarray(pred[k])
+        if not np.isfinite(v).all() or (v.ndim == 2 and v.shape[1] != 2):
+            fail(f"{tag}: {k} is not finite or not (n, 2): {v.shape}")
+    if len(pred["mkeypoints0_orig"]) < least:
+        fail(f"{tag}: {len(pred['mkeypoints0_orig'])} matches, fewer than "
+             f"{least}")
+
+
+def _log_dense(tag, ms, busy, evs, pred, got):
+    med = float(np.median(ms))
+    log(f"  {tag}: {med:.2f} ms per request (median of 3 after a warm-up; "
+        f"{[round(m, 2) for m in ms]}), device busy {busy:.2f} ms, idle "
+        f"share {1 - busy / med:.3f}; {len(pred['mkeypoints0_orig'])} "
+        f"matches; launches per request "
+        f"{ {n: c / 3 for n, c in got.items()} }; top device time:")
+    for e in sorted(evs, key=lambda e: e.self_device_time_total,
+                    reverse=True)[:4]:
+        log(f"    {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:g}  "
+            f"{e.key[:90]}")
+    return {"ms_per_request": med, "ms_runs": ms, "device_busy_ms": busy,
+            "device_idle_share": 1 - busy / med,
+            "matches": len(pred["mkeypoints0_orig"]),
+            "launches_per_request": {n: c / 3 for n, c in got.items()}}
+
+
+def phase12_pointmaps(pairs, fns):
+    """DUSt3R and MASt3R through ImageMatchingAPI at the registry's conf
+    and full ViT-L width, in float32 (no kernel launched) and in bfloat16
+    with vit.ATTN_IMPL = "fused" (every K14 launch of a request held
+    against its plain version, V_K14 a request), each timed, and the card
+    against the CPU at V_CPU_RESIZE. Returns (launches, measurements)."""
+    import torch
+
+    from imcui_tpu_torch.api.core import ImageMatchingAPI
+    from imcui_tpu_torch.models.backbones import vit
+    from imcui_tpu_torch.ui import utils as ui
+
+    img0, img1, _ = pairs[0]
+    launches, out = {}, {}
+    for name in V_ENTRIES:
+        for precision in ("fp32", "bf16"):
+            tag = f"{name} {precision}"
+            t0 = time.perf_counter()
+            conf = ui.parse_match_config({"matcher": name, "dense": True})
+            conf["matcher"]["model"]["precision"] = \
+                None if precision == "fp32" else "bf16"
+            api = ImageMatchingAPI(conf, device="cuda")
+            model = api.matcher
+            impl = "xla" if precision == "fp32" else "fused"
+            vit.ATTN_IMPL = impl
+            try:
+                api(img0, img1)  # warm-up
+                checks = {}
+                if precision == "bf16":
+                    seen = _capture_kernel_args(lambda: api(img0, img1),
+                                                ("qtiled_attention",))
+                    if len(seen["qtiled_attention"]) != V_K14:
+                        fail(f"{tag}: {len(seen['qtiled_attention'])} K14 "
+                             f"launches in a request, not {V_K14}")
+                    shapes = sorted({tuple(a[0].shape) for a, _ in
+                                     seen["qtiled_attention"]})
+                    checks = _check_served_kernels(seen, f"{tag} request")
+                    log(f"  {tag}: K14 shapes {shapes}")
+                    del seen
+                ms, got, busy, evs, pred = _dense_request_times(
+                    api, img0, img1, fns)
+            finally:
+                vit.ATTN_IMPL = "xla"
+            want = {"qtiled_attention": 3 * V_K14} if precision == "bf16" \
+                else {}
+            if got != want:
+                fail(f"{tag}: three requests launched {got}, not {want}")
+            _check_dense_pred(tag, pred)
+            res = _log_dense(tag, ms, busy, evs, pred, got)
+            res["kernel_checks"] = checks
+            for n, c in got.items():
+                launches[n] = launches.get(n, 0) + c
+
+            # card against CPU at V_CPU_RESIZE, on the card's tree
+            t1 = time.perf_counter()
+            conf["matcher"]["preprocessing"]["resize_max"] = V_CPU_RESIZE
+            cpu = _cpu_twin(conf, model)
+            small = {}
+            for dev, a in (("cuda", api), ("cpu", cpu)):
+                a.match_conf["preprocessing"]["resize_max"] = V_CPU_RESIZE
+                d = [_canvas(im, a.match_conf["preprocessing"])
+                     for im in (img0, img1)]
+                x = [a.matcher._prepare(t[None])[0] for t in d]
+                small[dev] = [t.float().cpu().numpy()
+                              for t in _pointmap_maps(a.matcher, *x)]
+            errs = []
+            for g, w in zip(small["cuda"], small["cpu"]):
+                diff = np.abs(g - w)
+                top = float(np.abs(w).max())
+                errs.append(float(diff.max() / top if precision == "fp32"
+                                  else np.median(diff) / top))
+            bound_ = V_CPU_TOL if precision == "fp32" else V_CPU_BF16
+            log(f"  {tag}: card against CPU at resize_max {V_CPU_RESIZE} "
+                f"({small['cpu'][0].shape[:2]} px): view 1's maps within "
+                f"{[f'{e:.3g}' for e in errs]} of the largest ("
+                + ("max" if precision == "fp32" else "median")
+                + f"; bound {bound_})")
+            if not all(e <= bound_ for e in errs):
+                fail(f"{tag}: the card and the CPU disagree: {errs}")
+            res["card_vs_cpu"] = {"resize_max": V_CPU_RESIZE, "errs": errs,
+                                  "bound": bound_,
+                                  "s": time.perf_counter() - t1}
+            res["seconds"] = time.perf_counter() - t0
+            out[tag] = res
+            del api, cpu, model
+            torch.cuda.empty_cache()
+    return launches, out
+
+
+def _canvas(image, pre):
+    """One view preprocessed as the dense pipeline does it: the (3 or 1,
+    H, W) float32 canvas."""
+    import torch
+
+    from imcui_tpu_torch.utils import image as image_utils
+
+    pconf = image_utils.load_conf(pre)
+    d = image_utils.preprocess(
+        np.asarray(image), grayscale=pconf.grayscale,
+        resize_max=pconf.resize_max, force_resize=pconf.force_resize,
+        width=pconf.width, height=pconf.height, dfactor=pconf.dfactor)
+    return torch.from_numpy(d["image"][0])
+
+
+def phase12_dkm(pairs, fns):
+    """DKM through ImageMatchingAPI at the registry's conf and at
+    coarse_res K_COARSE, three timed requests each (no kernel launched),
+    and the card against the CPU on the registry's request."""
+    import torch
+
+    from imcui_tpu_torch.api.core import ImageMatchingAPI
+    from imcui_tpu_torch.ui import utils as ui
+
+    img0, img1, _ = pairs[0]
+    out = {}
+    for tag, coarse in (("dkm", None), (f"dkm at {K_COARSE}", K_COARSE)):
+        t0 = time.perf_counter()
+        conf = ui.parse_match_config({"matcher": "dkm", "dense": True})
+        conf["matcher"]["model"]["coarse_res"] = coarse
+        api = ImageMatchingAPI(conf, device="cuda")
+        api(img0, img1)  # warm-up
+        ms, got, busy, evs, pred = _dense_request_times(api, img0, img1, fns)
+        if got:
+            fail(f"{tag}: launched {got}; no kernel lies on DKM's path")
+        _check_dense_pred(tag, pred, 1000)
+        res = _log_dense(tag, ms, busy, evs, pred, got)
+        if coarse is None:
+            t1 = time.perf_counter()
+            cpu = _cpu_twin(conf, api.matcher)
+            maps = {}
+            for dev, a in (("cuda", api), ("cpu", cpu)):
+                pre = a.match_conf["preprocessing"]
+                d = [_canvas(im, pre)[None]
+                     for im in (img0, img1)]
+                size = a.matcher.conf["coarse_res"] or tuple(
+                    max(round(n / 32), 1) * 32 for n in d[0].shape[-2:])
+                x = [a.matcher._prepare(t, size)[0] for t in d]
+                with torch.inference_mode():
+                    maps[dev] = [t.float().cpu().numpy()
+                                 for t in a.matcher.match(*x)]
+            errs = [float(np.abs(g - w).max() / np.abs(w).max())
+                    for g, w in zip(maps["cuda"], maps["cpu"])]
+            log(f"  {tag}: card against CPU at {maps['cpu'][1].shape}: warp "
+                f"and certainty within {[f'{e:.3g}' for e in errs]} of the "
+                f"largest (bound {K_CPU_TOL})")
+            if not all(e <= K_CPU_TOL for e in errs):
+                fail(f"{tag}: the card and the CPU disagree: {errs}")
+            res["card_vs_cpu"] = {"errs": errs, "bound": K_CPU_TOL,
+                                  "s": time.perf_counter() - t1}
+            del cpu
+        res["seconds"] = time.perf_counter() - t0
+        out[tag] = res
+        del api
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase12(peaks):
+    """REKD and RaCo through phase 10's loop, then DUSt3R, MASt3R and DKM
+    (each timed, each held to the CPU). Returns (launches, measurements)."""
+    t_phase = time.perf_counter()
+    launches, out = phase10(peaks, R_ENTRIES, "phase 12, REKD and RaCo")
+    pairs = [synthetic_pair(Z_SEEDS[0], *Z_SIZE)]
+    fns = _wrappers()
+    more, out["pointmaps"] = phase12_pointmaps(pairs, fns)
+    for n, c in more.items():
+        launches[n] = launches.get(n, 0) + c
+    out["dkm"] = phase12_dkm(pairs, fns)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase 12: {out['phase_s']:.1f} s")
     return launches, out
 
 
@@ -3965,6 +4310,9 @@ def main():
     launches_zoo, timing["zoo"] = phase10(peaks)
     log("phase 11: SIFT's stages on the card against the CPU")
     timing["sift"] = phase11()
+    log("phase 12: REKD, raco+lightglue, DUSt3R and MASt3R (ViT-L, f32 and "
+        "bf16 through K14) and DKM (ImageMatchingAPI)")
+    launches_12, timing["zoo_12"] = phase12(peaks)
     for r in rows:
         by_path = {
             "turbo": launches.get(r["name"], 0),
@@ -3975,7 +4323,8 @@ def main():
             "probes": launches_probes.get(r["name"], 0),
             "surfaces": launches_surfaces.get(r["name"], 0),
             "eval": launches_eval.get(r["name"], 0),
-            "zoo": launches_zoo.get(r["name"], 0)}
+            "zoo": launches_zoo.get(r["name"], 0),
+            "zoo 12": launches_12.get(r["name"], 0)}
         r["launches_by_path"] = by_path
         r["launches"] = sum(by_path.values())
         if r["launches"] == 0:

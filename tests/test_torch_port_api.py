@@ -417,8 +417,8 @@ def test_filter_matches_edge_cases_and_cv2_methods():
 def test_api_standalone_and_visualize_are_not_ported(apis):
     # the standalone branch is open; a dense matcher without a model in the
     # port still raises, naming the model
-    with pytest.raises(NotImplementedError, match="'dkm' is not ported"):
-        TorchAPI({"standalone": True, "matcher": {"model": {"name": "dkm"}}},
+    with pytest.raises(NotImplementedError, match="'cotr' is not ported"):
+        TorchAPI({"standalone": True, "matcher": {"model": {"name": "cotr"}}},
                  device="cpu")
     with pytest.raises(NotImplementedError, match="cv2"):
         apis[1].visualize()

@@ -717,13 +717,16 @@ def test_image_matching_api_on_card(gen):
     assert np.median(err) <= chip_smoke.GATE_MEDIAN_PX
 
 
-# K14's shapes: the dense path's; one key (tile) and one query; keys on
+# K14's shapes: the dense paths' (RoMa's DINOv2 at 1601 tokens, DUSt3R's
+# and MASt3R's 768-token encoder at 16 heads and decoder at 12); one key
+# (tile) and one query; keys on
 # both sides of the 64- and 128-key edges and at the route's limit; queries
 # on both sides of the 64-row CTA's edges, and ragged against the 128- and
 # 192-row multiples; and heads enough for several rounds of CTAs (64 x 1000:
 # 1024 CTAs, two an SM on 132 SMs).
 QTILED_SHAPES = [
-    (16, 1601, 1601), (12, 1024, 1024), (3, 50, 77), (2, 197, 197),
+    (16, 1601, 1601), (12, 1024, 1024), (16, 768, 768), (12, 768, 768),
+    (3, 50, 77), (2, 197, 197),
     (1, 1, 1), (2, 33, 2048), (4, 1024, 16),
     (3, 65, 63), (3, 129, 64), (3, 191, 65), (5, 127, 127), (5, 255, 128),
     (5, 257, 129), (2, 1000, 2048), (16, 4607, 129), (16, 4609, 65),

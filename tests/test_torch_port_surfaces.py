@@ -438,8 +438,8 @@ def test_zoo_entry_of_an_unported_model_raises_naming_it():
     zoo = tui.get_matcher_zoo(tui.load_config(
         ROOT / "imcui_tpu_torch/config/app.yaml")["matcher_zoo"])
     pair = chip_smoke.synthetic_pair(100, 80, 64)
-    with pytest.raises(NotImplementedError, match="'dkm'"):
-        tui.run_matching(pair[0], pair[1], key="dkm",
+    with pytest.raises(NotImplementedError, match="'lisrd'"):
+        tui.run_matching(pair[0], pair[1], key="lisrd",
                          matcher_zoo=zoo, device="cpu")
 
 
