@@ -3699,6 +3699,7 @@ def phase12_dkm(pairs, fns):
     import torch
 
     from imcui_tpu_torch.api.core import ImageMatchingAPI
+    from imcui_tpu_torch.models.matchers import dkm
     from imcui_tpu_torch.ui import utils as ui
 
     img0, img1, _ = pairs[0]
@@ -3722,8 +3723,7 @@ def phase12_dkm(pairs, fns):
                 pre = a.match_conf["preprocessing"]
                 d = [_canvas(im, pre)[None]
                      for im in (img0, img1)]
-                size = a.matcher.conf["coarse_res"] or tuple(
-                    max(round(n / 32), 1) * 32 for n in d[0].shape[-2:])
+                size = dkm.coarse_size(a.matcher.conf, *d[0].shape[-2:])
                 x = [a.matcher._prepare(t, size)[0] for t in d]
                 with torch.inference_mode():
                     maps[dev] = [t.float().cpu().numpy()

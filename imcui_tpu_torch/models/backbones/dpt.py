@@ -47,7 +47,8 @@ def conv_transpose_s(p, x):
 
 def interp_matrix(n_in, n_out, device="cpu"):
     """(n_out, n_in) float32 matrix of torch's align_corners=True bilinear
-    interpolation: output i samples the input at i·(n_in − 1)/(n_out − 1)."""
+    interpolation: output i samples the input at
+    i·(n_in − 1)/(n_out − 1)."""
     pos = torch.linspace(0.0, n_in - 1.0, n_out, device=device)
     i0 = pos.floor().long().clamp(0, n_in - 1)
     i1 = (i0 + 1).clamp(max=n_in - 1)

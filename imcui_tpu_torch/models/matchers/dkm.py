@@ -27,8 +27,9 @@ even). Through ``ImageMatchingAPI`` that input is the bucketed canvas, as
 in the JAX package: the registry's ``dkm`` forces 80 × 60, floors it to
 80 × 56 and pads it to 256 × 256, so DKM runs at 256 × 256 on an image
 that fills a sixteenth of it (64 × 64 if called on the image alone);
-``gim(dkm)``'s 320 × 240 sits on a 256 × 320 canvas. The keypoints return to the inputs' pixels by (w − 1)/(cw − 1)
-and (h − 1)/(ch − 1). A float32 tree runs in full float32.
+``gim(dkm)``'s 320 × 240 sits on a 256 × 320 canvas. The keypoints
+return to the inputs' pixels by (w − 1)/(cw − 1) and (h − 1)/(ch − 1). A
+float32 tree runs in full float32.
 
 No trained tree (``DKMv3_outdoor.pth``, ``gim_dkm_100h.ckpt``) is in the
 repository: the model runs a user's ``checkpoint_npz`` or the port's
@@ -154,12 +155,6 @@ def dfn_apply(dec, s, gp_out, feats, context):
     return preds[1:3].permute(1, 2, 0), preds[0], context
 
 
-def _resize_hw(x, h, w):
-    """Bilinear resize of (h', w', ...) to (h, w, ...), as
-    ``jax.image.resize``."""
-    return resize_ops.resize(x, (h, w), "bilinear", dims=(0, 1))
-
-
 def match(params, image0, image1):
     """Dense warp (H, W, 2) into image 1 (normalised coordinates) and
     certainty (H, W) in [0, 1] of one pair of (3, H, W) RGB images in
@@ -198,7 +193,8 @@ def match(params, image0, image1):
                 disp_scale=1.0)
         if s_int != 1:
             hn, wn = f0[s_int // 2].shape[1:]
-            flow, cert = _resize_hw(flow, hn, wn), _resize_hw(cert, hn, wn)
+            flow = roma_mod._resize(flow, hn, wn)
+            cert = roma_mod._resize(cert, hn, wn)
     return flow.float(), torch.sigmoid(cert.float())
 
 

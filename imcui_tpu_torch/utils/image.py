@@ -154,16 +154,20 @@ def _area_general(x, size):
     """OpenCV's ``ResizeArea_Invoker`` on float32: each source row summed
     across in tap order (``buf += S·alpha``), then the rows summed down in
     tap order (``sum += beta·buf``), every product and sum rounded to
-    float32."""
-    (ix, ax), (iy, ay) = _area_taps(x.shape[1], size[0]), \
-        _area_taps(x.shape[0], size[1])
-    rows = np.zeros((x.shape[0], size[0], x.shape[2]), np.float32)
+    float32. Rows are (W·C) wide, channels interleaved, as OpenCV's."""
+    h, w, c = x.shape
+    (ix, ax), (iy, ay) = _area_taps(w, size[0]), _area_taps(h, size[1])
+    ix = (ix[:, None, :] * c + np.arange(c)[None, :, None]).reshape(
+        size[0] * c, -1)
+    ax = np.repeat(ax, c, axis=0)
+    flat = x.reshape(h, w * c)
+    rows = np.zeros((h, size[0] * c), np.float32)
     for k in range(ix.shape[1]):
-        rows = rows + x[:, ix[:, k]] * ax[:, k, None]
-    out = np.zeros((size[1], size[0], x.shape[2]), np.float32)
+        rows += np.take(flat, ix[:, k], axis=1) * ax[:, k]
+    out = np.zeros((size[1], size[0] * c), np.float32)
     for k in range(iy.shape[1]):
-        out = out + ay[:, k, None, None] * rows[iy[:, k]]
-    return out
+        out += ay[:, k, None] * np.take(rows, iy[:, k], axis=0)
+    return out.reshape(size[1], size[0], c)
 
 
 def _area_fast(x, sx, sy):

@@ -131,7 +131,8 @@ def test_rekd_matches_jax():
     got = trekd.apply(ttree, _t(x), torch.from_numpy(vwh), max_keypoints=96)
     _same_set(got, want, 50)
     tk = got["keypoints"][0].numpy()[got["mask"][0].numpy()]
-    assert (tk[:, 0] <= 2 * (62 - 2)).all() and (tk[:, 1] <= 2 * (47 - 2)).all()
+    assert (tk[:, 0] <= 2 * (62 - 2)).all()
+    assert (tk[:, 1] <= 2 * (47 - 2)).all()
 
 
 def test_rekd_group_weights_match_jax_rotations():

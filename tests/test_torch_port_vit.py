@@ -569,8 +569,8 @@ def test_dinov2_init_tree_and_pos_embed():
 
 def test_port_imports_no_jax_cv2_pil_or_jax_package():
     """Import every module of imcui_tpu_torch in a fresh interpreter (the
-    evaluations in imcui_tpu_torch/eval/ and the sparse zoo's models among
-    them) and look at sys.modules: no JAX, cv2, PIL, h5py, triton or
+    evaluations in imcui_tpu_torch/eval/ and the zoo's models among them)
+    and look at sys.modules: no JAX, cv2, PIL, h5py, triton or
     torchvision."""
     code = (
         "import importlib, pkgutil, sys\n"
@@ -595,7 +595,10 @@ def test_port_imports_no_jax_cv2_pil_or_jax_package():
         "'models.extractors.sift', 'models.extractors.dog', "
         "'models.extractors.r2d2', 'models.extractors.darkfeat', "
         "'models.extractors.lanet', 'models.extractors.liftfeat', "
-        "'models.extractors.ripe')}\n"
+        "'models.extractors.ripe', 'models.extractors.rekd', "
+        "'models.extractors.raco', 'models.backbones.dpt', "
+        "'models.matchers.duster', 'models.matchers.mast3r', "
+        "'models.matchers.dkm')}\n"
         "print(len(names), bad, sorted(evals - set(names)))\n"
         "sys.exit(1 if bad or len(names) < 30 or evals - set(names) "
         "else 0)\n")
