@@ -112,7 +112,20 @@ Phases, each of which passes or ends the run with a non-zero exit:
      against its plain version), ms per request, device busy and idle
      share, the card against the CPU at resize_max 224; DKM at the
      registry's conf and at coarse_res (544, 704), timed, the card against
-     the CPU on the warp and certainty.
+     the CPU on the warp and certainty;
+ 13. the line matchers, LISRD and the wrappers on RoMa: the packaged
+     gluestick (bf16 SuperPoint, LSD restated in ops/lsd.py, mutual NN and
+     the line vote) and lisrd, the root config/app.yaml's
+     LISRD+SuperPoint, LISRD+ALIKED, LISRD+SIFT, dad(RoMa) and RoMaV2, and
+     the registry's sold2, each on a planted 1600x1200 pair: every stem,
+     K1 and K2 launch (and DaD's 96 K3 launches a request) held against
+     its plain version and counted, ms per request, device busy and idle
+     share, the card against the port's CPU run (LSD's segments equal,
+     lines as sets, keypoints, raw matches); then LSD's stages on a
+     1024x768 view, card against CPU, each stage's device and wall time,
+     and gluestick's planted gate on three pairs beside the JAX package's
+     CPU numbers (inliers, median transfer error, the share of matched
+     lines within N_LINE_PX of their match's line).
 Near the end it prints one JSON line {"timing": ...}, one {"kernels":
 [...]} and the card's name and power limit; the last line is {"ok": true,
 "device": {...}}. Without a CUDA device, or without the rest of the
@@ -408,6 +421,40 @@ Z_BOUNDS["exact"] = {"kpt_iou": 1.0, "desc": 1e-4, "match_iou": 0.95}
 # confidence (MASt3R: descriptors and their confidence) within V_CPU_TOL
 # of the largest (float32) or with a median within V_CPU_BF16 (bfloat16,
 # which the two devices round in other places).
+# phase 13: the line matchers, LISRD and the wrappers on RoMa, each entry
+# through phase 10's serving loop on a planted Z_SIZE pair
+N_ENTRIES = ("gluestick", "lisrd", "LISRD+SuperPoint", "LISRD+ALIKED",
+             "LISRD+SIFT", "dad(RoMa)", "RoMaV2", "sold2")
+N_SOURCE = {"gluestick": "packaged", "lisrd": "packaged",
+            "LISRD+SuperPoint": "root", "LISRD+ALIKED": "root",
+            "LISRD+SIFT": "root", "dad(RoMa)": "root", "RoMaV2": "root",
+            "sold2": "registry"}
+# the kernels each entry's request must launch: the bf16 SuperPoint's stem
+# kernel, K1 and K2; DaD's float32 RoMa, K3 in its DINOv2 blocks
+N_EXPECTED = {"gluestick": SERVED_KERNELS, "lisrd": SERVED_KERNELS,
+              "LISRD+SuperPoint": SERVED_KERNELS,
+              "dad(RoMa)": ("fused_attention",)}
+N_K3 = 96  # DaD: two RoMa matches a pair, four DINOv2 encodes of 24 blocks
+N_SEEDS = (100, 101, 102)
+N_LINE_PX = 3.0
+# the JAX package's gluestick on the CPU on the same pairs
+# (tests/jax_gluestick_reference.py)
+N_JAX_CPU = {100: {"inliers": 665, "median_px": 1.4615, "line_matches": 199,
+                   "line_share": 1.0},
+             101: {"inliers": 657, "median_px": 1.4293, "line_matches": 185,
+                   "line_share": 0.973},
+             102: {"inliers": 737, "median_px": 1.3261, "line_matches": 200,
+                   "line_share": 0.99}}
+# card against CPU: keypoint IoU of a bf16 SuperPoint (ROADMAP "bf16
+# SuperPoint"), of the float32 detectors, raw-match IoU, and GlueStick's
+# matched line pairs as sets
+N_BOUNDS = {"kpt_iou_bf16": 0.9, "kpt_iou": 0.99, "match_iou_bf16": 0.8,
+            "match_iou": 0.95, "line_iou": 0.9, "dad_iou": 0.99,
+            "romav2_cells": 0.99}
+# SOLD2 on both devices at this cut size (its hourglass at 640 x 512 on
+# the CPU takes ~10 s a pair)
+N_SOLD2_CPU_WH = (320, 240)
+N_LSD_SIZE = (1024, 768)
 V_ENTRIES = ("duster", "mast3r")
 V_K14 = 2 * 24 + 2 * 2 * 12
 V_CPU_RESIZE = 224
@@ -608,6 +655,44 @@ def transfer_errors(hm, mk0, mk1):
     """|H·mk0 − mk1| in px for (n, 2) correspondences."""
     p = np.concatenate([mk0, np.ones((len(mk0), 1))], 1) @ hm.T
     return np.linalg.norm(p[:, :2] / p[:, 2:] - mk1, axis=1)
+
+
+def line_transfer_errors(hm, lines0, lines1):
+    """For (n, 2, 2) matched segments: the larger distance in px of
+    H·(an endpoint of lines0) to the infinite line through the matched
+    lines1 segment (a matched line is right where it is small)."""
+    if not len(lines0):
+        return np.zeros(0)
+    p = np.concatenate([lines0.reshape(-1, 2),
+                        np.ones((2 * len(lines0), 1))], 1) @ hm.T
+    p = (p[:, :2] / p[:, 2:]).reshape(-1, 2, 2)
+    a, b = lines1[:, 0], lines1[:, 1]
+    d = b - a
+    n = np.stack([-d[:, 1], d[:, 0]], 1)
+    n = n / np.maximum(np.linalg.norm(n, axis=1, keepdims=True), 1e-9)
+    dist = np.abs(((p - a[:, None]) * n[:, None]).sum(-1))
+    return dist.max(1)
+
+
+def gluestick_gate(pred, hm):
+    """GlueStick's planted-pair numbers of one prediction: raw point
+    matches, RANSAC inliers and their median transfer error, raw and
+    matched lines, and the share of matched lines within N_LINE_PX of
+    their match's line (``line_transfer_errors``)."""
+    err = transfer_errors(hm, pred["mmkeypoints0_orig"],
+                          pred["mmkeypoints1_orig"]) if "H" in pred \
+        else np.zeros(0)
+    lerr = line_transfer_errors(hm, np.asarray(pred["lines0_orig"][0]),
+                                np.asarray(pred["lines1_orig"][0]))
+    return {"raw_matches": len(pred["mkeypoints0_orig"]),
+            "inliers": len(err),
+            "median_px": round(float(np.median(err)), 4) if len(err)
+            else None,
+            "raw_lines": [len(pred["raw_lines0"][0]),
+                          len(pred["raw_lines1"][0])],
+            "line_matches": len(lerr),
+            "line_share": round(float((lerr <= N_LINE_PX).mean()), 4)
+            if len(lerr) else None}
 
 
 # --------------------------------------------------------------------------
@@ -3002,7 +3087,7 @@ def _served_modules(names=SERVED_KERNELS):
     where = {"stem_tail": (cuda_stage1, [cuda_stage1]),
              "stage_tail": (cuda_stage1, [cuda_stage1]),
              "nms_cellmax": (cuda_nms, [cuda_nms]),
-             "fused_attention": (attention, [lightglue]),
+             "fused_attention": (attention, [lightglue, attention]),
              "bidirectional_attention": (attention, [lightglue]),
              "flash_attention": (attention, [lightglue]),
              "qtiled_attention": (attention, [attention])}
@@ -3064,8 +3149,17 @@ def _check_served_kernels(seen, what="served request"):
         kernel, plain = (getattr(mods[name][0], name),
                          getattr(mods[name][0], f"{name}_plain"))
         for args, kw in calls:
+            pargs = args
+            if name == "fused_attention" and args[3] is None:
+                # an unmasked launch (mha_auto's ViT blocks): the plain
+                # version takes the all-valid mask the wrapper's CPU
+                # route builds
+                q, heads = args[0], args[4]
+                pargs = args[:3] + (torch.ones(
+                    (q.shape[0] // heads, q.shape[1]), dtype=torch.bool,
+                    device=q.device),) + args[4:]
             with full_fp32():
-                got, want = kernel(*args, **kw), plain(*args, **kw)
+                got, want = kernel(*args, **kw), plain(*pargs, **kw)
             torch.cuda.synchronize()
             if name == "nms_cellmax":
                 err = max((g - w).abs().max().item()
@@ -3096,7 +3190,7 @@ def _check_served_kernels(seen, what="served request"):
                     # from exact (large logits), both are held against the
                     # plain version in float64: the kernel within twice
                     # the float32 plain version's own error
-                    e_k, e_p = _float64_errors(plain, args, got, want)
+                    e_k, e_p = _float64_errors(plain, pargs, got, want)
                     over = int(e_k > max(f * max(1.0, top), 2 * e_p))
                     tol += (f"; against float64: kernel {e_k:.3g}, plain "
                             f"float32 {e_p:.3g} (bound twice that)")
@@ -3761,6 +3855,319 @@ def phase12(peaks):
     return launches, out
 
 
+# --------------------------------------------------------------------------
+# phase 13: the line matchers, LISRD and the wrappers on RoMa
+# --------------------------------------------------------------------------
+
+def _n_conf(key):
+    """The conf of phase 13's entry ``key`` (N_SOURCE says from where)."""
+    from imcui_tpu_torch.ui import utils as ui
+
+    src = N_SOURCE[key]
+    if src == "registry":
+        return ui.parse_match_config({"matcher": key, "dense": True})
+    where = ("imcui_tpu_torch", "config") if src == "packaged" else (
+        "config",)
+    return ui.get_matcher_zoo(ui.load_config(os.path.join(
+        ROOT, *where, "app.yaml"))["matcher_zoo"])[key]
+
+
+def segment_rows(lines):
+    """(n, 2, 2) segments → unoriented (n, 4) rows (the endpoint with the
+    smaller x, then y, first)."""
+    x = np.asarray(lines, np.float64).reshape(-1, 2, 2)
+    flip = (x[:, 0, 0] > x[:, 1, 0]) | ((x[:, 0, 0] == x[:, 1, 0])
+                                        & (x[:, 0, 1] > x[:, 1, 1]))
+    return np.where(flip[:, None, None], x[:, ::-1], x).reshape(-1, 4)
+
+
+def _line_pairs(pred):
+    """Matched segment pairs of a prediction as unoriented (n, 8) rows."""
+    l0 = np.asarray(pred["lines0"]).reshape(-1, 2, 2)
+    l1 = np.asarray(pred["lines1"]).reshape(-1, 2, 2)
+    return np.concatenate([segment_rows(l0), segment_rows(l1)], 1)
+
+
+def _detector_of(model):
+    """The model inside a phase-13 matcher that detects keypoints."""
+    return getattr(model, "sp", None) or getattr(model, "detector", None)
+
+
+def _n_card_vs_cpu(key, api, img0, img1):
+    """Phase 13's entry on the card against the port's CPU run on the same
+    trees: view 0's keypoints, the raw matches, and the lines (GlueStick's
+    LSD segments equal, line matches as sets; SOLD2 at N_SOLD2_CPU_WH on
+    both devices). DaD's wrapper runs on both devices from the card's
+    RoMa warps (RoMa itself is held to the CPU in phase 5); RoMaV2's final
+    warp and certainty are compared cell by cell on the same inputs, with
+    cuDNN (reported) and without it (gated)."""
+    import torch
+
+    from imcui_tpu_torch.api.core import ImageMatchingAPI
+    from imcui_tpu_torch.models.layers import full_fp32
+    from imcui_tpu_torch.models.matchers import dad_roma, roma
+
+    t0 = time.perf_counter()
+    model = api.matcher
+    if key == "dad(RoMa)":
+        x = [model._prepare(_canvas(im, api.match_conf["preprocessing"])
+                            [None])[0] for im in (img0, img1)]
+        with torch.inference_mode():
+            warps = [roma.match(model.params, x[0], x[1]),
+                     roma.match(model.params, x[1], x[0])]
+        real = roma.match
+        out = {}
+        try:
+            for dev in ("cuda", "cpu"):
+                ws = iter([tuple(t.to(dev) for t in w) for w in warps])
+                roma.match = lambda *a, **k: next(ws)
+                o = dad_roma.apply_pair(None, x[0].to(dev), x[1].to(dev),
+                                        int(model.conf["max_keypoints"]))
+                m = o["mask"].cpu().numpy()
+                out[dev] = np.concatenate(
+                    [o["keypoints0"].cpu().numpy()[m],
+                     o["keypoints1"].cpu().numpy()[m]], 1)
+        finally:
+            roma.match = real
+        iou = common_points(out["cuda"], out["cpu"], 1e-3)[0]
+        return {"wrapper_iou": iou, "matches": [len(v) for v in out.values()],
+                "ok": iou >= N_BOUNDS["dad_iou"],
+                "s": time.perf_counter() - t0}
+    if key == "RoMaV2":
+        # cuDNN picks FFT convolutions for the fpn-corr path's float32
+        # convs (TF32 off), whose rounding errors scale with the largest
+        # activation; the seed-0 tree's small features turn them into
+        # ~1e-2 of the warp once unit-normalised and divided by the
+        # correlation's temperature. The served (cuDNN) warp is reported;
+        # the card's run without cuDNN holds the rest of the path, cell by
+        # cell, to the CPU's
+        from imcui_tpu_torch.models.matchers import romav2
+        from imcui_tpu_torch.utils import weights
+
+        x = [model._prepare(_canvas(im, api.match_conf["preprocessing"])
+                            [None])[0] for im in (img0, img1)]
+        cpu_params = weights.to_device(model.params, "cpu")
+        res = {"tol": L_FPN_TOL, "s": 0.0}
+        with torch.inference_mode(), full_fp32():
+            host = romav2.warp_pair(cpu_params, *(t.cpu() for t in x))
+            for tag, cudnn in (("cudnn", True), ("native", False)):
+                with torch.backends.cudnn.flags(enabled=cudnn):
+                    card = romav2.warp_pair(model.params, *x)
+                ew = (card[0].cpu() - host[0]).abs().amax(-1)
+                ec = (card[1].cpu() - host[1]).abs()
+                res[tag] = {
+                    "cells_within_tol": float(((ew <= L_FPN_TOL)
+                                               & (ec <= L_FPN_TOL)).float()
+                                              .mean()),
+                    "warp_err_median": float(ew.median()),
+                    "warp_err_max": float(ew.max()),
+                    "cert_err_max": float(ec.max())}
+        res["ok"] = res["native"]["cells_within_tol"] >= N_BOUNDS[
+            "romav2_cells"]
+        res["s"] = time.perf_counter() - t0
+        return res
+    if key == "sold2":
+        w, h = N_SOLD2_CPU_WH
+        conf = _n_conf(key)
+        conf["matcher"]["preprocessing"].update(width=w, height=h)
+        cpu = _cpu_twin(conf, model)
+        saved = dict(api.match_conf["preprocessing"])
+        api.match_conf["preprocessing"].update(width=w, height=h)
+        try:
+            preds = [a(img0, img1) for a in (api, cpu)]
+        finally:
+            api.match_conf["preprocessing"] = saved
+    else:
+        cpu = ImageMatchingAPI(_n_conf(key), device="cpu")
+        _copy_trees(model, cpu.matcher)
+        feats = [[], []]
+        hooks = [_detector_of(a.matcher).register_forward_hook(
+            lambda mod, args, o, f=f: f.append(
+                {k: v.detach().cpu().numpy() for k, v in o.items()}))
+            for a, f in zip((api, cpu), feats)
+            if _detector_of(a.matcher) is not None]
+        preds = [a(img0, img1) for a in (api, cpu)]
+        for hk in hooks:
+            hk.remove()
+    res = {"raw_matches": [len(p["mkeypoints0_orig"]) for p in preds],
+           "match_iou": raw_match_iou(preds[0], preds[1], S_TOL_PX)}
+    bf16 = key in ("gluestick", "lisrd", "LISRD+SuperPoint")
+    ok = not max(res["raw_matches"]) or res["match_iou"] >= N_BOUNDS[
+        "match_iou_bf16" if bf16 else "match_iou"]
+    if key not in ("sold2", "RoMaV2"):
+        kp = [f[0]["keypoints"][0][f[0]["mask"][0]] for f in feats]
+        if key == "LISRD+SIFT":
+            res["kpt_iou"] = oriented_pairs(
+                kp[0], np.degrees(feats[0][0]["oris"][0][
+                    feats[0][0]["mask"][0]]),
+                kp[1], np.degrees(feats[1][0]["oris"][0][
+                    feats[1][0]["mask"][0]]), Z_KPT_PX)[0]
+        else:
+            res["kpt_iou"] = common_points(kp[0], kp[1], Z_KPT_PX)[0]
+        res["keypoints"] = [len(k) for k in kp]
+        ok = ok and res["kpt_iou"] >= N_BOUNDS[
+            "kpt_iou_bf16" if bf16 else "kpt_iou"]
+    if "raw_lines0" in preds[0]:
+        for i in "01":
+            r = [segment_rows(p[f"raw_lines{i}"]) for p in preds]
+            res[f"raw_lines{i}"] = [len(v) for v in r]
+            res[f"raw_lines{i}_iou"] = common_points(r[0], r[1], 1e-4
+                                                     if key == "gluestick"
+                                                     else 1e-3)[0]
+        lp = [_line_pairs(p) for p in preds]
+        res["line_matches"] = [len(v) for v in lp]
+        res["line_match_iou"] = common_points(lp[0], lp[1], 1e-3)[0] \
+            if len(lp[0]) or len(lp[1]) else 1.0
+        if key == "gluestick":  # LSD is exact on both devices
+            ok = ok and res["raw_lines0_iou"] == res["raw_lines1_iou"] == 1.0
+        else:
+            ok = ok and min(res["raw_lines0_iou"],
+                            res["raw_lines1_iou"]) >= N_BOUNDS["line_iou"]
+        ok = ok and res["line_match_iou"] >= N_BOUNDS["line_iou"]
+    res["ok"] = ok
+    res["s"] = time.perf_counter() - t0
+    del cpu
+    torch.cuda.empty_cache()
+    return res
+
+
+def _lsd_stages(size=N_LSD_SIZE):
+    """``ops/lsd.py`` on one planted view at ``size`` on the card against
+    its CPU run (segments, widths and precisions equal), each device
+    stage's CUDA-event time, each stage's wall time on the card and the
+    CPU, and the host's share."""
+    import torch
+
+    from imcui_tpu_torch.ops import lsd
+
+    img = synthetic_pair(N_SEEDS[0], *size)[0][..., 0]
+    u = torch.from_numpy(img).cuda()
+    lsd.detect(u)  # warm-up
+    wall = {"cuda": {}, "cpu": {}}
+    card = lsd.detect(u, wall["cuda"])
+    cpu = lsd.detect(u.cpu(), wall["cpu"])
+    same = all(np.array_equal(a, b) for a, b in zip(card, cpu))
+    blurred = lsd.gaussian_blur_u8(u)
+    scaled = lsd.resize_linear_exact_u8(blurred)
+    device = {"blur": cuda_ms(lambda: lsd.gaussian_blur_u8(u)),
+              "resize": cuda_ms(lambda: lsd.resize_linear_exact_u8(blurred)),
+              "gradient": cuda_ms(lambda: lsd.gradient(scaled))}
+    total = sum(wall["cuda"].values())
+    host = sum(wall["cuda"][k] for k in ("copy", "sort", "grow"))
+    out = {"size": list(size), "segments": len(card[0]), "equal": same,
+           "device_ms": device,
+           "wall_ms_card": {k: v * 1e3 for k, v in wall["cuda"].items()},
+           "wall_ms_cpu": {k: v * 1e3 for k, v in wall["cpu"].items()},
+           "host_share_card": host / total}
+    log(f"  LSD on a {size[0]} x {size[1]} view: {len(card[0])} segments, "
+        f"card and CPU equal: {same}; device ms by stage "
+        f"{ {k: round(v, 4) for k, v in device.items()} }; wall ms on the "
+        f"card {({k: round(v, 2) for k, v in out['wall_ms_card'].items()})}"
+        f", on the CPU "
+        f"{({k: round(v, 2) for k, v in out['wall_ms_cpu'].items()})}; "
+        f"host share on the card {out['host_share_card']:.3f}")
+    if not same or len(card[0]) < 100:
+        fail("LSD: the card and the CPU disagree, or too few segments")
+    return out
+
+
+def _gluestick_gates(api, first):
+    """GlueStick's planted gate on every pair of N_SEEDS beside the JAX
+    package's CPU numbers: at least GATE_MIN_INLIERS inliers and 0.8 of
+    the JAX package's, a median transfer error at most GATE_MEDIAN_PX, and
+    a share of lines within N_LINE_PX at least the JAX package's less
+    0.1. ``first`` is the timed requests' prediction on the first pair."""
+    gates = []
+    for seed in N_SEEDS:
+        a, b, hm = synthetic_pair(seed, *Z_SIZE)
+        g = gluestick_gate(first if seed == N_SEEDS[0] else api(a, b), hm)
+        g["seed"] = seed
+        want = N_JAX_CPU.get(seed, {})
+        log(f"  gluestick pair {seed}: {g['raw_matches']} raw matches, "
+            f"{g['inliers']} inliers at a median {g['median_px']} px, "
+            f"{g['line_matches']} matched lines ({g['raw_lines']} raw), "
+            f"{g['line_share']} within {N_LINE_PX} px (the JAX package on "
+            f"the CPU: {want})")
+        if g["inliers"] < max(GATE_MIN_INLIERS,
+                              0.8 * want.get("inliers", 0)) \
+                or g["median_px"] is None \
+                or g["median_px"] > GATE_MEDIAN_PX \
+                or g["line_share"] is None \
+                or g["line_share"] < want.get("line_share", 0.5) - 0.1:
+            fail(f"gluestick pair {seed}: the planted gate fails: {g}")
+        gates.append(g)
+    return gates
+
+
+def phase13():
+    """The line matchers, LISRD and the wrappers on RoMa through
+    ImageMatchingAPI on the card, each N_ENTRIES entry on a planted Z_SIZE
+    pair: the kernels its request launches held against their plain
+    versions on the request's tensors (N_EXPECTED's must be among them),
+    counts at 0 before three timed requests and read after, finite
+    outputs, ms per request, device busy and idle share, the card against
+    the port's CPU run; then LSD's stages and GlueStick's planted gate.
+    Returns (launches of the main path, measurements)."""
+    import torch
+
+    from imcui_tpu_torch.api.core import ImageMatchingAPI
+
+    t_phase = time.perf_counter()
+    img0, img1, _ = synthetic_pair(N_SEEDS[0], *Z_SIZE)
+    fns = _wrappers()
+    capture = SERVED_KERNELS + ("fused_attention",)
+    launches, out = {}, {}
+    for key in N_ENTRIES:
+        t0 = time.perf_counter()
+        api = ImageMatchingAPI(_n_conf(key), device="cuda")
+        model = api.matcher
+        log(f"  {key}: {type(model).__name__} {model.conf}, weights "
+            f"{model.meta}; built in {time.perf_counter() - t0:.1f} s")
+        # the first request, whose kernel launches are recorded, is also
+        # the warm-up of the timed ones (cuDNN's choices, the allocator)
+        seen = _capture_kernel_args(lambda: api(img0, img1), capture)
+        seen = {n: c for n, c in seen.items() if c}
+        if key == "dad(RoMa)" and len(seen.get("fused_attention", ())) \
+                != N_K3:
+            fail(f"{key}: {len(seen.get('fused_attention', ()))} K3 "
+                 f"launches in a request, not {N_K3}")
+        checks = _check_served_kernels(seen, f"{key} request") if seen \
+            else {}
+        del seen
+        ms, got, busy, evs, pred = _dense_request_times(api, img0, img1, fns)
+        for n, c in got.items():
+            launches[n] = launches.get(n, 0) + c
+        if set(got) - set(checks):
+            fail(f"{key}: launched {sorted(set(got) - set(checks))} without "
+                 f"holding it against its plain version")
+        missing = [n for n in N_EXPECTED.get(key, ()) if not got.get(n)]
+        if missing:
+            fail(f"{key}: the request launched no {missing}")
+        _check_dense_pred(key, pred, 0 if key == "sold2" else 1)
+        if "raw_lines0" in pred and not len(pred["raw_lines0"][0] if key
+                                            == "gluestick" else
+                                            pred["raw_lines0"]):
+            fail(f"{key}: no line detected")
+        res = _log_dense(key, ms, busy, evs, pred, got)
+        res["kernel_checks"] = checks
+        vs = _n_card_vs_cpu(key, api, img0, img1)
+        log(f"  {key}: card against CPU: {vs}")
+        if not vs["ok"]:
+            fail(f"{key}: the card and the CPU disagree: {vs}")
+        res["card_vs_cpu"] = vs
+        if key == "gluestick":
+            res["gate"] = _gluestick_gates(api, pred)
+        res["seconds"] = time.perf_counter() - t0
+        log(f"  {key}: {res['seconds']:.1f} s")
+        out[key] = res
+        del api, model
+        torch.cuda.empty_cache()
+    out["lsd"] = _lsd_stages()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase 13: {out['phase_s']:.1f} s")
+    return launches, out
+
+
 def oriented_pairs(pa, aa, pb, ab, tol):
     """Keypoints of a and b paired by point (within ``tol`` px, max norm)
     and then by the nearest angle (one point can hold several
@@ -4313,6 +4720,9 @@ def main():
     log("phase 12: REKD, raco+lightglue, DUSt3R and MASt3R (ViT-L, f32 and "
         "bf16 through K14) and DKM (ImageMatchingAPI)")
     launches_12, timing["zoo_12"] = phase12(peaks)
+    log("phase 13: GlueStick on LSD, LISRD, SOLD2, DaD-RoMa and RoMaV2 "
+        f"(ImageMatchingAPI on {', '.join(N_ENTRIES)}), LSD's stages")
+    launches_13, timing["zoo_13"] = phase13()
     for r in rows:
         by_path = {
             "turbo": launches.get(r["name"], 0),
@@ -4324,7 +4734,8 @@ def main():
             "surfaces": launches_surfaces.get(r["name"], 0),
             "eval": launches_eval.get(r["name"], 0),
             "zoo": launches_zoo.get(r["name"], 0),
-            "zoo 12": launches_12.get(r["name"], 0)}
+            "zoo 12": launches_12.get(r["name"], 0),
+            "zoo 13": launches_13.get(r["name"], 0)}
         r["launches_by_path"] = by_path
         r["launches"] = sum(by_path.values())
         if r["launches"] == 0:

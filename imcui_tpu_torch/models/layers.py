@@ -91,6 +91,15 @@ def linear(p, x):
     return F.linear(x, w, b)
 
 
+def xla_mean3(x, dim):
+    """``jnp.mean`` over a dimension of size 3 as XLA computes it on the
+    CPU: the sum in index order times float32(1/3), which can differ in
+    the last bit from torch's ``mean`` (a division)."""
+    a, b, c = x.unbind(dim)
+    third = torch.tensor(1.0 / 3.0, dtype=x.dtype, device=x.device)
+    return ((a + b) + c) * third
+
+
 def batch_norm_inference(p, x, eps=1e-5):
     """Inference-mode batch norm over the channels of (B, C, H, W).
     p: {"mean", "var"} and, unless the layer is not affine, {"scale",

@@ -82,7 +82,8 @@ def test_merge_confs_and_dynamic_load():
     assert tbase.dynamic_load(textractors, "superpoint") is SuperPoint
     assert tbase.dynamic_load(tmatchers, "lightglue") is LightGlue
     with pytest.raises(NotImplementedError, match="not ported"):
-        tbase.dynamic_load(tmatchers, "gluestick")
+        tbase.dynamic_load(tmatchers, "omniglue")
+    assert tbase.dynamic_load(tmatchers, "gluestick").__name__ == "GlueStick"
     assert tmodels.__name__ == "imcui_tpu_torch.models"
 
 

@@ -1509,3 +1509,20 @@ def test_aliked_lightglue_request_launches_k5_and_k4_held_to_plain(gen):
     checks = chip_smoke._check_served_kernels(
         {n: c for n, c in seen.items() if c}, "aliked+lightglue request")
     assert all(not c["over"] for cs in checks.values() for c in cs)
+
+
+@pytest.mark.parametrize("hw", [(240, 320), (101, 157), (768, 1024)])
+def test_lsd_on_the_card_equals_its_cpu_run(gen, hw):
+    """``ops/lsd.py``: the device stages are integer or float64 arithmetic
+    (the angle's polynomial float32), so the segments, widths and
+    precisions found from a card tensor equal the CPU run's exactly."""
+    from imcui_tpu_torch.ops import lsd
+
+    rng = np.random.default_rng(sum(hw))
+    img = rng.integers(0, 256, (hw[0] // 8 + 1, hw[1] // 8 + 1))
+    img = np.kron(img, np.ones((8, 8)))[:hw[0], :hw[1]].astype(np.uint8)
+    u = torch.from_numpy(img)
+    card, cpu = lsd.detect(u.cuda()), lsd.detect(u)
+    assert len(cpu[0]) > 10
+    for a, b in zip(card, cpu):
+        np.testing.assert_array_equal(a, b)

@@ -398,11 +398,14 @@ SERVED_SPARSE = {"superpoint+lightglue", "superpoint+NN",
                  "dog-hardnet+NN"}
 SERVED_DENSE = {"loftr", "eloftr", "roma", "xfeat(dense)",
                 # on the ViT-L trunk and on ResNet-50
-                "duster", "mast3r", "dkm"}
+                "duster", "mast3r", "dkm",
+                # the line matcher on LSD, and LISRD
+                "gluestick", "lisrd"}
 # the dense entries whose full-width trees (ViT-L, ResNet-50) the zoo
 # tests resolve but do not build: six test workers each holding one would
 # exhaust the CPU's memory
-NOT_BUILT = {"duster", "mast3r", "dkm", "Mast3R", "DUSt3R", "GIM(dkm)"}
+NOT_BUILT = {"duster", "mast3r", "dkm", "Mast3R", "DUSt3R", "GIM(dkm)",
+             "dad(RoMa)"}
 # the entries of the repository's root config/app.yaml that the sparse zoo
 # on parts already ported serves
 SERVED_ROOT = {"xfeat+lightglue", "xfeat(dense)", "dedode",
@@ -413,7 +416,10 @@ SERVED_ROOT = {"xfeat+lightglue", "xfeat(dense)", "dedode",
                "hardnet", "sosnet", "r2d2", "darkfeat", "lanet",
                "liftfeat(sparse)", "ripe(+mnn)",
                # RaCo, then the dense entries on ViT-L and ResNet-50
-               "raco+lightglue", "Mast3R", "DUSt3R", "GIM(dkm)", "dkm"}
+               "raco+lightglue", "Mast3R", "DUSt3R", "GIM(dkm)", "dkm",
+               # GlueStick, LISRD's three detectors, the wrappers on RoMa
+               "gluestick", "LISRD+SuperPoint", "LISRD+ALIKED",
+               "LISRD+SIFT", "dad(RoMa)", "RoMaV2"}
 
 
 def _resolve(conf):
@@ -432,9 +438,8 @@ def _resolve(conf):
 
 
 def test_zoo_coverage_of_the_packaged_app_yaml():
-    """Every enabled entry of the packaged zoo either resolves both its
-    models in the port or raises NotImplementedError naming the missing
-    one: twenty-one are served, two raise (gluestick, lisrd). The fourteen
+    """Every enabled entry of the packaged zoo resolves both its models in
+    the port: all twenty-three are served and none raises. The fourteen
     sparse entries build on the CPU."""
     zoo = tui.get_matcher_zoo(tui.load_config(APP_YAML)["matcher_zoo"])
     missing = {key: _resolve(conf) for key, conf in zoo.items()}
@@ -442,8 +447,7 @@ def test_zoo_coverage_of_the_packaged_app_yaml():
     missing = {key: name for key, name in missing.items() if name}
     assert served == SERVED_SPARSE | SERVED_DENSE, sorted(served)
     assert set(zoo) == served | set(missing)
-    assert len(served) == 21 and len(missing) == 2, sorted(missing)
-    assert sorted(missing.values()) == ["gluestick", "lisrd"], missing
+    assert len(served) == 23 and not missing, sorted(missing)
     for key in sorted(SERVED_SPARSE):
         conf = zoo[key]
         if key == "superglue" or key.startswith("superpoint"):
@@ -454,13 +458,18 @@ def test_zoo_coverage_of_the_packaged_app_yaml():
 
 
 def test_zoo_coverage_of_the_root_app_yaml():
-    """The twenty-four entries of the repository's own WebUI zoo that the
-    zoo's later slices add resolve both their models, and all but the
-    ViT-L and ResNet-50 ones build on the CPU."""
-    zoo = tui.get_matcher_zoo(tui.load_config(
-        ROOT / "config" / "app.yaml")["matcher_zoo"])
+    """The thirty entries of the repository's own WebUI zoo that the zoo's
+    later slices add resolve both their models, and all but the ViT-L and
+    ResNet-50 ones build on the CPU; so does the yaml's disabled
+    ``sold2``."""
+    raw = tui.load_config(ROOT / "config" / "app.yaml")["matcher_zoo"]
+    zoo = tui.get_matcher_zoo(raw)
     assert {key: _resolve(zoo[key]) for key in SERVED_ROOT} == dict.fromkeys(
         SERVED_ROOT)
+    assert "sold2" not in zoo and raw["sold2"]["enable"] is False
+    sold2 = tui.parse_match_config(raw["sold2"])
+    assert _resolve(sold2) is None
+    assert tui.get_model(sold2["matcher"], "cpu").device.type == "cpu"
     for key in sorted(SERVED_ROOT - NOT_BUILT):
         conf = zoo[key]
         if conf["dense"]:

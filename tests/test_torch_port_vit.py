@@ -598,7 +598,9 @@ def test_port_imports_no_jax_cv2_pil_or_jax_package():
         "'models.extractors.ripe', 'models.extractors.rekd', "
         "'models.extractors.raco', 'models.backbones.dpt', "
         "'models.matchers.duster', 'models.matchers.mast3r', "
-        "'models.matchers.dkm')}\n"
+        "'models.matchers.dkm', 'ops.lsd', 'models.matchers.gluestick', "
+        "'models.matchers.lisrd', 'models.matchers.sold2', "
+        "'models.matchers.dad_roma', 'models.matchers.romav2')}\n"
         "print(len(names), bad, sorted(evals - set(names)))\n"
         "sys.exit(1 if bad or len(names) < 30 or evals - set(names) "
         "else 0)\n")
