@@ -120,18 +120,20 @@ Phases, each of which passes or ends the run with a non-zero exit:
      the registry's sold2, each on a planted 1600x1200 pair: every stem,
      K1 and K2 launch (and DaD's 96 K3 launches a request) held against
      its plain version and counted, ms per request, device busy and idle
-     share, the card against the port's CPU run (LSD's segments equal,
-     lines as sets, keypoints, raw matches); then LSD's stages on a
-     1024x768 view, card against CPU, each stage's device and wall time,
-     and gluestick's planted gate on three pairs beside the JAX package's
-     CPU numbers (inliers, median transfer error, the share of matched
-     lines within N_LINE_PX of their match's line).
+     share, the card against the port's CPU run on the served request
+     (LSD's segments equal, lines as sets, keypoints, raw matches; the
+     float32 warps of DaD's RoMa and of RoMaV2 cell by cell); then LSD's
+     stages on a 1024x768 view, card against CPU, each stage's device and
+     wall time, and gluestick's planted gate on three pairs beside the JAX
+     package's CPU numbers (inliers, median transfer error, the share of
+     matched lines within N_LINE_PX of their match's line).
 Near the end it prints one JSON line {"timing": ...}, one {"kernels":
 [...]} and the card's name and power limit; the last line is {"ok": true,
 "device": {...}}. Without a CUDA device, or without the rest of the
 repository beside it, the script fails before printing any result.
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -446,14 +448,16 @@ N_JAX_CPU = {100: {"inliers": 665, "median_px": 1.4615, "line_matches": 199,
              102: {"inliers": 737, "median_px": 1.3261, "line_matches": 200,
                    "line_share": 0.99}}
 # card against CPU: keypoint IoU of a bf16 SuperPoint (ROADMAP "bf16
-# SuperPoint"), of the float32 detectors, raw-match IoU, and GlueStick's
-# matched line pairs as sets
+# SuperPoint"), of the float32 detectors, raw-match IoU, GlueStick's
+# matched line pairs as sets, DaD's wrapper on the same warps, and the
+# float32 warps of DaD's RoMa and of RoMaV2 cell by cell: the share of
+# cells whose warp and certainty lie within L_FPN_TOL, the median and the
+# largest warp error (normalised units), set from H100 readings (RoMaV2:
+# every cell, median 1.0e-7, largest 9.2e-6 and 9.8e-6; DaD: every cell,
+# median 2.4e-6, largest 1.5e-5, certainty 3.4e-4)
 N_BOUNDS = {"kpt_iou_bf16": 0.9, "kpt_iou": 0.99, "match_iou_bf16": 0.8,
             "match_iou": 0.95, "line_iou": 0.9, "dad_iou": 0.99,
-            "romav2_cells": 0.99}
-# SOLD2 on both devices at this cut size (its hourglass at 640 x 512 on
-# the CPU takes ~10 s a pair)
-N_SOLD2_CPU_WH = (320, 240)
+            "warp_cells": 0.999, "warp_median": 1e-5, "warp_max": 1e-4}
 N_LSD_SIZE = (1024, 768)
 V_ENTRIES = ("duster", "mast3r")
 V_K14 = 2 * 24 + 2 * 2 * 12
@@ -3893,107 +3897,143 @@ def _detector_of(model):
     return getattr(model, "sp", None) or getattr(model, "detector", None)
 
 
+@contextlib.contextmanager
+def _recording(module, name, into):
+    """``module.name`` appends each call's result to ``into`` while the
+    context lasts."""
+    real = getattr(module, name)
+
+    def recorded(*args, **kwargs):
+        into.append(real(*args, **kwargs))
+        return into[-1]
+    setattr(module, name, recorded)
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+
+
+def _warp_cells(card, host):
+    """Cell by cell, a (warp, certainty) pair from the card against the
+    CPU's: the share of cells whose warp (normalised units, max over x
+    and y) and certainty both lie within L_FPN_TOL, the warp error's
+    median and largest, the certainty's largest."""
+    ew = (card[0].cpu() - host[0]).abs().amax(-1)
+    ec = (card[1].cpu() - host[1]).abs()
+    return {"cells_within_tol": float(((ew <= L_FPN_TOL)
+                                       & (ec <= L_FPN_TOL)).float().mean()),
+            "warp_err_median": float(ew.median()),
+            "warp_err_max": float(ew.max()), "cert_err_max": float(ec.max())}
+
+
+def _warps_ok(cells):
+    """Whether ``_warp_cells``' readings meet N_BOUNDS' warp bounds."""
+    return (cells["cells_within_tol"] >= N_BOUNDS["warp_cells"]
+            and cells["warp_err_median"] <= N_BOUNDS["warp_median"]
+            and cells["warp_err_max"] <= N_BOUNDS["warp_max"])
+
+
+def _dad_card_vs_cpu(api, img0, img1):
+    """DaD's request on the card against the same request on the CPU, on
+    the card's tree and prepared pair at the registry's conf (what
+    ``DadRoma._forward`` runs on a pair): the two RoMa warps (image 0 to 1
+    and 1 to 0) cell by cell, and the final correspondences as sets within
+    S_TOL_PX; then the wrapper alone on both devices from the card's
+    warps, as sets within 1e-3 px."""
+    import torch
+
+    from imcui_tpu_torch.models.layers import full_fp32
+    from imcui_tpu_torch.models.matchers import dad_roma, roma
+    from imcui_tpu_torch.utils import weights
+
+    model = api.matcher
+    x = [model._prepare(_canvas(im, api.match_conf["preprocessing"])
+                        [None])[0] for im in (img0, img1)]
+    k = int(model.conf["max_keypoints"])
+    trees = {"cuda": model.params,
+             "cpu": weights.to_device(model.params, "cpu")}
+    real = roma.match
+    warps, points, secs = {}, {}, {}
+
+    def correspondences(o):
+        m = o["mask"].cpu().numpy()
+        return np.concatenate([o["keypoints0"].cpu().numpy()[m],
+                               o["keypoints1"].cpu().numpy()[m]], 1)
+
+    for dev in ("cuda", "cpu"):
+        t = time.perf_counter()
+        with _recording(roma, "match", warps.setdefault(dev, [])), \
+                torch.inference_mode(), full_fp32():
+            points[dev] = correspondences(dad_roma.apply_pair(
+                trees[dev], x[0].to(dev), x[1].to(dev), k))
+        secs[dev] = time.perf_counter() - t
+    wrapper = {}
+    try:
+        for dev in ("cuda", "cpu"):
+            ws = iter([tuple(t.to(dev) for t in w) for w in warps["cuda"]])
+            roma.match = lambda *a, **kw: next(ws)
+            with torch.inference_mode():
+                wrapper[dev] = correspondences(dad_roma.apply_pair(
+                    None, x[0].to(dev), x[1].to(dev), k))
+    finally:
+        roma.match = real
+    cells = [_warp_cells(c, h) for c, h in zip(warps["cuda"], warps["cpu"])]
+    res = {"warps": {key: (min if key == "cells_within_tol" else max)(
+        c[key] for c in cells) for key in cells[0]},
+           "matches": [len(points["cuda"]), len(points["cpu"])],
+           "match_iou": common_points(points["cuda"], points["cpu"],
+                                      S_TOL_PX)[0],
+           "wrapper_iou": common_points(wrapper["cuda"], wrapper["cpu"],
+                                        1e-3)[0],
+           "request_s": secs}
+    res["ok"] = (_warps_ok(res["warps"])
+                 and res["match_iou"] >= N_BOUNDS["match_iou"]
+                 and res["wrapper_iou"] >= N_BOUNDS["dad_iou"])
+    return res
+
+
 def _n_card_vs_cpu(key, api, img0, img1):
     """Phase 13's entry on the card against the port's CPU run on the same
-    trees: view 0's keypoints, the raw matches, and the lines (GlueStick's
-    LSD segments equal, line matches as sets; SOLD2 at N_SOLD2_CPU_WH on
-    both devices). DaD's wrapper runs on both devices from the card's
-    RoMa warps (RoMa itself is held to the CPU in phase 5); RoMaV2's final
-    warp and certainty are compared cell by cell on the same inputs, with
-    cuDNN (reported) and without it (gated)."""
+    trees and the same served request: view 0's keypoints, the raw
+    matches, and the lines (GlueStick's LSD segments equal, line matches
+    as sets). DaD: ``_dad_card_vs_cpu``. RoMaV2: also the request's final
+    warp and certainty, cell by cell (``_warp_cells``)."""
     import torch
 
     from imcui_tpu_torch.api.core import ImageMatchingAPI
-    from imcui_tpu_torch.models.layers import full_fp32
-    from imcui_tpu_torch.models.matchers import dad_roma, roma
+    from imcui_tpu_torch.models.matchers import romav2
 
     t0 = time.perf_counter()
     model = api.matcher
     if key == "dad(RoMa)":
-        x = [model._prepare(_canvas(im, api.match_conf["preprocessing"])
-                            [None])[0] for im in (img0, img1)]
-        with torch.inference_mode():
-            warps = [roma.match(model.params, x[0], x[1]),
-                     roma.match(model.params, x[1], x[0])]
-        real = roma.match
-        out = {}
-        try:
-            for dev in ("cuda", "cpu"):
-                ws = iter([tuple(t.to(dev) for t in w) for w in warps])
-                roma.match = lambda *a, **k: next(ws)
-                o = dad_roma.apply_pair(None, x[0].to(dev), x[1].to(dev),
-                                        int(model.conf["max_keypoints"]))
-                m = o["mask"].cpu().numpy()
-                out[dev] = np.concatenate(
-                    [o["keypoints0"].cpu().numpy()[m],
-                     o["keypoints1"].cpu().numpy()[m]], 1)
-        finally:
-            roma.match = real
-        iou = common_points(out["cuda"], out["cpu"], 1e-3)[0]
-        return {"wrapper_iou": iou, "matches": [len(v) for v in out.values()],
-                "ok": iou >= N_BOUNDS["dad_iou"],
-                "s": time.perf_counter() - t0}
-    if key == "RoMaV2":
-        # cuDNN picks FFT convolutions for the fpn-corr path's float32
-        # convs (TF32 off), whose rounding errors scale with the largest
-        # activation; the seed-0 tree's small features turn them into
-        # ~1e-2 of the warp once unit-normalised and divided by the
-        # correlation's temperature. The served (cuDNN) warp is reported;
-        # the card's run without cuDNN holds the rest of the path, cell by
-        # cell, to the CPU's
-        from imcui_tpu_torch.models.matchers import romav2
-        from imcui_tpu_torch.utils import weights
-
-        x = [model._prepare(_canvas(im, api.match_conf["preprocessing"])
-                            [None])[0] for im in (img0, img1)]
-        cpu_params = weights.to_device(model.params, "cpu")
-        res = {"tol": L_FPN_TOL, "s": 0.0}
-        with torch.inference_mode(), full_fp32():
-            host = romav2.warp_pair(cpu_params, *(t.cpu() for t in x))
-            for tag, cudnn in (("cudnn", True), ("native", False)):
-                with torch.backends.cudnn.flags(enabled=cudnn):
-                    card = romav2.warp_pair(model.params, *x)
-                ew = (card[0].cpu() - host[0]).abs().amax(-1)
-                ec = (card[1].cpu() - host[1]).abs()
-                res[tag] = {
-                    "cells_within_tol": float(((ew <= L_FPN_TOL)
-                                               & (ec <= L_FPN_TOL)).float()
-                                              .mean()),
-                    "warp_err_median": float(ew.median()),
-                    "warp_err_max": float(ew.max()),
-                    "cert_err_max": float(ec.max())}
-        res["ok"] = res["native"]["cells_within_tol"] >= N_BOUNDS[
-            "romav2_cells"]
+        res = _dad_card_vs_cpu(api, img0, img1)
         res["s"] = time.perf_counter() - t0
         return res
-    if key == "sold2":
-        w, h = N_SOLD2_CPU_WH
-        conf = _n_conf(key)
-        conf["matcher"]["preprocessing"].update(width=w, height=h)
-        cpu = _cpu_twin(conf, model)
-        saved = dict(api.match_conf["preprocessing"])
-        api.match_conf["preprocessing"].update(width=w, height=h)
-        try:
-            preds = [a(img0, img1) for a in (api, cpu)]
-        finally:
-            api.match_conf["preprocessing"] = saved
+    feats, warps = [[], []], [[], []]
+    if key == "sold2":  # the card's tree handed over, not drawn again
+        cpu = _cpu_twin(_n_conf(key), model)
     else:
         cpu = ImageMatchingAPI(_n_conf(key), device="cpu")
         _copy_trees(model, cpu.matcher)
-        feats = [[], []]
-        hooks = [_detector_of(a.matcher).register_forward_hook(
-            lambda mod, args, o, f=f: f.append(
-                {k: v.detach().cpu().numpy() for k, v in o.items()}))
-            for a, f in zip((api, cpu), feats)
-            if _detector_of(a.matcher) is not None]
-        preds = [a(img0, img1) for a in (api, cpu)]
-        for hk in hooks:
-            hk.remove()
+    hooks = [_detector_of(a.matcher).register_forward_hook(
+        lambda mod, args, o, f=f: f.append(
+            {k: v.detach().cpu().numpy() for k, v in o.items()}))
+        for a, f in zip((api, cpu), feats)
+        if _detector_of(a.matcher) is not None]
+    preds = []
+    for a, w in zip((api, cpu), warps):
+        with _recording(romav2, "warp_pair", w):
+            preds.append(a(img0, img1))
+    for hk in hooks:
+        hk.remove()
     res = {"raw_matches": [len(p["mkeypoints0_orig"]) for p in preds],
            "match_iou": raw_match_iou(preds[0], preds[1], S_TOL_PX)}
     bf16 = key in ("gluestick", "lisrd", "LISRD+SuperPoint")
     ok = not max(res["raw_matches"]) or res["match_iou"] >= N_BOUNDS[
         "match_iou_bf16" if bf16 else "match_iou"]
+    if key == "RoMaV2":
+        res["warps"] = _warp_cells(warps[0][0], warps[1][0])
+        ok = ok and _warps_ok(res["warps"])
     if key not in ("sold2", "RoMaV2"):
         kp = [f[0]["keypoints"][0][f[0]["mask"][0]] for f in feats]
         if key == "LISRD+SIFT":

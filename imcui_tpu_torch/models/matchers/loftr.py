@@ -134,16 +134,21 @@ def backbone_apply(p, x):
     """x: (B, 1, H, W) → coarse (B, 256, H/8, W/8), fine (B, 128, H/2,
     W/2), in the weights' dtype.
 
-    A float32 batch goes through one view at a time: for two views
-    cuDNN 9.2 picks an FFT algorithm for the float32 (TF32 off) 3 × 3
-    convolutions to 196 channels at 1/4, 350–415 ms each where one view
-    takes ~1.2 ms; a bf16 batch is faster whole (7.5 against 9.9 ms a
-    640 × 480 pair; ``tools/loftr_times.py`` on an H100)."""
+    A float32 batch runs without cuDNN, on PyTorch's own convolution (an
+    im2col and a cuBLAS gemm per view). For the float32 (TF32 off) 3 × 3
+    convolutions to 196 channels at 1/4, cuDNN 9.2's heuristic picks an FFT
+    algorithm at some canvases (two 640 × 480 views, one 640 × 640 view):
+    hundreds of ms a conv, and rounding that moves a seed-0 tree's warp by
+    ~1e-2 against the CPU. Every caller (LoFTR and its family, RoMa's
+    fpn-corr, RoMaV2) takes this one rule; a bf16 batch keeps cuDNN
+    (``tools/loftr_times.py`` times the three ways on the card)."""
     if x.dtype != torch.float32:
         return _backbone(p, x)
-    views = [_backbone(p, x[i:i + 1]) for i in range(x.shape[0])]
-    return (torch.cat([v[0] for v in views]),
-            torch.cat([v[1] for v in views]))
+    cudnn = torch.backends.cudnn
+    with cudnn.flags(enabled=False, benchmark=cudnn.benchmark,
+                     deterministic=cudnn.deterministic,
+                     allow_tf32=cudnn.allow_tf32):
+        return _backbone(p, x)
 
 
 def _backbone(p, x):

@@ -59,20 +59,8 @@ def balanced_sample(warp, cert, h, w, num=2048):
 
 def warp_pair(params, a, b):
     """One grey pair (1, H, W) → the warp (Hc, Wc, 2) and certainty
-    (Hc, Wc) on the 1/8 grid after the recurrent pass.
-
-    On the card the backbone's float32 convolutions run with cuDNN's
-    benchmark on: at the registry's 640 x 640 canvas its heuristic picks
-    an FFT algorithm for the 196-channel 3 x 3 convs at 1/4, ~1 s of
-    complex gemv launches a request, whose rounding (scaled by the largest
-    activation) moves the seed-0 tree's warp by ~1e-2; the benchmarked
-    choice is timed once per shape."""
-    cudnn = torch.backends.cudnn
-    with cudnn.flags(enabled=cudnn.enabled, benchmark=True,
-                     deterministic=cudnn.deterministic,
-                     allow_tf32=cudnn.allow_tf32):
-        featc, _ = loftr.backbone_apply(params["backbone"],
-                                        torch.stack([a, b]))
+    (Hc, Wc) on the 1/8 grid after the recurrent pass."""
+    featc, _ = loftr.backbone_apply(params["backbone"], torch.stack([a, b]))
     f0, f1 = featc[0], featc[1]
     warp, cert = roma_mod.correlation_warp(f0, f1)
     warp, cert = roma_mod.refine(params["refiner"], f0, f1, warp, cert)

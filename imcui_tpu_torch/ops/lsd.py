@@ -86,6 +86,10 @@ M_2__PI = 2 * math.pi
 PREC = math.pi * ANG_TH / 180
 P_ALIGNED = ANG_TH / 180
 RHO = QUANT / math.sin(PREC)
+# sqrt(sq / 4) > RHO for an integer sq exactly where sq > 4 RHO^2 = 109.25
+# rounded down: no integer lies within a rounding step of 109.25, so the
+# comparison needs no sqrt
+SQ_UNDEF_MAX = math.floor(4.0 * RHO * RHO)
 
 _F32 = struct.Struct("f")
 
@@ -220,9 +224,7 @@ def gradient(img):
     bc = x[:-1, 1:] - x[1:, :-1]
     gx, gy = da + bc, da - bc
     sq = gx * gx + gy * gy
-    # undefined where sqrt(sq / 4) <= RHO: no quarter-integer lies within
-    # a rounding step of RHO^2, so the card's sqrt decides as OpenCV's
-    defined = torch.sqrt(sq.double() / 4.0) > RHO
+    defined = sq > SQ_UNDEF_MAX
     ang = fast_atan2(gx.float(), (-gy).float()).double() * DEG_TO_RADS
     angles = torch.full(x.shape, NOTDEF, dtype=torch.float64,
                         device=x.device)
@@ -237,7 +239,7 @@ def norms_and_bins(sq, n_bins=N_BINS):
     pixel's bin int(norm (n_bins - 1) / max_norm) over the defined
     pixels' largest norm."""
     norm = np.sqrt(sq / 4.0)
-    defined = norm > RHO
+    defined = sq > SQ_UNDEF_MAX
     max_grad = float(norm[defined].max()) if defined.any() else -1.0
     coef = (n_bins - 1) / max_grad if max_grad > 0 else 0.0
     return norm, (norm * coef).astype(np.int64)

@@ -4,11 +4,14 @@ registry's width (640 x 480):
     python -m imcui_tpu_torch.tools.loftr_times
 
 - every convolution of the ResNet-FPN backbone, in float32 (TF32 off, as
-  the f32 path runs) and bf16, with the two views in one batch and one
-  view at a time (for a batch of two, cuDNN may pick an FFT algorithm for
-  the float32 convs to 196 channels that is hundreds of times slower, so
-  ``backbone_apply`` runs a float32 batch one view at a time);
-- the whole backbone both ways;
+  the f32 path runs) and bf16: cuDNN with the two views in one batch and
+  one view at a time, and PyTorch's own convolution without cuDNN (for
+  float32 convs to 196 channels cuDNN may pick an FFT algorithm that is
+  hundreds of times slower);
+- the whole backbone those three ways and through ``backbone_apply``
+  (which runs a float32 batch without cuDNN), at 640 x 480 and at
+  RoMaV2's 640 x 640, and in float32 each way's largest coarse-feature
+  difference from the CPU on the seed-0 tree, over the largest feature;
 - the coarse transformer (four layers, two views, 4800 tokens) and the
   fine stage (2000 windows), bf16: the host time to issue each and its
   device time queued (median of 5 runs between two events), which tell a
@@ -32,9 +35,23 @@ import torch
 from ..models import layers
 from ..models.matchers import loftr
 from ..utils import image as image_utils
+from ..utils.weights import to_device
 from .tail_probes import event_ms
 
 H, W = 480, 640
+CANVASES = ((480, 640), (640, 640))
+
+
+def without_cudnn(fn):
+    """``fn`` run with cuDNN off (the other cuDNN flags kept)."""
+    cudnn = torch.backends.cudnn
+
+    def run():
+        with cudnn.flags(enabled=False, benchmark=cudnn.benchmark,
+                         deterministic=cudnn.deterministic,
+                         allow_tf32=cudnn.allow_tf32):
+            return fn()
+    return run
 
 
 def backbone_convs(params, x):
@@ -95,19 +112,40 @@ def main():
                                 device="cuda").to(x.dtype)
                 cp = {"w": torch.randn(ws, generator=gen, device="cuda").to(
                     x.dtype) * 0.05}
+
+                def pair(cp=cp, t=t, stride=stride):
+                    return layers.conv2d(cp, t, stride=stride)
                 out["convs"].append({
                     "type": name, "input": [2, *xs[1:]], "weight": list(ws),
                     "stride": stride,
-                    "pair_ms": event_ms(lambda: layers.conv2d(
-                        cp, t, stride=stride), iters=5, warmup=1),
+                    "pair_ms": event_ms(pair, iters=5, warmup=1),
                     "one_view_at_a_time_ms": event_ms(lambda: [
                         layers.conv2d(cp, t[i:i + 1], stride=stride)
-                        for i in range(2)], iters=5, warmup=1)})
-            out["backbone"][name] = {
-                "pair_ms": event_ms(lambda: loftr._backbone(p, x), iters=5,
-                                    warmup=1),
-                "one_view_at_a_time_ms": event_ms(lambda: [
-                    loftr._backbone(p, x[i:i + 1]) for i in range(2)])}
+                        for i in range(2)], iters=5, warmup=1),
+                    "pair_no_cudnn_ms": event_ms(without_cudnn(pair),
+                                                 iters=5, warmup=1)})
+            for h, w in CANVASES:
+                x = torch.rand((2, 1, h, w), generator=gen,
+                               device="cuda").to(p["conv1"]["w"].dtype)
+                ways = {
+                    "pair": lambda: loftr._backbone(p, x),
+                    "one_view_at_a_time": lambda: [
+                        loftr._backbone(p, x[i:i + 1]) for i in range(2)],
+                    "pair_no_cudnn": without_cudnn(
+                        lambda: loftr._backbone(p, x)),
+                    "backbone_apply": lambda: loftr.backbone_apply(p, x)}
+                row = {f"{k}_ms": event_ms(fn, iters=5, warmup=1)
+                       for k, fn in ways.items()}
+                if name == "f32":
+                    host = loftr._backbone(to_device(p, "cpu"), x.cpu())[0]
+                    top = float(host.abs().max())
+                    for k, fn in ways.items():
+                        got = fn()
+                        got = torch.cat([v[0] for v in got]) \
+                            if k == "one_view_at_a_time" else got[0]
+                        row[f"{k}_err_vs_cpu"] = float(
+                            (got.cpu() - host).abs().max()) / top
+                out["backbone"][f"{name} {h}x{w}"] = row
     pb = layers.apply_precision(tree, "bf16")
     tokens = torch.randn((4800, 256), generator=gen, device="cuda").to(
         torch.bfloat16)
@@ -138,7 +176,8 @@ def main():
         print(f"{c['type']:4s} {str(c['input']):22s} -> "
               f"{str(c['weight']):20s} s{c['stride']}: pair "
               f"{c['pair_ms']:9.3f} ms, one view at a time "
-              f"{c['one_view_at_a_time_ms']:7.3f} ms")
+              f"{c['one_view_at_a_time_ms']:7.3f} ms, no cuDNN "
+              f"{c['pair_no_cudnn_ms']:7.3f} ms")
     print(json.dumps(out))
 
 

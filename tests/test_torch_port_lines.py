@@ -12,9 +12,13 @@ the descriptor vote along the lines (the GNN is in
 Tolerances: GlueStick's uint8 images equal the JAX package's bit for bit;
 ``raw_lines*`` equal as sets (endpoints within 1e-4 px), line matches
 equal as sets of segment pairs; point matches at IoU 1.0 with both
-SuperPoints in float32 and at IoU >= 0.7 at the bf16 default (measured
-0.72-0.87 on 320 x 240 pairs: the bf16 SuperPoint's rounding moves
-keypoints at GlueStick's threshold of 1e-4, ROADMAP "bf16 SuperPoint");
+SuperPoints in float32. At the bf16 default the two SuperPoints round
+their scores apart (by up to 0.025), which moves keypoints at GlueStick's
+threshold of 1e-4 and swaps NMS winners (ROADMAP "bf16 SuperPoint"):
+each view's keypoints at IoU >= 0.8 (measured 0.84-0.93 on four 320 x
+240 pairs, 0.90 and 0.93 on the planted one), the matches whose two
+points both packages keep at IoU >= 0.9 (measured 0.95-0.98; 0.98), and
+all matches at IoU >= 0.8 (measured 0.72-0.87; 0.87);
 the planted gate's inliers within 10 %
 of the JAX package's at a median transfer error within 0.1 px of it,
 and its share of lines within 3 px of their match's line within 0.05.
@@ -185,13 +189,59 @@ def _set_sp_precision(apis, precision):
         api.matcher.sp.conf["precision"] = precision
 
 
+class _Recorded:
+    """The JAX GlueStick's SuperPoint, keeping each call's outputs."""
+
+    def __init__(self, model):
+        self.model, self.out = model, []
+
+    def __call__(self, data):
+        o = self.model(data)
+        self.out.append({k: np.asarray(v) for k, v in o.items()})
+        return o
+
+    def __getattr__(self, name):
+        return getattr(self.model, name)
+
+
+def _common_keypoints(feats):
+    """Per view, the keypoints both packages keep (within 0.01 px) and the
+    IoU of the two sets. ``feats``: the JAX and the port SuperPoint's
+    outputs on the batched pair."""
+    out = []
+    for v in (0, 1):
+        kp = [f["keypoints"][v][f["mask"][v].astype(bool)] for f in feats]
+        iou, ia, _ = chip_smoke.common_points(kp[0], kp[1], 0.01)
+        out.append((kp[0][ia], iou))
+    return out
+
+
+def _on_keypoints(pred, common):
+    """The matches of ``pred`` whose two points are both in ``common``."""
+    keep = np.ones(len(pred["mkeypoints0"]), bool)
+    for v, (kp, _) in enumerate(common):
+        mk = np.asarray(pred[f"mkeypoints{v}"])
+        keep &= (np.abs(mk[:, None] - kp[None]).max(-1) <= 0.01).any(1)
+    return {k: np.asarray(pred[k])[keep]
+            for k in ("mkeypoints0_orig", "mkeypoints1_orig")}
+
+
 @pytest.mark.parametrize("precision", ["fp32", "bf16"])
-def test_gluestick_through_both_apis(gluestick_apis, planted, precision):
+def test_gluestick_through_both_apis(gluestick_apis, planted, precision,
+                                     monkeypatch):
+    japi, tapi = gluestick_apis
+    rec = _Recorded(japi.matcher.sp)
+    monkeypatch.setattr(japi.matcher, "sp", rec)
+    tout = []
+    hook = tapi.matcher.sp.register_forward_hook(
+        lambda mod, args, o: tout.append(
+            {k: v.detach().numpy() for k, v in o.items()}))
     _set_sp_precision(gluestick_apis, precision)
     try:
         want, got = (api(planted[0], planted[1]) for api in gluestick_apis)
     finally:
         _set_sp_precision(gluestick_apis, "bf16")
+        hook.remove()
     for k in ("raw_lines0", "raw_lines1"):
         _same_segment_set(got[k][0], want[k][0], 1e-4)
         assert len(want[k][0]) >= 40
@@ -202,8 +252,17 @@ def test_gluestick_through_both_apis(gluestick_apis, planted, precision):
     d = np.abs(pairs[0][:, None] - pairs[1][None]).max(-1)
     assert pairs[0].shape == pairs[1].shape
     assert d.min(1).max() <= 1e-4 and d.min(0).max() <= 1e-4
+    common = _common_keypoints([rec.out[0], tout[0]])
+    kpt_iou = [iou for _, iou in common]
+    iou_common = chip_smoke.raw_match_iou(_on_keypoints(got, common),
+                                          _on_keypoints(want, common))
     iou = chip_smoke.raw_match_iou(got, want)
-    assert iou >= (1.0 if precision == "fp32" else 0.7), iou
+    if precision == "fp32":
+        assert kpt_iou == [1.0, 1.0] and iou == iou_common == 1.0, (
+            kpt_iou, iou, iou_common)
+    else:
+        assert min(kpt_iou) >= 0.8 and iou_common >= 0.9 and iou >= 0.8, (
+            kpt_iou, iou, iou_common)
 
 
 def test_gluestick_planted_gate_beside_jax(gluestick_apis, planted):

@@ -476,3 +476,28 @@ def test_loftr_refuses_cuda_without_a_card():
         pytest.skip("a card is present")
     with pytest.raises(RuntimeError, match="cuda"):
         tl.LoFTR({})
+
+
+def test_float32_backbone_runs_whole_without_cudnn(monkeypatch):
+    """``backbone_apply`` takes a float32 batch whole with cuDNN off (the
+    one rule for LoFTR, its family, RoMa's fpn-corr and RoMaV2) and a
+    bf16 batch with cuDNN's flag as the caller left it; the flags are
+    restored after."""
+    seen = []
+    conv = tl.conv2d
+
+    def record(p, x, **kw):
+        seen.append((x.dtype, x.shape[0], torch.backends.cudnn.enabled))
+        return conv(p, x, **kw)
+
+    monkeypatch.setattr(tl, "conv2d", record)
+    tree = tl.init_backbone(torch.Generator().manual_seed(0))
+    x = torch.rand((2, 1, 32, 32), generator=torch.Generator().manual_seed(1))
+    before = torch.backends.cudnn.enabled
+    tl.backbone_apply(tree, x)
+    assert seen and all(s == (torch.float32, 2, False) for s in seen), seen
+    seen.clear()
+    tl.backbone_apply(tlay.apply_precision(tree, "bf16"),
+                      x.to(torch.bfloat16))
+    assert seen and all(s == (torch.bfloat16, 2, before) for s in seen)
+    assert torch.backends.cudnn.enabled == before

@@ -137,6 +137,10 @@ def test_gradient_bins_and_notdef_edges():
     assert int(bins.max()) == lsd.N_BINS - 1
     assert ((norm > lsd.RHO) == (angles[:-1, :-1] != lsd.NOTDEF).numpy()
             ).all()
+    # the integer test equals OpenCV's sqrt(sq / 4) > RHO on every square
+    # norm two uint8 differences can make (|gx|, |gy| <= 510)
+    s = np.arange(2 * 510 * 510 + 1)
+    assert ((np.sqrt(s / 4.0) > lsd.RHO) == (s > lsd.SQ_UNDEF_MAX)).all()
     order = lsd.seed_order(bins)
     b = bins.ravel()[order]
     assert (b[:-1] >= b[1:]).all()
