@@ -98,10 +98,10 @@ Phases, each of which passes or ends the run with a non-zero exit:
      their float32 bound, the card against the port's CPU run (keypoints,
      descriptors, raw matches with the random learned matchers at
      threshold 1e-6, the graph matchers also on the card's inputs,
-     SuperGlue's log assignment; DeDoDe at resize_max 320, D2-Net, RoRD
-     and DISK + SGMNet at 640 on both devices), and superpoint+adalam's
-     planted-pair gate on three pairs beside the JAX package's CPU
-     numbers;
+     SuperGlue's log assignment; DeDoDe at resize_max 320, D2-Net, RoRD,
+     DISK, ALIKE, ALIKED and DISK + SGMNet at 640 on both devices), and
+     superpoint+adalam's planted-pair gate on three pairs beside the JAX
+     package's CPU numbers;
  11. SIFT's stages on the card against the port's CPU run;
  12. the rest of the zoo: REKD (the registry's rekd with mutual nearest
      neighbour) and the root config/app.yaml's raco+lightglue through
@@ -126,7 +126,18 @@ Phases, each of which passes or ends the run with a non-zero exit:
      stages on a 1024x768 view, card against CPU, each stage's device and
      wall time, and gluestick's planted gate on three pairs beside the JAX
      package's CPU numbers (inliers, median transfer error, the share of
-     matched lines within N_LINE_PX of their match's line).
+     matched lines within N_LINE_PX of their match's line);
+ 14. the root config/app.yaml's last matchers and the global
+     descriptors: omniglue (bf16 SuperPoint, a float32 ViT, the DINO-biased
+     attention), mickey, and the disabled cotr and Example, by their conf,
+     each on a planted 1600x1200 pair through phase 13's loop (OmniGlue's
+     stem, K1 and K2 launches held against their plain versions and
+     counted, ms per request, device busy and idle share), against the
+     port's CPU run (raw matches, OmniGlue's keypoints, MicKey's pose,
+     COTR's decoder passes); then the registry's seven retrieval confs
+     (netvlad, openibl, cosplace, eigenplaces, dir, fire, fire_local)
+     through extract() at resize_max 1024, each timed and held to its CPU
+     run (cosine and max abs error; FIRe-local's features as a set).
 Near the end it prints one JSON line {"timing": ...}, one {"kernels":
 [...]} and the card's name and power limit; the last line is {"ok": true,
 "device": {...}}. Without a CUDA device, or without the rest of the
@@ -366,12 +377,15 @@ Z_PAIR_UNGATED = ("superpoint+sphereglue",)
 # 2048 canvas DeDoDe's CPU run would cost ~72 TFLOP, and D2-Net's (RoRD's)
 # and DISK's CPU runs take 26-35 s an entry on an 8-core host; SIFT's CPU
 # run over the doubled 1280 x 2048 canvas takes tens of seconds a view,
-# and DarkFeat's, LANet's, LiftFeat's and RIPE's 10-20 s an entry.
+# and DarkFeat's, LANet's, LiftFeat's and RIPE's 10-20 s an entry; DISK's,
+# ALIKE's and ALIKED's 6-15 s (at 640 the whole script stays under ~1000
+# s; it read 990 s on an H100 host whose turbo phase ran 20 % slow).
 # (R2D2 resizes every image to 640 x 480 itself.)
 Z_CPU_RESIZE = {"dedode": 320, "d2net": 640, "rord": 640,
                 "disk+sgmnet": 640, **dict.fromkeys(Z_SIFT, 640),
                 **dict.fromkeys(("darkfeat", "lanet", "liftfeat(sparse)",
-                                 "ripe(+mnn)"), 640)}
+                                 "ripe(+mnn)", "disk", "alike",
+                                 "aliked+lightglue"), 640)}
 Z_SEEDS = (100, 101, 102)
 Z_SIZE = (1600, 1200)
 # superpoint+adalam runs on the trained SuperPoint and must pass the gate
@@ -492,6 +506,34 @@ T_ANGLE_DEG = 0.01
 T_DESC_SAME = 0.99
 T_DESC_STEP = 1
 T_FULL = (2048, 1280)
+# phase 14: the root config/app.yaml's last matchers, each through phase
+# 13's serving loop on a planted Z_SIZE pair at the entry's conf (the
+# disabled Example and cotr by their conf). OmniGlue and MicKey run random
+# learned heads, which keep matches only at Z_LOW_THRESHOLD, the API's
+# match_threshold for them; COTR's random confidence head is gated at 0
+# (the JAX package's rule) and keeps no match unless its decoder predicts
+# the right half. OmniGlue's bf16 SuperPoint launches the stem kernel, K1
+# and K2 on each view. The card against the port's CPU run on the same
+# trees: the raw matches at S_IOU (S_TOL_PX), OmniGlue's keypoints at
+# Z_BOUNDS["bf16"]["kpt_iou"] within Z_KPT_PX, MicKey's float64 pose (R
+# and t) within O_POSE_TOL, COTR's two decoder passes (canvas-normalised
+# units) within O_COTR_TOL.
+O_ENTRIES = ("omniglue", "mickey", "cotr", "Example")
+O_THRESHOLD = {"omniglue": 1e-6, "mickey": 1e-6}
+O_EXPECTED = {"omniglue": SERVED_KERNELS}
+O_POSE_TOL = 1e-4
+O_COTR_TOL = 1e-3
+# phase 14: the registry's seven retrieval confs through extract() at
+# resize_max 1024 (a Z_SIZE image becomes a 1024 x 768 grey canvas) on
+# seeded random trees, timed, and each against the port's CPU run on the
+# card's tree: the unit global descriptors at cosine >= RET_COS and max
+# abs error <= RET_ABS; FIRe-local's super-features as a set of rows
+# within RET_ABS at IoU >= RET_SET_IOU. No kernel lies on these paths.
+RET_ENTRIES = ("netvlad", "openibl", "cosplace", "eigenplaces", "dir",
+               "fire", "fire_local")
+RET_COS = 1 - 1e-5
+RET_ABS = 1e-4
+RET_SET_IOU = 0.99
 # Every wrapper of a hand-written kernel, for the count of launches that
 # phase 10 holds to what it checked.
 ALL_KERNELS = ("stem_tail", "stage_tail", "nms_cellmax", "fused_attention",
@@ -801,8 +843,10 @@ def device_window(run, n):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # device activity only: the same kernels and busy ms as with the host's
+    # operator events too, and a fraction of the window's wall time where a
+    # request makes thousands of small launches (the SIFT entries)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for i in range(n):
             run(i)
         torch.cuda.synchronize()
@@ -3623,20 +3667,29 @@ def _pointmap_maps(model, x0, x1):
                                        c["patch"])
 
 
-def _cpu_twin(api_conf, model):
-    """ImageMatchingAPI on the CPU with the card model's tree, copied
-    (``weights.seeded_init``, which draws a seed-0 tree, hands it over
-    instead of drawing one on the host)."""
-    from imcui_tpu_torch.api.core import ImageMatchingAPI
+@contextlib.contextmanager
+def _handing_over(model):
+    """While the context lasts, ``weights.seeded_init``, which draws a
+    seed-0 tree, hands over the card model's tree, copied to the CPU,
+    instead of drawing one on the host."""
     from imcui_tpu_torch.utils import weights
 
     real = weights.seeded_init
     tree = weights.to_device(model.params, "cpu")
     weights.seeded_init = lambda *a, **k: tree
     try:
-        return ImageMatchingAPI(api_conf, device="cpu")
+        yield tree
     finally:
         weights.seeded_init = real
+
+
+def _cpu_twin(api_conf, model, **kw):
+    """ImageMatchingAPI on the CPU (``kw`` its other arguments) with the
+    card model's tree (``_handing_over``)."""
+    from imcui_tpu_torch.api.core import ImageMatchingAPI
+
+    with _handing_over(model):
+        return ImageMatchingAPI(api_conf, device="cpu", **kw)
 
 
 def _dense_request_times(api, img0, img1, fns):
@@ -4208,6 +4261,234 @@ def phase13():
     return launches, out
 
 
+# --------------------------------------------------------------------------
+# phase 14: the root zoo's last matchers and the global descriptors
+# --------------------------------------------------------------------------
+
+def _o_conf(key):
+    """The root config/app.yaml's entry ``key``, enabled or not, resolved
+    by its conf."""
+    from imcui_tpu_torch.ui import utils as ui
+
+    raw = ui.load_config(os.path.join(ROOT, "config", "app.yaml"))[
+        "matcher_zoo"][key]
+    return ui.parse_match_config(raw)
+
+
+def _o_api(key, device="cuda", card=None):
+    """ImageMatchingAPI on ``device`` for phase 14's entry ``key`` at
+    O_THRESHOLD's match_threshold (the API's 0.2 elsewhere); with
+    ``card`` (the card's matcher), on the CPU with its trees."""
+    from imcui_tpu_torch.api.core import ImageMatchingAPI
+
+    kw = {"match_threshold": O_THRESHOLD.get(key, 0.2)}
+    if card is None:
+        return ImageMatchingAPI(_o_conf(key), device=device, **kw)
+    api = _cpu_twin(_o_conf(key), card, **kw)
+    _copy_trees(card, api.matcher)
+    return api
+
+
+def _o_card_vs_cpu(key, api, img0, img1):
+    """Phase 14's entry on the card against the port's CPU run on the same
+    trees and the same request: the raw matches; OmniGlue's SuperPoint
+    keypoints of both views; MicKey's pose; COTR's two decoder passes."""
+    import torch
+
+    from imcui_tpu_torch.models.matchers import cotr
+
+    t0 = time.perf_counter()
+    cpu = _o_api(key, card=api.matcher)
+    feats, outs, decoded = [[], []], [[], []], [[], []]
+    hooks = []
+    for a, f, o in zip((api, cpu), feats, outs):
+        hooks.append(a.matcher.register_forward_hook(
+            lambda mod, args, out, o=o: o.append(
+                {k: v.detach().cpu() for k, v in out.items()})))
+        if key == "omniglue":
+            hooks.append(a.matcher.sp.register_forward_hook(
+                lambda mod, args, out, f=f: f.append(
+                    {k: v.detach().float().cpu().numpy()
+                     for k, v in out.items()})))
+    preds = []
+    try:
+        for a, d in zip((api, cpu), decoded):
+            with _recording(cotr, "decode", d):
+                preds.append(a(img0, img1))
+    finally:
+        for hk in hooks:
+            hk.remove()
+    res = {"raw_matches": [len(p["mkeypoints0_orig"]) for p in preds],
+           "match_iou": raw_match_iou(preds[0], preds[1], S_TOL_PX)
+           if max(len(p["mkeypoints0_orig"]) for p in preds) else 1.0}
+    ok = res["match_iou"] >= S_IOU
+    if key == "omniglue":
+        res["keypoints"], res["kpt_iou"] = [], []
+        for v in (0, 1):
+            kp = [f[v]["keypoints"][0][f[v]["mask"][0].astype(bool)]
+                  for f in feats]
+            res["keypoints"].append([len(k) for k in kp])
+            res["kpt_iou"].append(common_points(kp[0], kp[1], Z_KPT_PX)[0])
+        ok = ok and min(res["kpt_iou"]) >= Z_BOUNDS["bf16"]["kpt_iou"]
+    if key == "mickey":
+        for k in ("R", "t"):
+            res[f"{k}_err"] = float((outs[0][0][k] - outs[1][0][k]).abs()
+                                    .max())
+        ok = ok and max(res["R_err"], res["t_err"]) <= O_POSE_TOL
+    if key == "cotr":
+        res["decoded_err"] = max(float((c.cpu() - h).abs().max())
+                                 for c, h in zip(decoded[0], decoded[1]))
+        res["decoder_passes"] = [len(d) for d in decoded]
+        ok = ok and res["decoder_passes"] == [2, 2] \
+            and res["decoded_err"] <= O_COTR_TOL
+    res["ok"] = ok
+    res["s"] = time.perf_counter() - t0
+    del cpu
+    torch.cuda.empty_cache()
+    return res
+
+
+def _ret_cpu_twin(conf, card):
+    """The extractor of ``conf`` on the CPU with the card model's tree
+    (``_handing_over``)."""
+    from imcui_tpu_torch.ui import utils as ui
+
+    with _handing_over(card) as tree:
+        model = ui.get_feature_model(conf, "cpu")
+    model.params = tree
+    return model
+
+
+def _retrieval(key, image):
+    """One retrieval conf through extract() on the card: built, a warm-up,
+    three timed extractions, a profiler window, and the card against the
+    port's CPU run on the card's tree."""
+    import torch
+
+    from imcui_tpu_torch.pipeline import extract_features as ef
+    from imcui_tpu_torch.ui import utils as ui
+
+    conf = ef.confs[key]
+    t0 = time.perf_counter()
+    model = ui.get_feature_model(conf, "cuda")
+    built = time.perf_counter() - t0
+    pre = conf["preprocessing"]
+    got = ef.extract(model, image, pre)
+    out_key = "local_descriptor" if key == "fire_local" \
+        else "global_descriptor"
+    ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        got = ef.extract(model, image, pre)
+        ms.append((time.perf_counter() - t1) * 1e3)
+    busy, evs = device_window(lambda i: ef.extract(model, image, pre), 1)
+    # the model's forward alone between two CUDA events: the device time
+    # where the profiler's window drops kernels (it kept only NetVLAD's
+    # last gemv in one whole-script run)
+    data = {"image": got["image"], "valid_wh": got["size"][None]}
+
+    def forward():
+        with torch.inference_mode():
+            model(data)
+
+    forward_ms = cuda_ms(forward, iters=3, warmup=1)
+    med = float(np.median(ms))
+    g = got[out_key]
+    if not np.isfinite(g).all():
+        fail(f"{key}: the {out_key} is not finite")
+    t1 = time.perf_counter()
+    cpu = _ret_cpu_twin(conf, model)
+    h = ef.extract(cpu, image, pre)[out_key]
+    res = {"model": type(model).__name__, "meta": model.meta,
+           "canvas": list(got["image"].shape[2:]), "shape": list(g.shape),
+           "built_s": built, "ms_per_extract": med, "ms_runs": ms,
+           "device_busy_ms": busy, "device_idle_share": 1 - busy / med,
+           "forward_event_ms": forward_ms,
+           "cpu_s": time.perf_counter() - t1,
+           "max_abs_err": float(np.abs(g - h).max())}
+    if key == "fire_local":
+        res["set_iou"] = common_points(g[0], h[0], RET_ABS)[0]
+        res["ok"] = g.shape == h.shape and res["set_iou"] >= RET_SET_IOU
+    else:
+        res["cos"] = float((g * h).sum() / np.linalg.norm(g)
+                           / np.linalg.norm(h))
+        res["ok"] = res["cos"] >= RET_COS and res["max_abs_err"] <= RET_ABS
+    vs = {k: res[k] for k in ("cos", "set_iou", "max_abs_err") if k in res}
+    log(f"  {key}: {res['model']} on a {res['canvas']} canvas → "
+        f"{res['shape']}: {med:.2f} ms per extract (median of 3 after a "
+        f"warm-up; {[round(m, 2) for m in ms]}), device busy {busy:.2f} ms, "
+        f"idle share {1 - busy / med:.3f}, the forward {forward_ms:.2f} ms "
+        f"between CUDA events; card against CPU: {vs}; top device time:")
+    for e in sorted(evs, key=lambda e: e.self_device_time_total,
+                    reverse=True)[:3]:
+        log(f"    {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:g}  "
+            f"{e.key[:90]}")
+    if not res["ok"]:
+        fail(f"{key}: the card and the CPU disagree: {res}")
+    del model, cpu
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase14():
+    """The root zoo's last matchers (O_ENTRIES) through ImageMatchingAPI
+    on the card on a planted Z_SIZE pair, as phase 13 serves its entries
+    (kernels held against their plain versions, O_EXPECTED's among them,
+    counts at 0 before three timed requests and read after, ms per
+    request, device busy and idle share, the card against the port's CPU
+    run); then the seven retrieval confs through extract() on view 0.
+    Returns (launches of the main path, measurements)."""
+    import torch
+
+    t_phase = time.perf_counter()
+    img0, img1, _ = synthetic_pair(N_SEEDS[0], *Z_SIZE)
+    fns = _wrappers()
+    capture = SERVED_KERNELS + ("fused_attention",)
+    launches, out = {}, {}
+    for key in O_ENTRIES:
+        t0 = time.perf_counter()
+        api = _o_api(key)
+        model = api.matcher
+        log(f"  {key}: {type(model).__name__} {model.conf}, weights "
+            f"{model.meta}; built in {time.perf_counter() - t0:.1f} s")
+        seen = _capture_kernel_args(lambda: api(img0, img1), capture)
+        seen = {n: c for n, c in seen.items() if c}
+        checks = _check_served_kernels(seen, f"{key} request") if seen \
+            else {}
+        del seen
+        ms, got, busy, evs, pred = _dense_request_times(api, img0, img1, fns)
+        for n, c in got.items():
+            launches[n] = launches.get(n, 0) + c
+        if set(got) - set(checks):
+            fail(f"{key}: launched {sorted(set(got) - set(checks))} without "
+                 f"holding it against its plain version")
+        missing = [n for n in O_EXPECTED.get(key, ()) if not got.get(n)]
+        if missing:
+            fail(f"{key}: the request launched no {missing}")
+        _check_dense_pred(key, pred, 1 if key in O_THRESHOLD else 0)
+        res = _log_dense(key, ms, busy, evs, pred, got)
+        res["kernel_checks"] = checks
+        vs = _o_card_vs_cpu(key, api, img0, img1)
+        log(f"  {key}: card against CPU: {vs}")
+        if not vs["ok"]:
+            fail(f"{key}: the card and the CPU disagree: {vs}")
+        res["card_vs_cpu"] = vs
+        res["seconds"] = time.perf_counter() - t0
+        log(f"  {key}: {res['seconds']:.1f} s")
+        out[key] = res
+        del api, model
+        torch.cuda.empty_cache()
+    for key in RET_ENTRIES:
+        t0 = time.perf_counter()
+        out[key] = _retrieval(key, img0)
+        out[key]["seconds"] = time.perf_counter() - t0
+        log(f"  {key}: {out[key]['seconds']:.1f} s")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase 14: {out['phase_s']:.1f} s")
+    return launches, out
+
+
 def oriented_pairs(pa, aa, pb, ab, tol):
     """Keypoints of a and b paired by point (within ``tol`` px, max norm)
     and then by the nearest angle (one point can hold several
@@ -4763,6 +5044,10 @@ def main():
     log("phase 13: GlueStick on LSD, LISRD, SOLD2, DaD-RoMa and RoMaV2 "
         f"(ImageMatchingAPI on {', '.join(N_ENTRIES)}), LSD's stages")
     launches_13, timing["zoo_13"] = phase13()
+    log("phase 14: the root zoo's last matchers (ImageMatchingAPI on "
+        f"{', '.join(O_ENTRIES)}) and the retrieval confs (extract() on "
+        f"{', '.join(RET_ENTRIES)})")
+    launches_14, timing["zoo_14"] = phase14()
     for r in rows:
         by_path = {
             "turbo": launches.get(r["name"], 0),
@@ -4775,7 +5060,8 @@ def main():
             "eval": launches_eval.get(r["name"], 0),
             "zoo": launches_zoo.get(r["name"], 0),
             "zoo 12": launches_12.get(r["name"], 0),
-            "zoo 13": launches_13.get(r["name"], 0)}
+            "zoo 13": launches_13.get(r["name"], 0),
+            "zoo 14": launches_14.get(r["name"], 0)}
         r["launches_by_path"] = by_path
         r["launches"] = sum(by_path.values())
         if r["launches"] == 0:

@@ -161,4 +161,4 @@ class ImageMatchingAPI:
     def visualize(self, log_path=None) -> None:
         raise NotImplementedError(
             "visualize writes PNGs with the cv2 package, which the port "
-            "does not use (ROADMAP A10)")
+            "does not use (ROADMAP §A, the rest of the user surfaces)")

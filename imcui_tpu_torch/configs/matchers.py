@@ -1,8 +1,7 @@
 """Matcher configs: this package's own copy of the registry in
 ``imcui_tpu/configs/matchers.py``, key for key (a test compares the two
-dicts), so user configs resolve unchanged. Pure data; most entries name
-models this package has not ported yet, and ``dynamic_load`` raises for
-those.
+dicts), so user configs resolve unchanged. Pure data; every entry names
+a model this package has ported.
 """
 
 confs = {

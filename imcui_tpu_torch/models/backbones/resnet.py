@@ -1,10 +1,10 @@
 """ResNet backbones (torchvision layout) on NCHW tensors. Counterpart of
-``imcui_tpu/models/backbones/resnet.py``: the basic block (SFD2's), the
-bottleneck ResNet-50/101 with its stem, ``resnet_apply`` to stride 32,
-the feature pyramid that DKM reads ({1: image, 2: stem, 4: layer1, 8:
-layer2, 16: layer3, 32: layer4}) and GeM pooling. ResNet-18's trunk
-(``init_resnet18``, ``resnet18_apply``) serves only the retrieval
-extractors, which are not ported.
+``imcui_tpu/models/backbones/resnet.py``: the basic block (SFD2's and
+FIRe's), ResNet-18 on it (``init_resnet18``, ``resnet18_apply``: CosPlace's
+``backbone="ResNet18"``), the bottleneck ResNet-50/101 with its stem,
+``resnet_apply`` to stride 32, the feature pyramid that DKM reads ({1:
+image, 2: stem, 4: layer1, 8: layer2, 16: layer3, 32: layer4}) and GeM
+pooling.
 """
 
 import torch
@@ -42,6 +42,36 @@ def basic_block(p, x, stride):
                                   conv2d(p["conv1"], x, stride=stride)))
     y = batch_norm_inference(p["bn2"], conv2d(p["conv2"], y))
     return relu(_shortcut(p, x, stride) + y)
+
+
+LAYERS_18 = [(64, 2, 1), (128, 2, 2), (256, 2, 2), (512, 2, 2)]
+
+
+def init_resnet18(gen):
+    """conv1/bn1 (7 × 7 stem) and layer1-4 of two basic blocks each."""
+    params = {"conv1": init_conv(gen, 7, 7, 3, 64, bias=False),
+              "bn1": init_bn(64)}
+    cin = 64
+    for li, (cout, blocks, stride) in enumerate(LAYERS_18, start=1):
+        params[f"layer{li}"] = {
+            str(bi): init_basic_block(gen, cin if bi == 0 else cout, cout,
+                                      stride if bi == 0 else 1)
+            for bi in range(blocks)}
+        cin = cout
+    return params
+
+
+def resnet18_apply(params, x):
+    """x: (B, 3, H, W) → (B, 512, H/32, W/32): the stem, torchvision's
+    3 × 3 stride-2 pool, then the four layers."""
+    x = relu(batch_norm_inference(params["bn1"],
+                                  conv2d(params["conv1"], x, stride=2)))
+    x = max_pool3_s2(x)
+    for li, (_, blocks, stride) in enumerate(LAYERS_18, start=1):
+        for bi in range(blocks):
+            x = basic_block(params[f"layer{li}"][str(bi)], x,
+                            stride if bi == 0 else 1)
+    return x
 
 
 def init_bottleneck(gen, cin, planes, stride):

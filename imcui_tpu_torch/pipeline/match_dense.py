@@ -135,8 +135,8 @@ def match_images(model, image_0, image_1, conf):
 def _needs_h5py(*_, **__):
     raise NotImplementedError(
         "the batch export over a pairs file writes HDF5 with the h5py "
-        "package, which the port does not use (ROADMAP A10); "
-        "match_images serves one pair")
+        "package, which the port does not use (ROADMAP §A, the HDF5 "
+        "batch pipelines); match_images serves one pair")
 
 
 match_and_assign = _needs_h5py

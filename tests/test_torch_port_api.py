@@ -82,7 +82,8 @@ def test_merge_confs_and_dynamic_load():
     assert tbase.dynamic_load(textractors, "superpoint") is SuperPoint
     assert tbase.dynamic_load(tmatchers, "lightglue") is LightGlue
     with pytest.raises(NotImplementedError, match="not ported"):
-        tbase.dynamic_load(tmatchers, "omniglue")
+        tbase.dynamic_load(tmatchers, "no_such_matcher")
+    assert tbase.dynamic_load(tmatchers, "omniglue").__name__ == "OmniGlue"
     assert tbase.dynamic_load(tmatchers, "gluestick").__name__ == "GlueStick"
     assert tmodels.__name__ == "imcui_tpu_torch.models"
 
@@ -417,9 +418,12 @@ def test_filter_matches_edge_cases_and_cv2_methods():
 
 def test_api_standalone_and_visualize_are_not_ported(apis):
     # the standalone branch is open; a dense matcher without a model in the
-    # port still raises, naming the model
-    with pytest.raises(NotImplementedError, match="'cotr' is not ported"):
-        TorchAPI({"standalone": True, "matcher": {"model": {"name": "cotr"}}},
+    # port still raises, naming the model (every matcher of the JAX
+    # package is ported, so the name is one no package has)
+    with pytest.raises(NotImplementedError,
+                       match="'no_such_matcher' is not ported"):
+        TorchAPI({"standalone": True,
+                  "matcher": {"model": {"name": "no_such_matcher"}}},
                  device="cpu")
     with pytest.raises(NotImplementedError, match="cv2"):
         apis[1].visualize()

@@ -1526,3 +1526,39 @@ def test_lsd_on_the_card_equals_its_cpu_run(gen, hw):
     assert len(cpu[0]) > 10
     for a, b in zip(card, cpu):
         np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("key", ["omniglue", "mickey", "cotr", "Example"])
+def test_root_zoo_matcher_on_card_matches_cpu(gen, key):
+    """The root config/app.yaml's last matchers on a 640 x 480 planted pair
+    through ImageMatchingAPI on the card, held to the port's CPU run on the
+    same trees as chip_smoke.py's phase 14 holds them (raw matches,
+    OmniGlue's bf16 keypoints, MicKey's pose, COTR's decoder passes);
+    OmniGlue's stem, K1 and K2 launches held against their plain
+    versions."""
+    import chip_smoke
+
+    img0, img1, _ = chip_smoke.synthetic_pair(100, 640, 480)
+    api = chip_smoke._o_api(key)
+    seen = chip_smoke._capture_kernel_args(lambda: api(img0, img1))
+    if key == "omniglue":
+        assert all(seen[n] for n in chip_smoke.SERVED_KERNELS)
+        checks = chip_smoke._check_served_kernels(seen, "omniglue request")
+        assert all(not c["over"] for cs in checks.values() for c in cs)
+    else:
+        assert not any(seen.values())
+    res = chip_smoke._o_card_vs_cpu(key, api, img0, img1)
+    assert res["ok"], res
+
+
+@pytest.mark.parametrize("key", ["netvlad", "openibl", "cosplace",
+                                 "eigenplaces", "dir", "fire", "fire_local"])
+def test_retrieval_conf_on_card_matches_cpu(gen, key):
+    """Each retrieval conf through extract() on the card at resize_max
+    1024 on a 1024 x 768 planted view, against the port's CPU run on the
+    card's tree (chip_smoke.py's phase 14 bounds)."""
+    import chip_smoke
+
+    img = chip_smoke.synthetic_pair(100, 1024, 768)[0]
+    res = chip_smoke._retrieval(key, img)
+    assert res["ok"], res

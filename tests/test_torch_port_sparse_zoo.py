@@ -419,7 +419,12 @@ SERVED_ROOT = {"xfeat+lightglue", "xfeat(dense)", "dedode",
                "raco+lightglue", "Mast3R", "DUSt3R", "GIM(dkm)", "dkm",
                # GlueStick, LISRD's three detectors, the wrappers on RoMa
                "gluestick", "LISRD+SuperPoint", "LISRD+ALIKED",
-               "LISRD+SIFT", "dad(RoMa)", "RoMaV2"}
+               "LISRD+SIFT", "dad(RoMa)", "RoMaV2",
+               # the last matchers: OmniGlue and MicKey
+               "omniglue", "mickey"}
+# the root config/app.yaml's disabled entries, which the WebUI hides and
+# the API builds by their conf
+DISABLED_ROOT = {"Example", "LoMa-G", "jamma", "cotr", "sold2"}
 
 
 def _resolve(conf):
@@ -458,18 +463,25 @@ def test_zoo_coverage_of_the_packaged_app_yaml():
 
 
 def test_zoo_coverage_of_the_root_app_yaml():
-    """The thirty entries of the repository's own WebUI zoo that the zoo's
-    later slices add resolve both their models, and all but the ViT-L and
-    ResNet-50 ones build on the CPU; so does the yaml's disabled
-    ``sold2``."""
+    """Every one of the 67 entries of the repository's own WebUI zoo,
+    enabled or not, resolves both its models in the port. The thirty-two
+    that the zoo's later slices add, all but the ViT-L and ResNet-50 ones,
+    build on the CPU; so do the yaml's disabled ``sold2`` and
+    ``Example``, by their conf (``cotr``, on ResNet-50, is built in
+    ``test_torch_port_root_zoo.py``)."""
     raw = tui.load_config(ROOT / "config" / "app.yaml")["matcher_zoo"]
     zoo = tui.get_matcher_zoo(raw)
     assert {key: _resolve(zoo[key]) for key in SERVED_ROOT} == dict.fromkeys(
         SERVED_ROOT)
-    assert "sold2" not in zoo and raw["sold2"]["enable"] is False
-    sold2 = tui.parse_match_config(raw["sold2"])
-    assert _resolve(sold2) is None
-    assert tui.get_model(sold2["matcher"], "cpu").device.type == "cpu"
+    every = {key: _resolve(tui.parse_match_config(conf))
+             for key, conf in raw.items()}
+    assert every == dict.fromkeys(raw) and len(raw) == 67, every
+    assert {key for key, conf in raw.items()
+            if conf.get("enable", True) is False} == DISABLED_ROOT
+    assert set(zoo) == set(raw) - DISABLED_ROOT
+    for key in ("sold2", "Example"):
+        conf = tui.parse_match_config(raw[key])
+        assert tui.get_model(conf["matcher"], "cpu").device.type == "cpu"
     for key in sorted(SERVED_ROOT - NOT_BUILT):
         conf = zoo[key]
         if conf["dense"]:

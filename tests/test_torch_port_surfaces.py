@@ -435,12 +435,14 @@ def test_matcher_zoo_equals_jax(path):
 
 
 def test_zoo_entry_of_an_unported_model_raises_naming_it():
-    """The packaged zoo is served whole; the root config/app.yaml's
-    ``omniglue`` is not ported yet."""
+    """Both zoos are served whole, so the entry here is the root
+    config/app.yaml's ``omniglue`` with a matcher no package has: it
+    raises naming the model."""
     zoo = tui.get_matcher_zoo(tui.load_config(
         ROOT / "config/app.yaml")["matcher_zoo"])
+    zoo["omniglue"]["matcher"]["model"]["name"] = "no_such_matcher"
     pair = chip_smoke.synthetic_pair(100, 80, 64)
-    with pytest.raises(NotImplementedError, match="'omniglue'"):
+    with pytest.raises(NotImplementedError, match="'no_such_matcher'"):
         tui.run_matching(pair[0], pair[1], key="omniglue",
                          matcher_zoo=zoo, device="cpu")
 

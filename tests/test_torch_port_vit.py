@@ -600,7 +600,14 @@ def test_port_imports_no_jax_cv2_pil_or_jax_package():
         "'models.matchers.duster', 'models.matchers.mast3r', "
         "'models.matchers.dkm', 'ops.lsd', 'models.matchers.gluestick', "
         "'models.matchers.lisrd', 'models.matchers.sold2', "
-        "'models.matchers.dad_roma', 'models.matchers.romav2')}\n"
+        "'models.matchers.dad_roma', 'models.matchers.romav2', "
+        "'utils.onnx_reader', 'models.extractors.example', "
+        "'models.matchers.example', 'models.matchers.mickey', "
+        "'models.matchers.cotr', 'models.matchers.omniglue', "
+        "'models.extractors.netvlad', 'models.extractors.openibl', "
+        "'models.extractors.cosplace', 'models.extractors.eigenplaces', "
+        "'models.extractors.dir', 'models.extractors.fire', "
+        "'models.extractors.fire_local')}\n"
         "print(len(names), bad, sorted(evals - set(names)))\n"
         "sys.exit(1 if bad or len(names) < 30 or evals - set(names) "
         "else 0)\n")
