@@ -137,7 +137,18 @@ Phases, each of which passes or ends the run with a non-zero exit:
      COTR's decoder passes); then the registry's seven retrieval confs
      (netvlad, openibl, cosplace, eigenplaces, dir, fire, fire_local)
      through extract() at resize_max 1024, each timed and held to its CPU
-     run (cosine and max abs error; FIRe-local's features as a set).
+     run (cosine and max abs error; FIRe-local's features as a set);
+ 15. the batch pipelines through the port's own HDF5 files
+     (utils/h5lite.py) on six 1024x768 PNG views of three planted pairs
+     in a temporary directory: extract_features.main (superpoint_aachen),
+     pairs_from_exhaustive, match_features.main (superpoint-lightglue),
+     extract_features.main (netvlad) and pairs_from_retrieval, and
+     match_dense.main (loftr) over the planted pairs. Every launch of the
+     run (the stem, K1, K2, K3 or K5, K4) held against its plain version
+     and counted; each file against the same models in memory on the
+     card, the planted gate on the sparse and the dense match files, the
+     retrieval pairs against the CPU's top-k; a second, timed run (ms per
+     image and per pair, device busy and idle share); scipy's version.
 Near the end it prints one JSON line {"timing": ...}, one {"kernels":
 [...]} and the card's name and power limit; the last line is {"ok": true,
 "device": {...}}. Without a CUDA device, or without the rest of the
@@ -536,6 +547,31 @@ RET_ABS = 1e-4
 RET_SET_IOU = 0.99
 # Every wrapper of a hand-written kernel, for the count of launches that
 # phase 10 holds to what it checked.
+# phase 15: the batch pipelines on six 1024x768 PNG views (the planted
+# pairs of B_SEEDS): extraction with the registry's superpoint_aachen, the
+# exhaustive pairs, superpoint-lightglue over them, netvlad and the
+# retrieval pairs, then the registry's dense loftr over the planted pairs.
+# Each file is held against the same models in memory: extraction and
+# sparse matches exactly (float16 where the file is float16); the dense
+# matches within B_DENSE_PX of an in-memory correspondence (cells of 1 px,
+# rounded) with their score within B_DENSE_SCORE, on at least
+# B_DENSE_SHARE of them. Both match files pass the planted gate after the
+# API's RANSAC (GATE_MIN_INLIERS at GATE_MEDIAN_PX).
+B_SEEDS = (100, 101, 102)
+B_SIZE = (1024, 768)
+B_RETRIEVAL_K = 2
+B_KERNELS = ("stem_tail", "stage_tail", "nms_cellmax", "fused_attention",
+             "flash_attention", "bidirectional_attention")
+B_DENSE_PX = 1.0
+B_DENSE_SCORE = 2e-3
+B_DENSE_SHARE = 0.99
+# extract_features.main's preprocessing defaults, which extract() does
+# not share (it defaults to grayscale, resize_max 1024)
+B_MAIN_PRE = {"grayscale": False, "resize_max": None, "force_resize": False,
+              "width": 640, "height": 480, "dfactor": 8,
+              "interpolation": "cv2_area"}
+B_DENSE_PRE = {"grayscale": True, "resize_max": 1024, "force_resize": False,
+               "width": 640, "height": 480, "dfactor": 8}
 ALL_KERNELS = ("stem_tail", "stage_tail", "nms_cellmax", "fused_attention",
                "bidirectional_attention", "flash_attention",
                "qtiled_attention", "tap_matmul")
@@ -3142,12 +3178,15 @@ def _served_modules(names=SERVED_KERNELS):
     return {name: where[name] for name in names}
 
 
-def _capture_kernel_args(run, names=SERVED_KERNELS):
+def _capture_kernel_args(run, names=SERVED_KERNELS, counts=None):
     """The arguments of every launch of the kernels ``names`` (K6, K1 and
     K2 by default) while ``run`` runs, copied on the card: {name: [(args,
-    kwargs), ...]}. Each wrapper is replaced by one that records and calls
-    it; while it is, the wrapper adds its launches to the replacement's
-    count, not to its own."""
+    kwargs), ...]}. Each wrapper is replaced, in the modules the path
+    calls it from, by one that records and calls it; where the wrapper's
+    own module is among them, the wrapper adds its launches to the
+    replacement's count (which starts at 0), elsewhere to its own.
+    ``counts``, if given, receives each kernel's launches during ``run``:
+    the replacement's count plus what the wrapper's own count gained."""
     import torch
 
     def copy(x):
@@ -3165,15 +3204,20 @@ def _capture_kernel_args(run, names=SERVED_KERNELS):
         call.launches = 0
         return call
 
+    recorders = {name: recording(name) for name in mods}
+    before = {name: real[name].launches for name in mods}
     for name, (_, callers) in mods.items():
         for mod in callers:
-            setattr(mod, name, recording(name))
+            setattr(mod, name, recorders[name])
     try:
         run()
     finally:
         for name, (_, callers) in mods.items():
             for mod in callers:
                 setattr(mod, name, real[name])
+        if counts is not None:
+            counts.update({n: r.launches + real[n].launches - before[n]
+                           for n, r in recorders.items()})
     return seen
 
 
@@ -4489,6 +4533,305 @@ def phase14():
     return launches, out
 
 
+def _batch_stages(conf, f, imgs, overwrite):
+    """The batch pipelines in order on the card, each a callable."""
+    from imcui_tpu_torch.pipeline import extract_features as ef
+    from imcui_tpu_torch.pipeline import match_dense as md
+    from imcui_tpu_torch.pipeline import match_features as mf
+    from imcui_tpu_torch.pipeline import pairs_from_exhaustive as pe
+    from imcui_tpu_torch.pipeline import pairs_from_retrieval as pr
+
+    return {
+        "extract": lambda: ef.main(conf["sp"], imgs, feature_path=f["feats"],
+                                   overwrite=overwrite),
+        "pairs": lambda: pe.main(f["pairs"], features=f["feats"]),
+        "match": lambda: mf.main(conf["lg"], f["pairs"], f["feats"],
+                                 matches=f["matches"], overwrite=overwrite),
+        "global": lambda: ef.main(conf["nv"], imgs, feature_path=f["global"],
+                                  overwrite=overwrite),
+        "retrieval": lambda: pr.main(f["global"], f["retrieval"],
+                                     B_RETRIEVAL_K),
+        "dense": lambda: md.main(conf["lo"], f["planted"], imgs,
+                                 features=f["dense_feats"],
+                                 matches=f["dense_matches"],
+                                 overwrite=overwrite)}
+
+
+def _run_stages(stages):
+    """({stage: its return value}, {stage: wall s}), one after another."""
+    import torch
+
+    out, walls = {}, {}
+    for k, fn in stages.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[k] = fn()
+        torch.cuda.synchronize()
+        walls[k] = time.perf_counter() - t0
+    return out, walls
+
+
+def _rows(a, b, scores=None):
+    """(n, 4|5) float64 rows [a, b(, score)], lexicographically sorted."""
+    cols = [np.asarray(a, np.float64), np.asarray(b, np.float64)]
+    if scores is not None:
+        cols.append(np.asarray(scores, np.float64)[:, None])
+    r = np.concatenate(cols, 1) if len(cols[0]) else np.zeros(
+        (0, 4 + (scores is not None)))
+    return r[np.lexsort(r.T[::-1])]
+
+
+def _batch_file_checks(conf, f, imgs, names, planted):
+    """Each file against the same models in memory on the card; the
+    planted gate on both match files; the retrieval pairs against the
+    CPU. Returns the measurements."""
+    from scipy.spatial import cKDTree
+
+    from imcui_tpu_torch.pipeline import extract_features as ef
+    from imcui_tpu_torch.pipeline import match_dense as md
+    from imcui_tpu_torch.pipeline import match_features as mf
+    from imcui_tpu_torch.pipeline import pairs_from_retrieval as pr
+    from imcui_tpu_torch.ui import utils as ui
+    from imcui_tpu_torch.utils import h5lite, io
+    from imcui_tpu_torch.utils.image import keypoints_to_original, read_image
+
+    res = {}
+    # extraction: keypoints at the original resolution (float64), scores
+    # and descriptors as float16, the uncertainty attribute
+    for key, out_keys in (("sp", ("keypoints", "scores", "descriptors")),
+                          ("nv", ("global_descriptor",))):
+        pre = {**B_MAIN_PRE, **conf[key]["preprocessing"]}
+        model = ui.get_feature_model(conf[key], "cuda")
+        path = f["feats" if key == "sp" else "global"]
+        with h5lite.File(path) as fd:
+            for name in names:
+                pred = ef.extract(model, read_image(imgs / name,
+                                                    pre["grayscale"]), pre)
+                want = ef.trim_valid(pred)
+                scale = pred["original_size"] / pred["size"]
+                if "keypoints" in want:
+                    want["keypoints"] = keypoints_to_original(
+                        want["keypoints"], scale)
+                want = {k: v.astype(np.float16) if v.dtype == np.float32
+                        else v for k, v in want.items()}
+                grp = fd[name]
+                if sorted(grp.keys()) != sorted(out_keys):
+                    fail(f"{key} file: {name} holds {grp.keys()}")
+                for k in out_keys:
+                    got = np.asarray(grp[k])
+                    if got.dtype != want[k].dtype or not np.array_equal(
+                            got, want[k]):
+                        fail(f"{key} file: {name}/{k} differs from the "
+                             f"in-memory extract(): {got.dtype} "
+                             f"{got.shape} against {want[k].dtype} "
+                             f"{want[k].shape}")
+                if key == "sp":
+                    u = grp["keypoints"].attrs["uncertainty"]
+                    if u != np.mean(scale) or np.asarray(u).dtype != \
+                            np.float64:
+                        fail(f"{name}: uncertainty {u!r} is not "
+                             f"{np.mean(scale)!r} as float64")
+        res[f"{key}_groups_equal"] = len(names)
+        del model
+    n_kpts = {n: len(io.get_keypoints(f["feats"], n)) for n in names}
+    res["keypoints_per_image"] = n_kpts
+    # sparse matches: the file's pairs in their stored order through
+    # match_images on the features as the file holds them, padded to the
+    # run's one bucket
+    model = ui.get_model(conf["lg"], "cuda")
+    n_slots = mf.kpt_bucket(max(n_kpts.values()))
+    res["slots"] = n_slots
+    pairs = [tuple(p.split()) for p in f["pairs"].read_text().split("\n")]
+    with h5lite.File(f["feats"]) as ff, h5lite.File(f["matches"]) as fm:
+        feats = {}
+        for name in names:
+            pad, _ = mf._read_features(ff, name, n_slots)
+            feats[name] = {k: v[None] for k, v in pad.items()}
+            feats[name].update(original_size=np.ones(2), size=np.ones(2))
+        for n0, n1 in pairs:
+            pair, rev = io.find_pair(fm, n0, n1)
+            a, b = (n1, n0) if rev else (n0, n1)
+            m0 = np.asarray(fm[pair]["matches0"])
+            s0 = np.asarray(fm[pair]["matching_scores0"])
+            idx = np.flatnonzero(m0 != -1)
+            ka, kb = (feats[n]["keypoints"][0] for n in (a, b))
+            got = _rows(ka[idx], kb[m0[idx]], s0[idx])
+            pred = mf.match_images(model, feats[a], feats[b])
+            want = _rows(pred["mkeypoints0"], pred["mkeypoints1"],
+                         pred["mconf"].astype(np.float16))
+            if got.shape != want.shape or not np.array_equal(got, want):
+                fail(f"sparse match file: {pair} ({len(got)} matches) "
+                     f"differs from match_images ({len(want)})")
+    res["sparse_pairs_equal"] = len(pairs)
+    del model
+    # dense: every stored match within B_DENSE_PX of a rounded in-memory
+    # correspondence with its score, one per image-0 cell
+    model = ui.get_model(conf["lo"], "cuda")
+    pre = {**B_DENSE_PRE, **conf["lo"]["preprocessing"]}
+    dense = {}
+    for n0, n1, _ in planted:
+        ret = md.match_images(model, read_image(imgs / n0, True),
+                              read_image(imgs / n1, True), pre)
+        k0, k1 = (np.round(ret[k]) for k in ("mkeypoints0_orig",
+                                             "mkeypoints1_orig"))
+        m, s = io.get_matches(f["dense_matches"], n0, n1)
+        d0 = io.get_keypoints(f["dense_feats"], n0)
+        d1 = io.get_keypoints(f["dense_feats"], n1)
+        want = np.concatenate([k0, k1], 1)
+        got = np.concatenate([d0[m[:, 0]], d1[m[:, 1]]], 1)
+        dist, j = cKDTree(want).query(got, p=np.inf)
+        ok = (dist <= B_DENSE_PX) & (np.abs(
+            s.astype(np.float64) - ret["mconf"][j]) <= B_DENSE_SCORE)
+        cells = len(np.unique(k0, axis=0))
+        dense[n0] = {"matches": len(m), "cells": cells,
+                     "share": float(ok.mean()) if len(ok) else 0.0}
+        if dense[n0]["share"] < B_DENSE_SHARE or abs(len(m) - cells) > \
+                0.01 * cells:
+            fail(f"dense match file: {n0}-{n1}: {dense[n0]} against the "
+                 "in-memory match_images")
+    res["dense_vs_memory"] = dense
+    del model
+    # the planted gate on both match files, after the API's RANSAC
+    gates = {}
+    for tag, feats_path, matches_path in (
+            ("sparse", f["feats"], f["matches"]),
+            ("dense", f["dense_feats"], f["dense_matches"])):
+        for n0, n1, hm in planted:
+            m, _ = io.get_matches(matches_path, n0, n1)
+            k0 = io.get_keypoints(feats_path, n0)[m[:, 0]].astype(np.float64)
+            k1 = io.get_keypoints(feats_path, n1)[m[:, 1]].astype(np.float64)
+            _, inl = ui.proc_ransac_matches(
+                k0, k1, ransac_reproj_threshold=ui.DEFAULT_RANSAC_REPROJ_THRESHOLD,
+                ransac_max_iter=ui.DEFAULT_RANSAC_MAX_ITER, device="cuda")
+            err = transfer_errors(hm, k0[inl], k1[inl])
+            med = float(np.median(err)) if len(err) else float("inf")
+            gates[f"{tag} {n0}"] = {"matches": len(m), "inliers": len(err),
+                                    "median_px": med}
+            log(f"  {tag} file {n0}-{n1}: {len(m)} matches, {len(err)} "
+                f"inliers, median transfer error {med:.3f} px")
+            if len(err) < GATE_MIN_INLIERS or med > GATE_MEDIAN_PX:
+                fail(f"{tag} file {n0}-{n1}: gate is >= {GATE_MIN_INLIERS} "
+                     f"inliers with median error <= {GATE_MEDIAN_PX} px")
+    res["gates"] = gates
+    # the retrieval pairs against the CPU's top-k on the same file
+    got = [tuple(p.split()) for p in
+           f["retrieval"].read_text().split("\n")]
+    want = pr.main(f["global"], f["retrieval"].with_suffix(".cpu"),
+                   B_RETRIEVAL_K, device="cpu")
+    if got != want or len(got) != B_RETRIEVAL_K * len(names):
+        fail(f"retrieval pairs {got} differ from the CPU's {want}")
+    res["retrieval_pairs"] = got
+    return res
+
+
+def phase15(smi_line):
+    """The batch pipelines (extract_features, pairs_from_exhaustive,
+    match_features, pairs_from_retrieval, match_dense main()s) on six
+    1024x768 PNG views of B_SEEDS' planted pairs in a temporary
+    directory, through the port's own HDF5 files: counts at 0, one run
+    with every kernel launch recorded (the main path: its counts), each
+    launch held against its plain version; the files against the same
+    models in memory, the planted gate on both match files, the retrieval
+    pairs against the CPU; then a second run (overwrite) timed stage by
+    stage with its counts, and a profiler window over the extraction,
+    the matching and the dense stage. Returns (launches of the main path,
+    measurements)."""
+    import tempfile
+    from pathlib import Path
+
+    import scipy
+    import torch
+
+    from imcui_tpu_torch.pipeline import extract_features as ef
+    from imcui_tpu_torch.pipeline import match_dense as md
+    from imcui_tpu_torch.pipeline import match_features as mf
+    from imcui_tpu_torch.utils.png import encode_png
+
+    t_phase = time.perf_counter()
+    log(f"  scipy {scipy.__version__} (match_dense.assign_keypoints' KDTree)")
+    conf = {"sp": ef.confs["superpoint_aachen"], "nv": ef.confs["netvlad"],
+            "lg": mf.confs["superpoint-lightglue"], "lo": md.confs["loftr"]}
+    res = {"scipy": scipy.__version__, "card": smi_line}
+    with tempfile.TemporaryDirectory(prefix="imcui-batch-") as tmp:
+        tmp = Path(tmp)
+        imgs = tmp / "images"
+        imgs.mkdir()
+        planted = []
+        for seed in B_SEEDS:
+            a, b, hm = synthetic_pair(seed, *B_SIZE)
+            names = (f"s{seed}_0.png", f"s{seed}_1.png")
+            (imgs / names[0]).write_bytes(encode_png(a))
+            (imgs / names[1]).write_bytes(encode_png(b))
+            planted.append((*names, hm))
+        names = sorted(n for p in planted for n in p[:2])
+        f = {k: tmp / v for k, v in (
+            ("feats", "feats.h5"), ("pairs", "pairs.txt"),
+            ("matches", "matches.h5"), ("global", "global.h5"),
+            ("retrieval", "retrieval.txt"), ("planted", "planted.txt"),
+            ("dense_feats", "dense_feats.h5"),
+            ("dense_matches", "dense_matches.h5"))}
+        f["planted"].write_text("\n".join(f"{a} {b}" for a, b, _ in planted))
+        # the main path: counts at 0 (the recorders'), every launch copied
+        launches, walls = {}, {}
+        seen = _capture_kernel_args(
+            lambda: walls.update(_run_stages(
+                _batch_stages(conf, f, imgs, False))[1]),
+            B_KERNELS, launches)
+        launches = {n: c for n, c in launches.items() if c}
+        log(f"  batch run: {launches} launches; stage seconds "
+            f"{ {k: round(v, 2) for k, v in walls.items()} }")
+        checks = _check_served_kernels({n: c for n, c in seen.items() if c},
+                                       "batch launch")
+        del seen
+        torch.cuda.empty_cache()
+        for need in ("stem_tail", "stage_tail", "nms_cellmax",
+                     "bidirectional_attention"):
+            if not launches.get(need):
+                fail(f"the batch run launched no {need}")
+        if not (launches.get("fused_attention")
+                or launches.get("flash_attention")):
+            fail("the batch run launched neither K3 nor K5")
+        res.update(launches=launches, first_run_s=walls,
+                   kernel_checks=checks)
+        res.update(_batch_file_checks(conf, f, imgs, names, planted))
+        # the timed run: the same work again (overwrite), counts at 0
+        fns = _wrappers()
+        for fn in fns.values():
+            fn.launches = 0
+        stages = _batch_stages(conf, f, imgs, True)
+        _, walls = _run_stages(stages)
+        again = {n: fn.launches for n, fn in fns.items() if fn.launches}
+        log(f"  timed run: {again} launches")
+        if set(again) != set(launches):
+            fail(f"the timed run launched {sorted(again)}, the first "
+                 f"{sorted(launches)}")
+        n_pairs = len(f["pairs"].read_text().split("\n"))
+        per = {"extract": len(names), "match": n_pairs,
+               "global": len(names), "dense": len(planted)}
+        busy = {k: device_window(lambda i, k=k: stages[k](), 1)[0]
+                for k in ("extract", "match", "dense")}
+        timing = {}
+        for k, s in walls.items():
+            timing[k] = {"s": s}
+            line = f"  {k}: {s:.3f} s"
+            if k in per:
+                ms = s * 1e3 / per[k]
+                unit = "image" if k in ("extract", "global") else "pair"
+                timing[k].update(ms_per_item=ms, items=per[k])
+                line += f", {ms:.2f} ms per {unit}"
+            if k in busy:
+                timing[k].update(device_busy_ms_per_item=busy[k] / per[k],
+                                 device_idle_share=1 - busy[k] / (s * 1e3))
+                line += (f", device busy {busy[k] / per[k]:.2f} ms per "
+                         f"{unit}, idle share {1 - busy[k] / (s * 1e3):.3f}")
+            log(line)
+        res.update(timing=timing, timed_launches=again)
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"  {smi_line}")
+    log(f"  phase 15: {res['phase_s']:.1f} s")
+    return launches, res
+
+
 def oriented_pairs(pa, aa, pb, ab, tol):
     """Keypoints of a and b paired by point (within ``tol`` px, max norm)
     and then by the nearest angle (one point can hold several
@@ -5048,6 +5391,10 @@ def main():
         f"{', '.join(O_ENTRIES)}) and the retrieval confs (extract() on "
         f"{', '.join(RET_ENTRIES)})")
     launches_14, timing["zoo_14"] = phase14()
+    log("phase 15: the batch pipelines (extract_features, "
+        "pairs_from_exhaustive, match_features, pairs_from_retrieval, "
+        "match_dense) through the port's HDF5 files")
+    launches_15, timing["batch"] = phase15(smi_line)
     for r in rows:
         by_path = {
             "turbo": launches.get(r["name"], 0),
@@ -5061,7 +5408,8 @@ def main():
             "zoo": launches_zoo.get(r["name"], 0),
             "zoo 12": launches_12.get(r["name"], 0),
             "zoo 13": launches_13.get(r["name"], 0),
-            "zoo 14": launches_14.get(r["name"], 0)}
+            "zoo 14": launches_14.get(r["name"], 0),
+            "batch": launches_15.get(r["name"], 0)}
         r["launches_by_path"] = by_path
         r["launches"] = sum(by_path.values())
         if r["launches"] == 0:

@@ -25,7 +25,10 @@ The user surfaces sit on the general path: the HTTP server
 (``api/server.py``, standard library transport), its client
 (``api/client.py``), the command line (``cli/main.py``) and
 ``ui/utils.py::run_matching`` over the matcher zoo, with this package's
-own PNG codec (``utils/png.py``).
+own PNG codec (``utils/png.py``). The batch pipelines
+(``pipeline/{extract_features,match_features,match_dense}.py``'s
+``main()``, ``pipeline/pairs_from_{exhaustive,retrieval}.py``) write and
+read hloc's HDF5 files through this package's own ``utils/h5lite.py``.
 
 The seven Pallas kernels on those paths are rewritten by hand in CUDA C++
 (``csrc/``, built on first use by ``ops/_build.py``): ``stage_tail``,

@@ -1,15 +1,30 @@
 """Dense matching pipeline. Counterpart of
 ``imcui_tpu/pipeline/match_dense.py``: ``confs``, ``match_images(model,
 image0, image1, conf)`` for the programmatic and UI path (point outputs,
-line outputs copied through), and the dense → sparse keypoint assignment
-helpers. The batch export over pair files (``match_and_assign``, ``main``)
-writes HDF5 with the h5py package, which this package does not import.
+line outputs copied through), the dense → sparse keypoint assignment
+helpers, and the batch ``match_and_assign`` / ``main`` over a pairs file:
+each image's correspondences are quantised to cells, each cell refined to
+its best bin and the image's keypoints capped at ``max_kps`` by
+accumulated score, then written as a feature file and a match file
+(through ``utils/h5lite``). The bookkeeping is the JAX module's, in numpy
+on the host, so ties order the same.
 """
+
+import pprint
+from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 
+from .. import logger
 from ..configs import confs_dict
+from ..models import matchers
+from ..utils import h5lite
 from ..utils import image as image_utils
+from ..utils.base_model import dynamic_load
+from ..utils.io import names_to_pair
+from ..utils.parsers_compat import parse_pairs_file
+from .match_features import find_unique_new_pairs
 
 confs = {
     name: conf for name, conf in confs_dict["matchers"].items()
@@ -132,12 +147,125 @@ def match_images(model, image_0, image_1, conf):
     return ret
 
 
-def _needs_h5py(*_, **__):
-    raise NotImplementedError(
-        "the batch export over a pairs file writes HDF5 with the h5py "
-        "package, which the port does not use (ROADMAP §A, the HDF5 "
-        "batch pipelines); match_images serves one pair")
+def match_and_assign(conf, pairs_path, image_dir, match_path,
+                     feature_path_q, feature_paths_refs=(),
+                     max_kps=8192, overwrite=False, device="cuda"):
+    """Match every new pair of ``pairs_path`` densely with ``conf``'s
+    model on ``device``, aggregate each image's correspondences into at
+    most ``max_kps`` keypoints, and write the matches to ``match_path``
+    and the keypoints (``uncertainty`` = ``max_error``) to
+    ``feature_path_q``."""
+    pairs = parse_pairs_file(pairs_path)
+    pairs = find_unique_new_pairs(pairs, None if overwrite else match_path)
+    required_queries = set(sum(([n0, n1] for n0, n1 in pairs), []))
+    if len(pairs) == 0 and len(required_queries) == 0:
+        logger.info("Skipping dense matching.")
+        return
+
+    Model = dynamic_load(matchers, conf["model"]["name"])
+    model = Model(conf["model"], device=device)
+
+    cell_size = conf.get("cell_size", 1)
+    max_error = conf.get("max_error", 1)
+    pconf = SimpleNamespace(**{
+        **{"grayscale": True, "resize_max": 1024, "force_resize": False,
+           "width": 640, "height": 480, "dfactor": 8},
+        **conf.get("preprocessing", {}),
+    })
+
+    cpdict = {n: [] for n in required_queries}  # name -> cell centers
+    bindict = {n: [] for n in required_queries}  # name -> score bins
+    raw = {}
+
+    for name0, name1 in pairs:
+        img0 = image_utils.read_image(Path(image_dir) / name0,
+                                      pconf.grayscale)
+        img1 = image_utils.read_image(Path(image_dir) / name1,
+                                      pconf.grayscale)
+        ret = match_images(model, img0, img1, vars(pconf))
+        kpts0 = ret["mkeypoints0_orig"]
+        kpts1 = ret["mkeypoints1_orig"]
+        scores = ret["mconf"]
+        ids0 = assign_keypoints(kpts0, cpdict[name0], max_error,
+                                update=True, ref_bins=bindict[name0],
+                                scores=scores, cell_size=cell_size)
+        ids1 = assign_keypoints(kpts1, cpdict[name1], max_error,
+                                update=True, ref_bins=bindict[name1],
+                                scores=scores, cell_size=cell_size)
+        raw[(name0, name1)] = (ids0, ids1, scores)
+
+    # finalize per-image keypoints: refine each cell to its best bin,
+    # cap at max_kps by accumulated score
+    final_kpts = {}
+    keep_ids = {}
+    for name in required_queries:
+        cpts = np.array(cpdict[name], float) if cpdict[name] else \
+            np.zeros((0, 2))
+        scores = np.array(
+            [max(b.values()) if b else 0.0 for b in bindict[name]]
+        )
+        kpts = np.array(
+            [max(b, key=b.get) if b else tuple(c)
+             for b, c in zip(bindict[name], cpts)], float,
+        ) if len(cpts) else cpts
+        order = np.argsort(-scores)[:max_kps]
+        remap = -np.ones(len(cpts), int)
+        remap[order] = np.arange(len(order))
+        final_kpts[name] = kpts[order] if len(cpts) else kpts
+        keep_ids[name] = remap
+
+    with h5lite.File(match_path, "a") as fd:
+        for (name0, name1), (ids0, ids1, scores) in raw.items():
+            r0, r1 = keep_ids[name0], keep_ids[name1]
+            m0 = np.where(ids0 >= 0, r0[np.clip(ids0, 0, None)], -1)
+            m1 = np.where(ids1 >= 0, r1[np.clip(ids1, 0, None)], -1)
+            valid = (m0 > -1) & (m1 > -1)
+            n_kpts0 = len(final_kpts[name0])
+            matches0 = -np.ones(n_kpts0, np.int32)
+            sc0 = np.zeros(n_kpts0, np.float16)
+            matches0[m0[valid]] = m1[valid]
+            sc0[m0[valid]] = scores[valid]
+            pair = names_to_pair(name0, name1)
+            if pair in fd:
+                del fd[pair]
+            grp = fd.create_group(pair)
+            grp.create_dataset("matches0", data=matches0.astype(np.int16))
+            grp.create_dataset("matching_scores0", data=sc0)
+
+    with h5lite.File(feature_path_q, "a") as fd:
+        for name, kpts in final_kpts.items():
+            if name in fd:
+                del fd[name]
+            grp = fd.create_group(name)
+            grp.create_dataset("keypoints", data=kpts.astype(np.float32))
+            grp.create_dataset(
+                "scores",
+                data=np.ones(len(kpts), np.float16),
+            )
+            grp["keypoints"].attrs["uncertainty"] = max_error
+
+    logger.info("Finished dense matching.")
 
 
-match_and_assign = _needs_h5py
-main = _needs_h5py
+def main(conf, pairs, image_dir, export_dir=None, matches=None,
+         features=None, features_ref=None, max_kps=8192, overwrite=False,
+         device="cuda"):
+    """Dense matching of a pairs file into a feature file and a match
+    file (named after ``conf["output"]`` in ``export_dir`` unless given);
+    returns both paths."""
+    logger.info(
+        "Dense matching with configuration:" f"\n{pprint.pformat(conf)}"
+    )
+    if features is None:
+        features = "feats_" + conf["output"]
+    if isinstance(features, (str,)) and export_dir is not None:
+        features_q = Path(export_dir, f"{features}.h5")
+        if matches is None:
+            matches = Path(export_dir, f'{conf["output"]}_pairs.h5')
+    else:
+        features_q = Path(features)
+        if matches is None:
+            raise ValueError("Provide matches path with explicit features.")
+    match_and_assign(conf, pairs, image_dir, Path(matches), features_q,
+                     max_kps=max_kps, overwrite=overwrite, device=device)
+    return Path(features_q), Path(matches)

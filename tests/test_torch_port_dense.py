@@ -7,6 +7,7 @@ BN statistics and LayerScale gammas; images are ``chip_smoke``'s planted
 pairs and numpy-seeded noise.
 """
 
+import h5py
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -26,9 +27,30 @@ from imcui_tpu_torch.pipeline import match_dense as tdense
 from imcui_tpu_torch.ui import utils as tui
 from imcui_tpu_torch.utils import image as timage
 from imcui_tpu_torch.utils import weights
+from imcui_tpu_torch.utils.png import encode_png
 
 TINY = {"dinov2_variant": "test", "gp_dim": 512, "coarse_res": (112, 112),
         "max_keypoints": 64, "sample_recall_target": 1.0}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _offline():
+    """The JAX package's RoMa looks for its checkpoint on the model hub
+    first; offline it goes straight to its random init."""
+    mp = pytest.MonkeyPatch()
+    mp.setenv("HF_HUB_OFFLINE", "1")
+    yield
+    mp.undo()
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Torch on one thread: RoMa's many small CPU ops wait at every
+    parallel region's barrier under the suite's six workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def tiny_tree(seed=0):
@@ -265,7 +287,7 @@ def test_api_standalone_forward_matches_jax(pair, planted, precision):
     assert "geom_info" in got and "mmkeypoints0_orig" in got
 
 
-def test_api_standalone_refuses_extract_and_cuda(pair):
+def test_api_standalone_refuses_extract_and_cuda(pair, planted, tmp_path):
     with pytest.raises(RuntimeError, match="standalone"):
         pair.tapi.extract(np.zeros((32, 32, 3), np.uint8))
     with pytest.raises(TypeError):
@@ -277,9 +299,19 @@ def test_api_standalone_refuses_extract_and_cuda(pair):
     assert tui.parse_match_config({"matcher": "roma", "dense": True})[
         "matcher"] == jui.parse_match_config(
             {"matcher": "roma", "dense": True})["matcher"]
-    for fn in (tdense.match_and_assign, tdense.main):
-        with pytest.raises(NotImplementedError, match="h5py"):
-            fn({}, "pairs.txt", "images")
+    # the batch export writes its files (utils/h5lite) where it raised
+    conf = _conf(tui)["matcher"]
+    for name, image in zip(("a.png", "b.png"), planted[:2]):
+        (tmp_path / name).write_bytes(encode_png(image))
+    (tmp_path / "pairs.txt").write_text("a.png b.png\n")
+    feats, matches = tdense.main(conf, tmp_path / "pairs.txt", tmp_path,
+                                 tmp_path, max_kps=32, device="cpu")
+    with h5py.File(feats, "r") as f:
+        assert sorted(f.keys()) == ["a.png", "b.png"]
+        assert 0 < len(f["a.png/keypoints"]) <= 32
+    with h5py.File(matches, "r") as f:
+        assert f["a.png/b.png/matches0"].dtype == np.int16
+        assert (f["a.png/b.png/matches0"][()] >= 0).any()
 
 
 def test_to_cpts_and_assign_keypoints_match_jax():

@@ -25,6 +25,16 @@ TINY = {"dinov2_variant": "test", "gp_dim": 512}
 RES = 112
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Torch on one thread: RoMa's many small CPU ops wait at every
+    parallel region's barrier under the suite's six workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _np(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
 

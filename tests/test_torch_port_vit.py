@@ -569,9 +569,9 @@ def test_dinov2_init_tree_and_pos_embed():
 
 def test_port_imports_no_jax_cv2_pil_or_jax_package():
     """Import every module of imcui_tpu_torch in a fresh interpreter (the
-    evaluations in imcui_tpu_torch/eval/ and the zoo's models among them)
-    and look at sys.modules: no JAX, cv2, PIL, h5py, triton or
-    torchvision."""
+    evaluations in imcui_tpu_torch/eval/, the zoo's models and the batch
+    pipelines on utils/h5lite among them) and look at sys.modules: no JAX,
+    cv2, PIL, h5py, triton or torchvision."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import imcui_tpu_torch\n"
@@ -607,7 +607,11 @@ def test_port_imports_no_jax_cv2_pil_or_jax_package():
         "'models.extractors.netvlad', 'models.extractors.openibl', "
         "'models.extractors.cosplace', 'models.extractors.eigenplaces', "
         "'models.extractors.dir', 'models.extractors.fire', "
-        "'models.extractors.fire_local')}\n"
+        "'models.extractors.fire_local', 'utils.h5lite', 'utils.io', "
+        "'utils.parsers_compat', 'pipeline.extract_features', "
+        "'pipeline.match_features', 'pipeline.match_dense', "
+        "'pipeline.pairs_from_exhaustive', "
+        "'pipeline.pairs_from_retrieval')}\n"
         "print(len(names), bad, sorted(evals - set(names)))\n"
         "sys.exit(1 if bad or len(names) < 30 or evals - set(names) "
         "else 0)\n")
