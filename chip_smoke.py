@@ -148,7 +148,20 @@ Phases, each of which passes or ends the run with a non-zero exit:
      and counted; each file against the same models in memory on the
      card, the planted gate on the sparse and the dense match files, the
      retrieval pairs against the CPU's top-k; a second, timed run (ms per
-     image and per pair, device busy and idle share); scipy's version.
+     image and per pair, device busy and idle share); scipy's version;
+ 16. SfM and localisation on those files, served through SfmEngine:
+     six 1600x1200 PNG views of one textured image under planted
+     homographies at the engine's defaults (bf16 SuperPoint at 4096
+     keypoints, mutual NN, the device RANSAC at 1024 hypotheses and 4 px),
+     the stem, K1 and K2 launched once a view and every launch held
+     against its plain version, the database against the engine's files,
+     the planted gate on every pair's verified matches; the retrieval
+     branch (netvlad) against the CPU's pairs; reconstruction.main and
+     triangulation.main on a planted non-planar scene, the card's
+     verified sets against the CPU's and the planted; localize_sfm.main
+     and localize_inloc's PnP against the CPU and the planted pose; a
+     second run timed stage by stage (ms per image, pair and query,
+     device busy and idle share).
 Near the end it prints one JSON line {"timing": ...}, one {"kernels":
 [...]} and the card's name and power limit; the last line is {"ok": true,
 "device": {...}}. Without a CUDA device, or without the rest of the
@@ -572,6 +585,26 @@ B_MAIN_PRE = {"grayscale": False, "resize_max": None, "force_resize": False,
               "interpolation": "cv2_area"}
 B_DENSE_PRE = {"grayscale": True, "resize_max": 1024, "force_resize": False,
                "width": 640, "height": 480, "dfactor": 8}
+# phase 16: SfmEngine on M_VIEWS 1600x1200 PNG views of one textured image,
+# each through its own random_homography (the pairs' planted homographies
+# H_j·H_i⁻¹), at the engine's defaults (bf16 SuperPoint at 4096 keypoints,
+# mutual NN, RANSAC at 1024 hypotheses and 4 px). Each pair's verified
+# matches: at least M_SHARE of them within M_PX of the planted homography
+# and at least M_LEAST of them (set from the port's CPU run of the same
+# views, PERF.md). The planted non-planar scene of M_SCENE (views, points,
+# wrong share) for verification card against CPU, and its query (M_QUERY
+# keypoints, 30 % wrong) for localisation within M_POSE_DEG and M_POSE_T
+# (the JAX package's localisation test's gates).
+M_VIEWS = 6
+M_SIZE = (1600, 1200)
+M_SEED = 1600
+M_PX = 3.0
+M_SHARE = 0.75
+M_LEAST = 200
+M_SCENE = (1601, 8, 2000, 0.25)
+M_QUERY = 4096
+M_POSE_DEG, M_POSE_T = 1.5, 0.1
+M_RETRIEVAL_K = 3
 ALL_KERNELS = ("stem_tail", "stage_tail", "nms_cellmax", "fused_attention",
                "bidirectional_attention", "flash_attention",
                "qtiled_attention", "tap_matmul")
@@ -688,6 +721,322 @@ def synthetic_pair(seed, w, h):
     img1 = warp_image(img0, hm, (h, w))
     return (np.repeat(img0[..., None], 3, -1),
             np.repeat(img1[..., None], 3, -1), hm)
+
+
+def homography_views(seed, n, w, h, zoom=1):
+    """``n`` RGB uint8 w × h views of one textured image of ``zoom`` times
+    their size, each through its own random_homography after a 1/zoom
+    scale, and those homographies (texture px → view px): view j =
+    H_j·H_i⁻¹ of view i."""
+    rng = np.random.default_rng(seed)
+    base = textured_image(rng, h * zoom, w * zoom)
+    scale = np.diag([1 / zoom, 1 / zoom, 1.0])
+    hms = [random_homography(rng, h, w) @ scale for _ in range(n)]
+    return [np.repeat(warp_image(base, hm, (h, w))[..., None], 3, -1)
+            for hm in hms], hms
+
+
+def _rot_y(a):
+    return np.array([[np.cos(a), 0, np.sin(a)], [0, 1, 0],
+                     [-np.sin(a), 0, np.cos(a)]])
+
+
+def _project(K, R, t, X):
+    x = (X @ R.T + t) @ K.T
+    return x[:, :2] / x[:, 2:]
+
+
+def _epipolar_px(K, Ra, ta, Rb, tb, pa, pb):
+    """Point-to-epipolar-line distances (px) both ways of correspondences
+    pa (view a) ↔ pb (view b) under the true poses, the smaller of the
+    two."""
+    R = Rb @ Ra.T
+    t = tb - R @ ta
+    tx = np.array([[0, -t[2], t[1]], [t[2], 0, -t[0]], [-t[1], t[0], 0]])
+    Ki = np.linalg.inv(K)
+    F = Ki.T @ tx @ R @ Ki
+    ha = np.concatenate([pa, np.ones((len(pa), 1))], 1)
+    hb = np.concatenate([pb, np.ones((len(pb), 1))], 1)
+    lb, la = ha @ F.T, hb @ F
+    num = np.abs((hb * lb).sum(1))
+    return np.minimum(num / np.linalg.norm(lb[:, :2], axis=1),
+                      num / np.linalg.norm(la[:, :2], axis=1))
+
+
+def sfm_scene(seed, n_images, n_points, wrong, n_query=0, query_wrong=0.3,
+              noise=0.3, query_noise=0.4, far_px=50.0, size=(1024, 768)):
+    """A planted non-planar scene: ``n_points`` points in a box 4-8 units
+    in front of ``n_images`` PINHOLE cameras (f 800) that turn about y and
+    slide along x and z. Each view's keypoints are every point's
+    projection with ``noise`` px of noise, in the view's own order. Every
+    image pair has matches of 0.8·n_points points, ``wrong`` of them to
+    the keypoint of another point at more than ``far_px`` from the
+    epipolar line both ways, so that a 4 px gate keeps exactly the right
+    ones (at 20 px the float32 F refit let 1-2 wrong ones through on
+    adjacent views). Pair (a, b) is
+    listed as (b, a) where a + b is divisible by 3 (the database stores it
+    flipped). With ``n_query``, a query at a known pose with ``n_query``
+    keypoints (the points' projections with ``query_noise`` px and random
+    others) matched to the first three views: every point once,
+    ``query_wrong`` of them to another point whose projection lies more
+    than 3·far_px away. Keypoints in the files are the projections − 0.5
+    (COLMAP's origin); the model's xys are the projections."""
+    from imcui_tpu_torch.utils import read_write_model as rwm
+    from imcui_tpu_torch.utils.geometry import rotmat2qvec
+
+    rng = np.random.default_rng(seed)
+    w, h = size
+    K = np.array([[800.0, 0, w / 2], [0, 800.0, h / 2], [0, 0, 1]])
+    X = rng.uniform([-2.0, -1.5, -2.0], [2.0, 1.5, 2.0], (n_points, 3)) \
+        + np.array([0, 0, 6.0])
+    cameras = {1: rwm.Camera(id=1, model="PINHOLE", width=w, height=h,
+                             params=np.array([800.0, 800.0, w / 2, h / 2]))}
+    names = [f"view{i}.png" for i in range(n_images)]
+    poses, kpts, inv = [], {}, []
+    images, tracks = {}, {j: ([], []) for j in range(n_points)}
+    for i, name in enumerate(names):
+        c = i - (n_images - 1) / 2
+        R, t = _rot_y(0.08 * c), np.array([0.4 * c, 0.1 * np.sin(i),
+                                            0.05 * c])
+        poses.append((R, t))
+        perm = rng.permutation(n_points)  # keypoint k shows point perm[k]
+        xy = _project(K, R, t, X)[perm] + rng.normal(0, noise,
+                                                     (n_points, 2))
+        kpts[name] = (xy - 0.5).astype(np.float32)
+        inv.append(np.argsort(perm))
+        images[i + 1] = rwm.Image(
+            id=i + 1, qvec=rotmat2qvec(R), tvec=t, camera_id=1, name=name,
+            xys=kpts[name].astype(np.float64) + 0.5, point3D_ids=perm)
+        for k, j in enumerate(perm):
+            tracks[j][0].append(i + 1)
+            tracks[j][1].append(k)
+    points3D = {j: rwm.Point3D(
+        id=j, xyz=X[j], rgb=np.array([128, 128, 128]), error=0.5,
+        image_ids=np.array(tracks[j][0]), point2D_idxs=np.array(
+            tracks[j][1])) for j in range(n_points)}
+
+    pairs, matches, correct = [], {}, {}
+    n_match = int(0.8 * n_points)
+    n_wrong = int(round(wrong * n_match))
+    for a in range(n_images):
+        for b in range(a + 1, n_images):
+            p, q = (b, a) if (a + b) % 3 == 0 else (a, b)
+            (Rp, tp), (Rq, tq) = poses[p], poses[q]
+            pts = rng.permutation(n_points)[:n_match]
+            good, bad = pts[n_wrong:], pts[:n_wrong]
+            m0 = np.full(n_points, -1, np.int16)
+            m0[inv[p][good]] = inv[q][good]
+            kp, kq = kpts[names[p]] + 0.5, kpts[names[q]] + 0.5
+            for j in bad:
+                while True:
+                    k = rng.integers(n_points)
+                    if k != j and _epipolar_px(
+                            K, Rp, tp, Rq, tq, kp[inv[p][j]][None],
+                            kq[inv[q][k]][None])[0] > far_px:
+                        break
+                m0[inv[p][j]] = inv[q][k]
+            pair = (names[p], names[q])
+            pairs.append(pair)
+            matches[pair] = m0
+            correct[pair] = {(int(inv[p][j]), int(inv[q][j])) for j in good}
+    scene = {"K": K, "cameras": cameras, "images": images,
+             "points3D": points3D, "names": names, "kpts": kpts,
+             "pairs": pairs, "matches": matches, "correct": correct,
+             "poses": poses, "size": size}
+    if n_query:
+        Rq, tq = _rot_y(0.07), np.array([0.15, 0.05, 0.2])
+        proj = _project(K, Rq, tq, X)
+        xy = np.concatenate([proj + rng.normal(0, query_noise,
+                                               (n_points, 2)),
+                             rng.uniform([0, 0], [w, h],
+                                         (n_query - n_points, 2))])
+        perm = rng.permutation(n_query)  # query keypoint k is row perm[k]
+        qinv = np.argsort(perm)
+        target = np.arange(n_points)
+        for j in rng.permutation(n_points)[:int(round(query_wrong
+                                                       * n_points))]:
+            while True:
+                k = rng.integers(n_points)
+                if np.linalg.norm(proj[k] - proj[j]) > 3 * far_px:
+                    break
+            target[j] = k
+        qmatches = {}
+        for i in range(min(3, n_images)):
+            m0 = np.full(n_query, -1, np.int16)
+            m0[qinv[:n_points]] = inv[i][target]
+            qmatches[names[i]] = m0
+        scene.update(query={
+            "name": "query.png", "R": Rq, "t": tq,
+            "kpts": (xy[perm] - 0.5).astype(np.float32),
+            "matches": qmatches,
+            "inliers": {int(qinv[j]) for j in range(n_points)
+                        if target[j] == j}})
+    return scene
+
+
+def inloc_scene(root, seed=31, n=120, wrong=0.2):
+    """Two database scans (an XYZ map with a few NaN pixels and its
+    alignment file: one DUC, one cse) and a query at a known pose whose
+    keypoints are the projections of the scans' interpolated points with
+    0.5 px of noise; ``wrong`` of the matches go to a point that projects
+    more than 200 px away. Writes feats.h5, matches.h5 and retrieval.txt
+    under ``root``; returns (query name, scan names, R, t, the inliers'
+    indices into the query's keypoints)."""
+    from pathlib import Path
+
+    import scipy.io
+
+    from imcui_tpu_torch.pipeline.localize_inloc import interpolate_scan
+    from imcui_tpu_torch.utils import h5lite
+    from imcui_tpu_torch.utils.geometry import qvec2rotmat
+    from imcui_tpu_torch.utils.io import names_to_pair
+
+    root = Path(root)
+    rng = np.random.default_rng(seed)
+    focal = 4032.0 * 28.0 / 36.0
+    K = np.array([[focal, 0, 800.0], [0, focal, 600.0], [0, 0, 1]])
+    Rq, tq = _rot_y(0.1), np.array([0.2, -0.1, 0.3])
+    names = ["database/DUC1/cut_a.png", "database/cse2/cut_b.png"]
+    hs, ws = 60, 80
+    kd = np.array([[50.0, 0, 40], [0, 50.0, 30], [0, 0, 1]])
+    feats, matches, inliers, qk = {}, {}, set(), []
+    for i, r in enumerate(names):
+        Rd, td = _rot_y(-0.05 + 0.1 * i), np.array([0.3 * i, 0, 0.1])
+        qa = np.r_[1.0, 0.1 * rng.normal(size=3)]
+        Ra = qvec2rotmat(qa / np.linalg.norm(qa))
+        Tr = np.eye(4)
+        Tr[:3, :3], Tr[:3, 3] = Ra, rng.normal(size=3)
+        v, u = np.mgrid[0:hs, 0:ws].astype(np.float64)
+        z = 5 + 0.5 * np.sin(u / 9) + 0.4 * np.cos(v / 7)
+        xc = np.stack([u, v, np.ones_like(u)], -1) @ np.linalg.inv(kd).T \
+            * z[..., None]
+        world = (xc - td) @ Rd
+        scan = (world - Tr[:3, 3]) @ Tr[:3, :3]
+        scan[rng.integers(0, hs, 5), rng.integers(0, ws, 5)] = np.nan
+        path = Path(root, r + ".mat")
+        path.parent.mkdir(parents=True, exist_ok=True)
+        scipy.io.savemat(path, {"XYZcut": scan})
+        kind = "cse" if "cse" in r else "DUC"
+        al = root / "database/alignments" / r.split("/")[1] / \
+            "transformations" / f"{kind}_transformation.txt"
+        al.parent.mkdir(parents=True, exist_ok=True)
+        al.write_text("".join(f"# header {k}\n" for k in range(7))
+                      + "".join(" ".join(repr(float(v)) for v in row) + "\n"
+                                for row in Tr) + "# end\n")
+        kpr = rng.uniform([1, 1], [ws - 2, hs - 2], (n, 2))
+        xyz, valid = interpolate_scan(scan, kpr)
+        xyz = xyz @ Tr[:3, :3].T + Tr[:3, 3]
+        proj = _project(K, Rq, tq, xyz)
+        target = np.arange(n)
+        ok = np.flatnonzero(valid)
+        for j in rng.permutation(ok)[:int(wrong * n)]:
+            while True:
+                k = rng.choice(ok)
+                if np.linalg.norm(proj[k] - proj[j]) > 200:
+                    break
+            target[j] = k
+        base = len(qk)
+        qk += list(proj[target] + rng.normal(0, 0.5, (n, 2)))
+        inliers |= {base + j for j in range(n)
+                    if target[j] == j and valid[j]}
+        feats[r] = kpr
+        m0 = np.full(2 * n, -1, np.int16)
+        m0[base:base + n] = np.arange(n)
+        matches[r] = m0
+    q = "query/iphone7/q0.png"
+    feats[q] = np.array(qk)
+    with h5lite.File(root / "feats.h5", "w") as fd:
+        for name, k in feats.items():
+            fd.create_group(name).create_dataset("keypoints", data=k)
+    with h5lite.File(root / "matches.h5", "w") as fd:
+        for r, m0 in matches.items():
+            g = fd.create_group(names_to_pair(q, r))
+            g.create_dataset("matches0", data=m0)
+            g.create_dataset("matching_scores0",
+                             data=np.ones(len(m0), np.float16))
+    (root / "retrieval.txt").write_text("\n".join(f"{q} {r}" for r in names))
+    return q, names, Rq, tq, inliers
+
+
+def write_sfm_scene(root, scene):
+    """The scene's files under ``root``: images/ (blank PNGs of its size),
+    model/ (binary), feats.h5, matches.h5, pairs.txt and, with a query,
+    queries.txt and retrieval.txt. Returns {name: path}."""
+    from pathlib import Path
+
+    from imcui_tpu_torch.utils import h5lite
+    from imcui_tpu_torch.utils import read_write_model as rwm
+    from imcui_tpu_torch.utils.io import names_to_pair
+    from imcui_tpu_torch.utils.png import encode_png
+
+    root = Path(root)
+    f = {k: root / v for k, v in (
+        ("images", "images"), ("model", "model"), ("feats", "feats.h5"),
+        ("matches", "matches.h5"), ("pairs", "pairs.txt"),
+        ("queries", "queries.txt"), ("retrieval", "retrieval.txt"))}
+    f["images"].mkdir(parents=True, exist_ok=True)
+    w, h = scene["size"]
+    blank = encode_png(np.zeros((h, w), np.uint8))
+    for name in scene["names"]:
+        (f["images"] / name).write_bytes(blank)
+    rwm.write_model(scene["cameras"], scene["images"], scene["points3D"],
+                    f["model"], ext=".bin")
+    kpts = dict(scene["kpts"])
+    matches = {names_to_pair(*p): m for p, m in scene["matches"].items()}
+    query = scene.get("query")
+    if query:
+        kpts[query["name"]] = query["kpts"]
+        matches.update({names_to_pair(query["name"], n): m
+                        for n, m in query["matches"].items()})
+    with h5lite.File(f["feats"], "w") as fd:
+        for name, k in kpts.items():
+            fd.create_group(name).create_dataset("keypoints", data=k)
+    with h5lite.File(f["matches"], "w") as fd:
+        for pair, m in matches.items():
+            g = fd.create_group(pair)
+            g.create_dataset("matches0", data=m)
+            g.create_dataset("matching_scores0",
+                             data=(m != -1).astype(np.float16))
+    f["pairs"].write_text("\n".join(f"{a} {b}" for a, b in scene["pairs"]))
+    if query:
+        cx, cy = scene["K"][0, 2], scene["K"][1, 2]
+        f["queries"].write_text(
+            f"{query['name']} PINHOLE {w} {h} 800 800 {cx} {cy}\n")
+        f["retrieval"].write_text("\n".join(
+            f"{query['name']} {n}" for n in query["matches"]))
+    return f
+
+
+def sqlite_rows(path, table):
+    """Every row of ``table`` in the SQLite file ``path``, by first column."""
+    import sqlite3
+
+    db = sqlite3.connect(str(path))
+    rows = db.execute(f"SELECT * FROM {table} ORDER BY 1").fetchall()
+    db.close()
+    return rows
+
+
+def sfm_engine_gate(db_path, names, hms, px):
+    """{(name_a, name_b): (verified matches, share within ``px`` of the
+    planted homography hms[b]·hms[a]⁻¹)} of an SfmEngine database (its
+    keypoints at COLMAP's origin, hence − 0.5)."""
+    from imcui_tpu_torch.utils.database import (blob_to_array,
+                                                pair_id_to_image_ids)
+
+    kp = {i: blob_to_array(d, np.float32, (-1, 2)).astype(np.float64) - 0.5
+          for i, _, _, d in sqlite_rows(db_path, "keypoints")}
+    by_id = {i: n for i, n, *_ in sqlite_rows(db_path, "images")}
+    out = {}
+    for r in sqlite_rows(db_path, "two_view_geometries"):
+        i0, i1 = pair_id_to_image_ids(r[0])
+        a, b = names.index(by_id[i0]), names.index(by_id[i1])
+        m = np.frombuffer(r[3], np.uint32).reshape(-1, 2)
+        err = transfer_errors(hms[b] @ np.linalg.inv(hms[a]),
+                              kp[i0][m[:, 0]], kp[i1][m[:, 1]])
+        out[(names[a], names[b])] = (
+            len(m), float((err <= px).mean()) if len(m) else 0.0)
+    return out
 
 
 def multipart_body(files):
@@ -4832,6 +5181,365 @@ def phase15(smi_line):
     return launches, res
 
 
+def _sfm_database_checks(res, names):
+    """The engine's database against its feature, match and pairs files:
+    one SIMPLE_RADIAL camera [1.2·max(w, h), w/2, h/2, 0] of M_SIZE, the
+    images by sorted name, each image's keypoints + 0.5 as float32, each
+    pair's matches (flipped where the first id is the larger)."""
+    from pathlib import Path
+
+    from imcui_tpu_torch.utils.database import image_ids_to_pair_id
+    from imcui_tpu_torch.utils.io import get_keypoints, get_matches
+
+    out = Path(res["sfm_dir"]).parent
+    feats, matches = (out / "features" / "feats-superpoint.h5",
+                      out / "features" / "matches.h5")
+    db = res["database"]
+    w, h = M_SIZE
+    cams = sqlite_rows(db, "cameras")
+    want = np.array([1.2 * max(w, h), w / 2, h / 2, 0.0]).tobytes()
+    if [c[:4] for c in cams] != [(1, 2, w, h)] or cams[0][4] != want:
+        fail(f"sfm database cameras {[c[:4] for c in cams]}")
+    images = sqlite_rows(db, "images")
+    ids = {n: i for i, n, *_ in images}
+    if [(i, n, c) for i, n, c, *_ in images] != [
+            (k + 1, n, 1) for k, n in enumerate(names)]:
+        fail(f"sfm database images {images}")
+    kp = {i: d for i, _, _, d in sqlite_rows(db, "keypoints")}
+    n_kpts = {}
+    for n in names:
+        k = get_keypoints(feats, n)
+        n_kpts[n] = len(k)
+        if kp[ids[n]] != np.asarray(k + 0.5, np.float32).tobytes():
+            fail(f"sfm database keypoints of {n} differ from the file's")
+    rows = {r[0]: r[3] for r in sqlite_rows(db, "matches")}
+    pairs = [tuple(p.split()) for p in (out / "pairs-sfm.txt").read_text()
+             .split("\n")]
+    for n0, n1 in pairs:
+        m, _ = get_matches(matches, n0, n1)
+        if ids[n0] > ids[n1]:
+            m = m[:, ::-1]
+        if rows[image_ids_to_pair_id(ids[n0], ids[n1])] != np.asarray(
+                m, np.uint32).tobytes():
+            fail(f"sfm database matches of {n0} {n1} differ from the file's")
+    return {"keypoints": n_kpts, "pairs": len(pairs)}
+
+
+def _verified_sets(db):
+    """{pair_id: verified matches as bytes} of a database."""
+    return {r[0]: r[3] for r in sqlite_rows(db, "two_view_geometries")}
+
+
+def _planted_sets(scene):
+    """{pair_id: the planted correct matches in stored order, as bytes}."""
+    from imcui_tpu_torch.utils.database import image_ids_to_pair_id
+
+    ids = {n: i + 1 for i, n in enumerate(scene["names"])}
+    out = {}
+    for (n0, n1), m0 in scene["matches"].items():
+        idx = np.flatnonzero(m0 != -1)
+        keep = np.array([(i, m0[i]) in scene["correct"][(n0, n1)]
+                         for i in idx])
+        m = np.stack([idx, m0[idx]], 1)[keep]
+        if ids[n0] > ids[n1]:
+            m = m[:, ::-1]
+        out[image_ids_to_pair_id(ids[n0], ids[n1])] = np.asarray(
+            m, np.uint32).tobytes()
+    return out
+
+
+def _expect_mapper_error(fn, what):
+    """Run ``fn``; it must end in the pycolmap ImportError."""
+    try:
+        fn()
+    except ImportError as e:
+        if "pycolmap" not in str(e):
+            fail(f"{what}: {e}")
+        return str(e)
+    fail(f"{what} did not stop at the missing pycolmap")
+
+
+def _sfm_scene_checks(tmp):
+    """(c) and (d): reconstruction.main and triangulation.main on the
+    planted non-planar scene, card against CPU and against the planted
+    sets; localize_sfm.main and localize_inloc's pose_from_scan_cluster
+    on the card against the CPU and the planted pose."""
+    from imcui_tpu_torch.pipeline import localize_inloc as li
+    from imcui_tpu_torch.pipeline import localize_sfm as ls
+    from imcui_tpu_torch.pipeline import reconstruction as rec
+    from imcui_tpu_torch.pipeline import triangulation as tri
+    from imcui_tpu_torch.utils.geometry import qvec2rotmat
+
+    seed, n_img, n_pts, wrong = M_SCENE
+    scene = sfm_scene(seed, n_img, n_pts, wrong, n_query=M_QUERY)
+    f = write_sfm_scene(tmp / "scene", scene)
+    res = {}
+    args = (f["images"], f["pairs"], f["feats"], f["matches"])
+    dbs = {}
+    for tag, d in (("card", "cuda"), ("cpu", "cpu")):
+        out = tmp / f"rec_{tag}"
+        _expect_mapper_error(lambda: rec.main(out, *args, device=d),
+                             f"reconstruction.main on {d}")
+        dbs[tag] = out / "database.db"
+    for t in ("cameras", "images", "keypoints", "matches"):
+        if sqlite_rows(dbs["card"], t) != sqlite_rows(dbs["cpu"], t):
+            fail(f"reconstruction: the card's {t} table differs from the "
+                 "CPU's")
+    planted = _planted_sets(scene)
+    card, host = _verified_sets(dbs["card"]), _verified_sets(dbs["cpu"])
+    same = sum(card[k] == host[k] for k in planted)
+    exact = sum(card[k] == planted[k] for k in planted)
+    log(f"  reconstruction (planted scene, {n_img} views, {n_pts} points, "
+        f"{wrong:.0%} wrong): verified sets equal to the CPU's on "
+        f"{same}/{len(planted)} pairs, to the planted on {exact}")
+    if same != len(planted) or exact != len(planted) or set(card) != set(
+            planted):
+        fail("reconstruction: the card's verified sets differ from the "
+             "CPU's or the planted ones")
+    res["reconstruction"] = {"pairs": len(planted), "equal_cpu": same,
+                             "equal_planted": exact}
+    out = tmp / "tri"
+    msg = _expect_mapper_error(
+        lambda: tri.main(out, f["model"], *args), "triangulation.main")
+    tv = _verified_sets(out / "database.db")
+    if tv != planted:
+        fail("triangulation: the verified sets differ from the planted")
+    log(f"  triangulation: {len(tv)} verified sets equal the planted "
+        f"(host code); {msg[:60]}...")
+    res["triangulation_pairs"] = len(tv)
+
+    q = scene["query"]
+    model = ls.read_model(f["model"])
+    qcam = ls.Camera(-1, "PINHOLE", *scene["size"],
+                     np.array([800.0, 800.0, *scene["K"][:2, 2]]))
+    loc = {}
+    for tag, d in (("card", "cuda"), ("cpu", "cpu")):
+        poses, _ = ls.main(f["model"], f["queries"], f["retrieval"],
+                           f["feats"], f["matches"], tmp / f"loc_{tag}.txt",
+                           ransac_thresh=6.0, device=d)
+        ret, log_ = ls.pose_from_cluster(
+            q["name"], qcam, [1, 2, 3], model[1], model[2], f["feats"],
+            f["matches"], thresh_px=6.0, device=d)
+        inl = {int(k) for k, ok in zip(log_["keypoint_index_to_db"][0],
+                                       ret["inliers"]) if ok}
+        qv, tv_ = poses[q["name"]]
+        R = qvec2rotmat(qv)
+        deg = float(np.degrees(np.arccos(np.clip(
+            (np.trace(R.T @ q["R"]) - 1) / 2, -1, 1))))
+        loc[tag] = {"deg": deg, "t_err": float(np.linalg.norm(tv_ - q["t"])),
+                    "inliers": inl}
+    card, host = loc["card"], loc["cpu"]
+    log(f"  localize_sfm: {M_QUERY} query keypoints, {len(q['inliers'])} "
+        f"planted inliers; card {len(card['inliers'])} inliers, "
+        f"{card['deg']:.4f} deg, t {card['t_err']:.4f}; CPU "
+        f"{len(host['inliers'])}, {host['deg']:.4f} deg, "
+        f"t {host['t_err']:.4f}")
+    for tag in loc:
+        if loc[tag]["deg"] > M_POSE_DEG or loc[tag]["t_err"] > M_POSE_T:
+            fail(f"localize_sfm on the {tag}: pose off by {loc[tag]}")
+    if loc["card"]["inliers"] != loc["cpu"]["inliers"] or \
+            loc["card"]["inliers"] != q["inliers"]:
+        fail("localize_sfm: the card's inliers differ from the CPU's or the "
+             "planted")
+    res["localize_sfm"] = {t: {k: v if k != "inliers" else len(v)
+                               for k, v in loc[t].items()} for t in loc}
+
+    qn, scans, Rq, tq, inliers = inloc_scene(tmp / "inloc")
+    inloc = {}
+    for tag, d in (("card", "cuda"), ("cpu", "cpu")):
+        got = li.pose_from_scan_cluster(
+            tmp / "inloc", qn, scans, tmp / "inloc" / "feats.h5",
+            tmp / "inloc" / "matches.h5", device=d)[3]
+        R = qvec2rotmat(got["qvec"])
+        inloc[tag] = {"num_inliers": got["num_inliers"],
+                      "deg": float(np.degrees(np.arccos(np.clip(
+                          (np.trace(R.T @ Rq) - 1) / 2, -1, 1)))),
+                      "t_err": float(np.linalg.norm(got["tvec"] - tq))}
+    log(f"  localize_inloc (planted scans): card {inloc['card']}, CPU "
+        f"{inloc['cpu']}, planted inliers {len(inliers)}")
+    for tag in inloc:
+        if inloc[tag]["num_inliers"] != len(inliers) or \
+                inloc[tag]["deg"] > M_POSE_DEG or \
+                inloc[tag]["t_err"] > M_POSE_T:
+            fail(f"localize_inloc on the {tag}: {inloc[tag]}")
+    res["localize_inloc"] = inloc
+    return res, scene, f
+
+
+def _sfm_stage_timer(profiled):
+    """A StageTimer over SfmEngine's stages and localisation's PnP (the
+    labels of the per-item times), or, with ``profiled``, wrappers that
+    run each stage under the profiler and add its device-busy ms."""
+    from imcui_tpu_torch.pipeline import extract_features as ef
+    from imcui_tpu_torch.pipeline import localize_sfm as ls
+    from imcui_tpu_torch.pipeline import match_features as mf
+    from imcui_tpu_torch.pipeline import reconstruction as rec
+
+    stages = ((ef, "main", "extract"), (mf, "main", "match"),
+              (rec, "geometric_verification", "verify"),
+              (ls, "pose_from_cluster", "localize"))
+    timer = StageTimer()
+    if not profiled:
+        for mod, name, label in stages:
+            timer.wrap(mod, name, label)
+        return timer
+
+    def busy(label):
+        def wrapper(fn):
+            def run(*a, **kw):
+                box = {}
+
+                def once(_):
+                    box["out"] = fn(*a, **kw)
+                ms, _ = device_window(once, 1)
+                timer.host[label] = timer.host.get(label, 0.0) + ms
+                return box["out"]
+            return run
+        return wrapper
+
+    for mod, name, label in stages:
+        timer._replace(mod, name, busy(label))
+    return timer
+
+
+def phase16(smi_line):
+    """SfM and localisation on the batch files, served through SfmEngine:
+    (a) SfmEngine(device="cuda").call on M_VIEWS planted 1600x1200 PNG
+    views at the engine's defaults, counts at 0 and every launch recorded
+    (the main path: its counts), each launch held against its plain
+    version, the database against the engine's files, the planted gate on
+    every pair's verified matches; (b) the retrieval branch (netvlad,
+    top_k M_RETRIEVAL_K), its pairs file against the CPU's top-k; (c) and
+    (d) the planted non-planar scene (_sfm_scene_checks); (e) second runs
+    of (a) and of the localisation, stage by stage: CUDA-event ms per
+    item, then device-busy ms per item under the profiler, and the idle
+    share. Returns (launches of the main path, measurements)."""
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from imcui_tpu_torch.pipeline import extract_features as ef
+    from imcui_tpu_torch.pipeline import localize_sfm as ls
+    from imcui_tpu_torch.pipeline import pairs_from_retrieval as pr
+    from imcui_tpu_torch.ui.sfm import SfmEngine
+    from imcui_tpu_torch.utils.png import encode_png
+
+    t_phase = time.perf_counter()
+    res = {"card": smi_line}
+    with tempfile.TemporaryDirectory(prefix="imcui-sfm-") as tmp:
+        tmp = Path(tmp)
+        views, hms = homography_views(M_SEED, M_VIEWS, *M_SIZE)
+        files = []
+        for i, v in enumerate(views):
+            files.append(tmp / f"view{i}.png")
+            files[-1].write_bytes(encode_png(v))
+        names = [p.name for p in files]
+        del views
+
+        def engine_run(tag, **kw):
+            (tmp / tag).mkdir()
+            return SfmEngine({"outputs": tmp / tag}, device="cuda").call(
+                "sfm", files, **kw)
+
+        # (a) the main path: counts at 0 (the recorders'), every launch
+        launches, box = {}, {}
+        t0 = time.perf_counter()
+        seen = _capture_kernel_args(
+            lambda: box.update(engine_run("a")), SERVED_KERNELS, launches)
+        wall = time.perf_counter() - t0
+        log(f"  SfmEngine.call: {launches} launches, {wall:.2f} s; "
+            f"status {box['status']!r}")
+        if box.get("status") != "database-only (mapper backend unavailable)":
+            fail(f"SfmEngine.call returned {box}")
+        for name in SERVED_KERNELS:
+            if launches.get(name) != M_VIEWS:
+                fail(f"the sfm run launched {name} {launches.get(name)} "
+                     f"times, not once a view ({M_VIEWS})")
+        res["kernel_checks"] = _check_served_kernels(seen, "sfm launch")
+        del seen
+        torch.cuda.empty_cache()
+        res.update(launches=launches, first_run_s=wall,
+                   database=_sfm_database_checks(box, names))
+        gate = sfm_engine_gate(box["database"], names, hms, M_PX)
+        for (a, b), (n, share) in gate.items():
+            log(f"  {a}-{b}: {n} verified, {share:.3f} within {M_PX} px of "
+                "the planted homography")
+        worst = (min(n for n, _ in gate.values()),
+                 min(s for _, s in gate.values()))
+        if len(gate) != M_VIEWS * (M_VIEWS - 1) // 2 or \
+                worst[0] < M_LEAST or worst[1] < M_SHARE:
+            fail(f"sfm gate: least {worst[0]} verified (>= {M_LEAST}), "
+                 f"least share {worst[1]:.3f} (>= {M_SHARE})")
+        res["gate"] = {f"{a}-{b}": v for (a, b), v in gate.items()}
+
+        # (b) the retrieval branch
+        ret = engine_run("b", scene_graph="retrieval",
+                         global_feature="netvlad", top_k=M_RETRIEVAL_K)
+        got = [tuple(p.split()) for p in (tmp / "b" / "pairs-sfm.txt")
+               .read_text().split("\n")]
+        glob = tmp / "b" / "features" / (ef.confs["netvlad"]["output"]
+                                         + ".h5")
+        want = pr.main(glob, tmp / "b" / "cpu.txt", M_RETRIEVAL_K,
+                       device="cpu")
+        n_want = min(M_RETRIEVAL_K, M_VIEWS - 1) * M_VIEWS
+        if got != want or len(got) != n_want or \
+                ret.get("status") != box["status"]:
+            fail(f"retrieval branch: pairs {got} against the CPU's {want}, "
+                 f"status {ret.get('status')!r}")
+        log(f"  retrieval branch: {len(got)} pairs, equal to the CPU's")
+        res["retrieval_pairs"] = len(got)
+
+        # (c), (d)
+        scene_res, scene, f = _sfm_scene_checks(tmp)
+        res.update(scene_res)
+
+        # (e) timed runs: events, then device busy under the profiler
+        per = {"extract": M_VIEWS, "match": len(gate), "verify": len(gate),
+               "localize": 1}
+
+        def timed_run(tag):
+            walls = {}
+            t0 = time.perf_counter()
+            engine_run(tag)
+            torch.cuda.synchronize()
+            walls["engine"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            ls.main(f["model"], f["queries"], f["retrieval"], f["feats"],
+                    f["matches"], tmp / f"{tag}.txt", ransac_thresh=6.0,
+                    device="cuda")
+            torch.cuda.synchronize()
+            walls["localize_main"] = time.perf_counter() - t0
+            return walls
+
+        timer = _sfm_stage_timer(False)
+        try:
+            walls = timed_run("e1")
+            torch.cuda.synchronize()
+            ms = timer.ms()
+        finally:
+            timer.undo()
+        timer = _sfm_stage_timer(True)
+        try:
+            timed_run("e2")
+            busy = dict(timer.host)
+        finally:
+            timer.undo()
+        timing = {"walls_s": walls}
+        for k, n in per.items():
+            timing[k] = {"items": n, "ms_per_item": ms[k] / n,
+                         "device_busy_ms_per_item": busy[k] / n,
+                         "device_idle_share": 1 - busy[k] / ms[k]}
+            log(f"  {k}: {ms[k] / n:.2f} ms per item (CUDA events), device "
+                f"busy {busy[k] / n:.2f} ms, idle share "
+                f"{1 - busy[k] / ms[k]:.3f}")
+        res["timing"] = timing
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"  {smi_line}")
+    log(f"  phase 16: {res['phase_s']:.1f} s")
+    return launches, res
+
+
 def oriented_pairs(pa, aa, pb, ab, tol):
     """Keypoints of a and b paired by point (within ``tol`` px, max norm)
     and then by the nearest angle (one point can hold several
@@ -5395,6 +6103,10 @@ def main():
         "pairs_from_exhaustive, match_features, pairs_from_retrieval, "
         "match_dense) through the port's HDF5 files")
     launches_15, timing["batch"] = phase15(smi_line)
+    log("phase 16: SfM and localisation (SfmEngine on the batch files, "
+        "reconstruction and triangulation up to the mapper, localize_sfm, "
+        "localize_inloc)")
+    launches_16, timing["sfm"] = phase16(smi_line)
     for r in rows:
         by_path = {
             "turbo": launches.get(r["name"], 0),
@@ -5409,7 +6121,8 @@ def main():
             "zoo 12": launches_12.get(r["name"], 0),
             "zoo 13": launches_13.get(r["name"], 0),
             "zoo 14": launches_14.get(r["name"], 0),
-            "batch": launches_15.get(r["name"], 0)}
+            "batch": launches_15.get(r["name"], 0),
+            "sfm": launches_16.get(r["name"], 0)}
         r["launches_by_path"] = by_path
         r["launches"] = sum(by_path.values())
         if r["launches"] == 0:

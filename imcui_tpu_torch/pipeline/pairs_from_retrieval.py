@@ -1,7 +1,8 @@
 """Pairs from global descriptors. Counterpart of
 ``imcui_tpu/pipeline/pairs_from_retrieval.py``: the same arguments and
-pairs file. The query × database similarity and the masked top-k run on
-``device``.
+pairs file; ``db_model`` takes the database names from a COLMAP model's
+``images.bin``. The query × database similarity and the masked top-k run
+on ``device``.
 """
 
 from pathlib import Path
@@ -13,6 +14,7 @@ from .. import logger, resolve_device
 from ..models.layers import full_fp32
 from ..utils import h5lite
 from ..utils.io import list_h5_names, parse_image_list
+from ..utils.read_write_model import read_images_binary
 
 
 def get_descriptors(names, path, name2idx=None, key="global_descriptor"):
@@ -85,11 +87,10 @@ def main(descriptors, output, num_matched, query_prefix=None,
         return names
 
     if db_model is not None:
-        raise NotImplementedError(
-            "db_model= reads a COLMAP model (images.bin) through "
-            "utils/read_write_model.py, which is not ported yet "
-            "(ROADMAP §A.2); pass db_list= or db_prefix= instead")
-    db_names = parse_names(db_prefix, db_list, db_names_h5)
+        images = read_images_binary(Path(db_model) / "images.bin")
+        db_names = [i.name for i in images.values()]
+    else:
+        db_names = parse_names(db_prefix, db_list, db_names_h5)
     if len(db_names) == 0:
         raise ValueError("Could not find any database image.")
     query_names = parse_names(query_prefix, query_list, query_names_h5)

@@ -264,7 +264,8 @@ def test_pairs_from_retrieval_matches_jax(tmp_path, kw):
 
 def test_pairs_score_matrix_ties_and_refusals(tmp_path):
     """Ties keep the lower index first (a stable sort, as jnp.argsort);
-    masked entries never appear; db_model waits for read_write_model."""
+    masked entries never appear; a db_model without images.bin raises
+    as the JAX package's does."""
     scores = np.array([[0.5, 0.9, 0.5, 0.5], [0.1, 0.1, 0.1, 0.1]],
                       np.float32)
     invalid = np.array([[False, True, False, False],
@@ -278,9 +279,9 @@ def test_pairs_score_matrix_ties_and_refusals(tmp_path):
         min_score=0.2) == [(0, 0), (0, 2), (0, 3)]
     path = tmp_path / "global.h5"
     _descriptor_file(path)
-    with pytest.raises(NotImplementedError, match="A.2"):
-        tret.main(path, tmp_path / "t.txt", 2, db_model=tmp_path,
-                  device="cpu")
+    for main, kw in ((tret.main, {"device": "cpu"}), (jret.main, {})):
+        with pytest.raises(FileNotFoundError, match="images.bin"):
+            main(path, tmp_path / "t.txt", 2, db_model=tmp_path, **kw)
     with pytest.raises(ValueError, match="database"):
         tret.main(path, tmp_path / "t.txt", 2, db_prefix="none/",
                   device="cpu")
