@@ -67,11 +67,13 @@ Phases, each of which passes or ends the run with a non-zero exit:
      request, the time at the client and inside the server (PNG decode,
      ImageMatchingAPI, JSON encode), the sizes, device busy and idle share,
      the multipart route against the JSON route, the card against the CPU
-     service, /v1/extract and the 500 envelope; then the CLI in
-     subprocesses from the repository root: --version, match with the
-     default superpoint+lightglue and with superpoint+mnn (the printed line
-     and the pickle's keys), and serve on a free port until it answers a
-     match request, each timed from process start;
+     service, a JPEG body at the service's own conf (its answer equal to
+     that of the PNG of PIL's decode of it), /v1/extract and the 500
+     envelope, a truncated JPEG among its bodies (500 naming JPEG); then the CLI in subprocesses from the repository
+     root: --version, match with the default superpoint+lightglue (PNG
+     files) and with superpoint+mnn (JPEG files; the printed line and the
+     pickle's keys), and serve on a free port until it answers a match
+     request, each timed from process start;
   9. pose and evaluation: the planted relative-pose chain (fundamental
      RANSAC, essential, cheirality) on 3 synthetic scenes and PnP on a
      planted scene; `eval pose` on the flagship (superpoint+lightglue,
@@ -161,7 +163,20 @@ Phases, each of which passes or ends the run with a non-zero exit:
      verified sets against the CPU's and the planted; localize_sfm.main
      and localize_inloc's PnP against the CPU and the planted pose; a
      second run timed stage by stage (ms per image, pair and query,
-     device busy and idle share).
+     device busy and idle share);
+ 17. JPEG on the card, read by the port's decoder (utils/jpeg.py and the
+     host library csrc/host/jpeg_decode.cpp, built with c++ on first use):
+     PIL's q95 files of a colour 1600x1200 textured view (4:2:0, 4:4:4,
+     progressive, EXIF orientation 6) equal PIL's decode bit for bit
+     (read_image after ImageOps.exif_transpose, the HTTP route without
+     it; gray the Y plane of PIL's draft("YCbCr")); the median of 5
+     decodes of the 4:2:0 file by the port and by PIL on the host, the
+     port at most 4x PIL's; SfmEngine.call (extract_features.main,
+     match_features.main, reconstruction up to verification) on six JPEG
+     views of phase 16's planted scene, the stem, K1 and K2 launched once
+     a view and every launch held against its plain version, its
+     keypoints and matches equal to the same run's on PNG copies of PIL's
+     gray decode, the planted gate; phase 8's JPEG checks reported.
 Near the end it prints one JSON line {"timing": ...}, one {"kernels":
 [...]} and the card's name and power limit; the last line is {"ok": true,
 "device": {...}}. Without a CUDA device, or without the rest of the
@@ -171,6 +186,7 @@ repository beside it, the script fails before printing any result.
 import contextlib
 import json
 import os
+import platform
 import subprocess
 import sys
 import threading
@@ -617,6 +633,14 @@ PRED_KEYS = {"H", "geom_info", "image0_orig", "image1_orig", "keypoints0",
              "mmkeypoints1_orig"}
 # What the JAX package's surfaces import: the port reads YAML with PyYAML
 # and the request schema with pydantic, and restates the rest.
+# phase 17: JPEG on the card (PIL, which that machine has, encodes and is
+# the reference; the port never imports it)
+J_SEED = 1700
+J_SIZE = (1600, 1200)
+J_QUALITY = 95
+J_REPS = 5
+J_TIME_RATIO = 4.0     # the port's decode at most 4x PIL's on the same bytes
+J_TINT = np.array([1.0, 0.85, 0.7])   # colour for the served JPEG bodies
 SURFACE_PACKAGES = ("click", "yaml", "pydantic", "PIL", "fastapi", "uvicorn",
                     "matplotlib", "h5py")
 # The times of the tap-sum kernel's first design (WMMA with cp.async,
@@ -1445,6 +1469,11 @@ def phase0():
     log(f"kernel build: {time.perf_counter() - t0:.1f} s "
         f"(nvcc {_build.build_seconds if _build.build_seconds else 0:.1f} s; "
         f"0 = already built)")
+    t0 = time.perf_counter()
+    _build.host_library()
+    log(f"host library (csrc/host, {_build._cxx()}): "
+        f"{time.perf_counter() - t0:.2f} s to build and load "
+        f"{_build.host_library_path().name}")
     return smi_line
 
 
@@ -3470,6 +3499,7 @@ def _serve_checks(url, service, server, client, files, kernels, tmp):
         f"{S_IOU}); the CPU service took {cpu_ms:.0f} ms")
     if iou < S_IOU:
         fail(f"card and CPU raw matches: IoU {iou:.4f}")
+    jpeg_res = _jpeg_bodies(url, files[2])
 
     # /v1/extract (it rewrites the extractor's conf, so it comes last), the
     # 500 envelope, and the server still answering
@@ -3488,18 +3518,20 @@ def _serve_checks(url, service, server, client, files, kernels, tmp):
         fail("/v1/extract answered wrongly")
     errors = {}
     for tag, body in (("malformed JSON", b"{not json"),
-                      ("JPEG body", json.dumps({"image0": _JPEG_B64,
-                                                "image1": _JPEG_B64}).encode())):
+                      ("truncated JPEG body", json.dumps(
+                          {"image0": _JPEG_B64,
+                           "image1": _JPEG_B64}).encode())):
         code, out, _ = _http(f"{url}/v1/match", body)
         errors[tag] = out.get("detail")
         log(f"  {tag}: status {code}, detail {out.get('detail')!r}")
         if code != 500 or not out.get("detail"):
             fail(f"{tag}: no 500 envelope")
-    if "JPEG" not in errors["JPEG body"] or \
+    if "JPEG" not in errors["truncated JPEG body"] or \
             _http(f"{url}/")[:2] != (200, {"message": "OK"}):
-        fail("the JPEG request's detail does not name JPEG, or the server "
+        fail("the truncated JPEG's detail does not name JPEG, or the server "
              "stopped answering")
-    return {"launches": launches, "launches_per_request": per_request,
+    jpeg_res["truncated_detail"] = errors["truncated JPEG body"]
+    return {"jpeg": jpeg_res, "launches": launches, "launches_per_request": per_request,
             "ms_per_request": wall, "request_ms": walls,
             "split_ms": med_split, "device_busy_ms": device_ms,
             "device_idle_share": idle, "request_bytes": payload,
@@ -3508,6 +3540,54 @@ def _serve_checks(url, service, server, client, files, kernels, tmp):
             "cpu_request_ms": cpu_ms, "extract_keypoints": counts,
             "errors": errors, "multipart": multipart,
             "served_kernel_checks": kernel_checks}
+
+
+def pil_jpeg(image, **kw):
+    """PIL's JPEG of a uint8 image at J_QUALITY (PIL's 4:2:0 unless
+    ``subsampling`` says otherwise)."""
+    import io
+
+    import PIL.Image
+
+    buf = io.BytesIO()
+    PIL.Image.fromarray(image).save(buf, format="JPEG", quality=J_QUALITY,
+                                    **kw)
+    return buf.getvalue()
+
+
+def _jpeg_bodies(url, pair):
+    """/v1/match on a JPEG body (PIL's q95 of the tinted planted pair) and
+    on the PNG of PIL's decode of it: both answer 200, with the same
+    keypoints and raw matches."""
+    import base64
+    import io
+
+    import PIL.Image
+
+    from imcui_tpu_torch.utils.png import encode_png
+
+    jpgs = [pil_jpeg((img * J_TINT).astype(np.uint8)) for img in pair[1:3]]
+    pngs = [encode_png(np.asarray(PIL.Image.open(io.BytesIO(j)).convert(
+        "RGB"))) for j in jpgs]
+    outs = {}
+    for tag, (b0, b1) in (("JPEG", jpgs), ("PNG of PIL's decode", pngs)):
+        body = json.dumps({"image0": base64.b64encode(b0).decode(),
+                           "image1": base64.b64encode(b1).decode()}).encode()
+        code, outs[tag], _ = _http(f"{url}/v1/match", body)
+        if code != 200:
+            fail(f"/v1/match on a {tag} body: status {code}, "
+                 f"{str(outs[tag])[:300]}")
+    keys = ("keypoints0_orig", "keypoints1_orig", "mkeypoints0_orig",
+            "mkeypoints1_orig")
+    same = {k: outs["JPEG"][k] == outs["PNG of PIL's decode"][k]
+            for k in keys}
+    n = len(outs["JPEG"]["mkeypoints0_orig"])
+    log(f"  JPEG body ({len(jpgs[0])} + {len(jpgs[1])} bytes): status 200, "
+        f"{n} raw matches; equal to the PNG of PIL's decode: {same}")
+    if not all(same.values()) or n == 0:
+        fail("the JPEG body's answer differs from the PNG body's")
+    return {"jpeg_bytes": [len(j) for j in jpgs], "raw_matches": n,
+            "equal_to_png": same}
 
 
 def _served_modules(names=SERVED_KERNELS):
@@ -5540,6 +5620,211 @@ def phase16(smi_line):
     return launches, res
 
 
+def _jpeg_exactness(tmp, files):
+    """(a) of phase 17: each JPEG of ``files`` ({tag: bytes}) read by the
+    port against PIL's decode, bit for bit: read_image (EXIF orientation
+    applied) against ImageOps.exif_transpose, the HTTP route against
+    convert("RGB"), gray against the Y plane of draft("YCbCr")."""
+    import io
+
+    import PIL.Image
+    import PIL.ImageOps
+
+    from imcui_tpu_torch.utils.image import decode_image_bytes, read_image
+
+    out = {}
+    for tag, data in files.items():
+        path = tmp / f"{tag.replace(' ', '_')}.jpg"
+        path.write_bytes(data)
+
+        def pil(draft=False, turn=False):
+            im = PIL.Image.open(io.BytesIO(data))
+            if draft:
+                im.draft("YCbCr", im.size)
+            if turn:
+                im = PIL.ImageOps.exif_transpose(im)
+            return np.asarray(im)[..., 0] if draft else np.asarray(
+                im.convert("RGB"))
+
+        checks = {
+            "read_image": (read_image(path), pil(turn=True)),
+            "read_image gray": (read_image(path, True),
+                                pil(draft=True, turn=True)),
+            "HTTP route": (decode_image_bytes(data, orientation=False),
+                           pil()),
+            "HTTP route gray": (decode_image_bytes(data, True,
+                                                   orientation=False),
+                                pil(draft=True))}
+        bad = {k: int((a != b).sum()) if a.shape == b.shape else
+               f"shape {a.shape} against {b.shape}"
+               for k, (a, b) in checks.items()}
+        shape = checks["read_image"][0].shape
+        log(f"  (a) {tag}: {len(data)} bytes, read as {shape}; pixels "
+            f"differing from PIL's: {bad}")
+        if any(bad.values()):
+            fail(f"JPEG {tag}: the port's decode differs from PIL's: {bad}")
+        out[tag] = {"bytes": len(data), "shape": list(shape)}
+    return out
+
+
+def _jpeg_times(data, smi_line):
+    """(b) of phase 17: median of J_REPS decodes of ``data`` to RGB by the
+    port and by PIL on this host, in turns, after one of each."""
+    import io
+
+    import PIL.Image
+
+    from imcui_tpu_torch.utils.jpeg import decode_jpeg
+
+    def pil():
+        return np.asarray(PIL.Image.open(io.BytesIO(data)).convert("RGB"))
+
+    fns = {"port": lambda: decode_jpeg(data), "PIL": pil}
+    ts = {tag: [] for tag in fns}
+    for rep in range(J_REPS + 1):
+        for tag in (("port", "PIL") if rep % 2 else ("PIL", "port")):
+            t0 = time.perf_counter()
+            fns[tag]()
+            ts[tag].append((time.perf_counter() - t0) * 1e3)
+    times = {tag: float(np.median(t[1:])) for tag, t in ts.items()}
+    ratio = times["port"] / times["PIL"]
+    cpu = f"{platform.machine()}, {os.cpu_count()} cores"
+    log(f"  (b) decode of the {J_SIZE[0]}x{J_SIZE[1]} 4:2:0 q{J_QUALITY} "
+        f"file ({len(data)} bytes) on the host ({cpu}), median of "
+        f"{J_REPS}: port {times['port']:.2f} ms, PIL "
+        f"{times['PIL']:.2f} ms, ratio {ratio:.3f} (bound {J_TIME_RATIO}); "
+        f"card {smi_line}")
+    if ratio > J_TIME_RATIO:
+        fail(f"the port's JPEG decode takes {ratio:.2f}x PIL's time")
+    return {"port_ms": times["port"], "pil_ms": times["PIL"],
+            "ratio": ratio, "bytes": len(data), "reps": J_REPS, "cpu": cpu}
+
+
+def phase17(smi_line, served):
+    """JPEG on the card: (a) _jpeg_exactness on PIL's q95 files of a colour
+    J_SIZE textured view (4:2:0, 4:4:4, progressive, orientation 6); (b)
+    _jpeg_times on the 4:2:0 file; (c) SfmEngine(device="cuda").call on
+    M_VIEWS JPEG views of phase 16's planted scene, counts at 0 and every
+    launch recorded (the main path: its counts), each launch held against
+    its plain version, the database against the engine's files, the
+    planted gate, then the same run on PNG copies of PIL's gray decode of
+    those files (what the engine's gray SuperPoint reads): keypoints and
+    matches equal; (d) phase 8's JPEG bodies
+    (``served``), reported. Returns (launches of the main path,
+    measurements)."""
+    import io
+    import tempfile
+    from pathlib import Path
+
+    import PIL.Image
+    import torch
+
+    from imcui_tpu_torch.ui.sfm import SfmEngine
+    from imcui_tpu_torch.utils.io import get_keypoints, get_matches
+    from imcui_tpu_torch.utils.png import encode_png
+
+    t_phase = time.perf_counter()
+    res = {"card": smi_line}
+    rng = np.random.default_rng(J_SEED)
+    w, h = J_SIZE
+    colour = np.stack([textured_image(rng, h, w) for _ in range(3)], -1)
+    exif = PIL.Image.Exif()
+    exif[0x0112] = 6
+    files = {"4:2:0": pil_jpeg(colour, subsampling=2),
+             "4:4:4": pil_jpeg(colour, subsampling=0),
+             "progressive": pil_jpeg(colour, subsampling=2, progressive=True),
+             "orientation 6": pil_jpeg(colour, subsampling=2,
+                                       exif=exif.tobytes())}
+    with tempfile.TemporaryDirectory(prefix="imcui-jpeg-") as tmp:
+        tmp = Path(tmp)
+        res["exact"] = _jpeg_exactness(tmp, files)
+        res["decode"] = _jpeg_times(files["4:2:0"], smi_line)
+        del colour, files
+
+        # (c) the batch path on JPEG files
+        views, hms = homography_views(M_SEED, M_VIEWS, *M_SIZE)
+        jfiles, pfiles = [], []
+        for i, v in enumerate(views):
+            data = pil_jpeg(v)
+            jfiles.append(tmp / f"view{i}.jpg")
+            jfiles[-1].write_bytes(data)
+            im = PIL.Image.open(io.BytesIO(data))
+            im.draft("L", im.size)
+            pfiles.append(tmp / f"view{i}.png")
+            pfiles[-1].write_bytes(encode_png(np.asarray(im)))
+        del views
+        jnames = [p.name for p in jfiles]
+
+        def engine_run(tag, images):
+            (tmp / tag).mkdir()
+            return SfmEngine({"outputs": tmp / tag}, device="cuda").call(
+                "sfm", images)
+
+        launches, box = {}, {}
+        t0 = time.perf_counter()
+        seen = _capture_kernel_args(
+            lambda: box.update(engine_run("jpg", jfiles)), SERVED_KERNELS,
+            launches)
+        wall = time.perf_counter() - t0
+        log(f"  (c) SfmEngine.call on {M_VIEWS} JPEG views: {launches} "
+            f"launches, {wall:.2f} s; status {box.get('status')!r}")
+        for name in SERVED_KERNELS:
+            if launches.get(name) != M_VIEWS:
+                fail(f"the JPEG sfm run launched {name} "
+                     f"{launches.get(name)} times, not once a view")
+        res["kernel_checks"] = _check_served_kernels(seen, "JPEG sfm launch")
+        del seen
+        torch.cuda.empty_cache()
+        res.update(launches=launches, sfm_s=wall,
+                   database=_sfm_database_checks(box, jnames))
+        gate = sfm_engine_gate(box["database"], jnames, hms, M_PX)
+        worst = (min(n for n, _ in gate.values()),
+                 min(s for _, s in gate.values()))
+        log(f"  (c) planted gate: {len(gate)} pairs, least {worst[0]} "
+            f"verified, least share {worst[1]:.3f} within {M_PX} px")
+        if len(gate) != M_VIEWS * (M_VIEWS - 1) // 2 or \
+                worst[0] < M_LEAST or worst[1] < M_SHARE:
+            fail(f"JPEG sfm gate: least {worst[0]} verified (>= {M_LEAST}), "
+                 f"least share {worst[1]:.3f} (>= {M_SHARE})")
+        res["gate"] = {f"{a}-{b}": v for (a, b), v in gate.items()}
+
+        png = engine_run("png", pfiles)
+        same = {"keypoints": 0, "matches": 0}
+        for tag in ("jpg", "png"):
+            if not (tmp / tag / "features" / "feats-superpoint.h5").exists():
+                fail(f"the {tag} run wrote no feature file")
+        for i in range(M_VIEWS):
+            k = [get_keypoints(tmp / t / "features" / "feats-superpoint.h5",
+                               f"view{i}.{t}") for t in ("jpg", "png")]
+            same["keypoints"] += int(np.array_equal(*k))
+        pairs = [tuple(p.split()) for p in (tmp / "jpg" / "pairs-sfm.txt")
+                 .read_text().split("\n")]
+        for n0, n1 in pairs:
+            m = [get_matches(tmp / t / "features" / "matches.h5",
+                             n0.replace(".jpg", "." + t),
+                             n1.replace(".jpg", "." + t))[0]
+                 for t in ("jpg", "png")]
+            # as sets: the two runs' pair files may list a pair either way
+            same["matches"] += int(len(m[0]) == len(m[1]) and set(
+                map(tuple, m[0])) == set(map(tuple, m[1])))
+        log(f"  (c) against the PNG copies: keypoints equal on "
+            f"{same['keypoints']}/{M_VIEWS} views, matches on "
+            f"{same['matches']}/{len(pairs)} pairs")
+        if same != {"keypoints": M_VIEWS, "matches": len(pairs)} or \
+                png.get("status") != box["status"]:
+            fail("the JPEG run's features or matches differ from the PNG "
+                 "copies'")
+        res["equal_to_png"] = same
+    log(f"  (d) HTTP (phase 8): JPEG body {served.get('raw_matches')} raw "
+        f"matches, equal to the PNG body's {served.get('equal_to_png')}; "
+        f"truncated body: {served.get('truncated_detail')!r}")
+    res["http"] = served
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"  {smi_line}")
+    log(f"  phase 17: {res['phase_s']:.1f} s")
+    return launches, res
+
+
 def oriented_pairs(pa, aa, pb, ab, tol):
     """Keypoints of a and b paired by point (within ``tol`` px, max norm)
     and then by the nearest angle (one point can hold several
@@ -5778,9 +6063,16 @@ def _cli_checks(files, tmp):
     (a, b), hm = files[0][0], files[0][3]
     out["match"] = _cli_match("match (superpoint+lightglue)", a, b,
                               os.path.join(tmp, "lg.pkl"))
-    out["match_mnn"] = _cli_match("match --matcher superpoint+mnn", a, b,
-                                  os.path.join(tmp, "mnn.pkl"), "--matcher",
-                                  "superpoint+mnn")
+    jpgs = []
+    for name, img in zip((a, b), files[0][1:3]):
+        jpgs.append(os.path.splitext(name)[0] + ".jpg")
+        with open(jpgs[-1], "wb") as f:
+            f.write(pil_jpeg(img))
+    out["match_mnn"] = _cli_match("match --matcher superpoint+mnn on .jpg",
+                                  *jpgs, os.path.join(tmp, "mnn.pkl"),
+                                  "--matcher", "superpoint+mnn")
+    if out["match_mnn"]["inliers"] < GATE_MIN_INLIERS:
+        fail("CLI match on .jpg files: too few inliers")
     port = free_port()
     t0 = time.perf_counter()
     proc = subprocess.Popen(
@@ -6107,6 +6399,10 @@ def main():
         "reconstruction and triangulation up to the mapper, localize_sfm, "
         "localize_inloc)")
     launches_16, timing["sfm"] = phase16(smi_line)
+    log("phase 17: JPEG on the card (the port's decoder against PIL, its "
+        "time, SfmEngine on JPEG views against PNG copies, the HTTP bodies)")
+    launches_17, timing["jpeg"] = phase17(smi_line,
+                                          timing["surfaces"]["jpeg"])
     for r in rows:
         by_path = {
             "turbo": launches.get(r["name"], 0),
@@ -6122,7 +6418,8 @@ def main():
             "zoo 13": launches_13.get(r["name"], 0),
             "zoo 14": launches_14.get(r["name"], 0),
             "batch": launches_15.get(r["name"], 0),
-            "sfm": launches_16.get(r["name"], 0)}
+            "sfm": launches_16.get(r["name"], 0),
+            "jpeg": launches_17.get(r["name"], 0)}
         r["launches_by_path"] = by_path
         r["launches"] = sum(by_path.values())
         if r["launches"] == 0:

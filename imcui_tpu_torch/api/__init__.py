@@ -1,7 +1,8 @@
 """HTTP API package: the request schema and the base64 image helpers.
 Counterpart of ``imcui_tpu/api/__init__.py``: the same pydantic
-``ImagesInput``. Images travel as base64 PNG (or PGM/PPM), decoded by
-``utils/image.py::decode_image_bytes``; JPEG raises.
+``ImagesInput``. Images travel as base64 PNG, JPEG (or PGM/PPM), decoded
+by ``utils/image.py::decode_image_bytes`` as PIL's ``convert("RGB")``
+decodes them: a JPEG's EXIF orientation is not applied.
 """
 
 import base64
@@ -28,15 +29,16 @@ class ImagesInput(BaseModel):
 
 
 def decode_base64_to_image(encoding: str) -> np.ndarray:
-    """base64 PNG (or PGM/PPM), with or without a ``data:image/...;base64,``
-    prefix → (H, W, 3) RGB uint8."""
+    """base64 PNG, JPEG (or PGM/PPM), with or without a
+    ``data:image/...;base64,`` prefix → (H, W, 3) RGB uint8, EXIF
+    orientation not applied (as PIL's ``convert("RGB")``)."""
     if encoding.startswith("data:image/"):
         encoding = encoding.split(";")[1].split(",")[1]
     try:
         data = base64.b64decode(encoding)
     except binascii.Error as e:
         raise ValueError(f"invalid base64 image: {e}") from None
-    return decode_image_bytes(data)
+    return decode_image_bytes(data, orientation=False)
 
 
 def to_base64_nparray(encoding: str) -> np.ndarray:

@@ -2,8 +2,9 @@
 functions (``get_api_version``, ``send_request_match``,
 ``send_request_extract``, ``read_image_to_base64``), URL constants and
 ``REMOTE_URL_RAILWAY`` environment variable, over the standard library's
-urllib. Images are read by ``utils/image.py::read_image`` (PNG and
-PGM/PPM files) and sent as base64 PNG from ``utils/png.py``.
+urllib. Images are read by ``utils/image.py::read_image`` (PNG, JPEG
+and PGM/PPM files, a JPEG's EXIF orientation applied as ``cv2.imread``
+applies it) and sent as base64 PNG from ``utils/png.py``.
 
     python -m imcui_tpu_torch.api.client --image0 a.png --image1 b.png \\
         [--url http://127.0.0.1:8001] [--out pred.pkl]

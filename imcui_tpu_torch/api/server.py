@@ -15,9 +15,11 @@ Deviations from the JAX package:
   not be held against the JAX one there: ``build_fastapi_app`` is not
   ported yet, and ``main`` always serves the stdlib transport, whatever
   is installed;
-- images are decoded by this package's PNG and PGM/PPM reader
-  (``utils/image.py::decode_image_bytes``); a JPEG answers 500 with a
-  detail naming the format.
+- images are decoded by this package's PNG, JPEG and PGM/PPM reader
+  (``utils/image.py::decode_image_bytes``), the pixels PIL's
+  ``convert("RGB")`` gives (a JPEG's EXIF orientation not applied); a
+  format or a JPEG kind it does not read answers 500 with a detail
+  naming it.
 
 Kept as the JAX package has them:
 
@@ -160,8 +162,10 @@ class _Handler(BaseHTTPRequestHandler):
                 ctype = self.headers.get("Content-Type", "")
                 if ctype.startswith("multipart/"):
                     files = _parse_multipart(self)
-                    image0 = decode_image_bytes(files["image0"])
-                    image1 = decode_image_bytes(files["image1"])
+                    image0 = decode_image_bytes(files["image0"],
+                                                orientation=False)
+                    image1 = decode_image_bytes(files["image1"],
+                                                orientation=False)
                 else:  # JSON base64
                     length = int(self.headers.get("Content-Length", 0))
                     data = json.loads(self.rfile.read(length))

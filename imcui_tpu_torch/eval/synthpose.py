@@ -10,8 +10,8 @@ View 1 is rendered by exact per-plane inverse-homography lookup with
 z-buffering, Hᵢ = K1 (R − t nᵢᵀ / dᵢ) K0⁻¹ (Hartley & Zisserman §13.2).
 
 ``generate_pairs`` is restated without OpenCV: images are read by
-``utils/image.read_image`` (PNG and binary PGM/PPM; any other format
-raises and names itself), resized by ``utils/image.resize_linear``
+``utils/image.read_image`` (PNG, JPEG and binary PGM/PPM; any other
+format raises and names itself), resized by ``utils/image.resize_linear``
 (``cv2.INTER_LINEAR``'s weights, rounded to uint8 once; OpenCV's
 fixed-point weights can round a pixel to the next grey level) and
 written by ``utils/png.encode_png``. OpenCV reads and writes BGR, this

@@ -1,4 +1,4 @@
-"""Build and bind the hand-written CUDA kernels.
+"""Build and bind the hand-written CUDA kernels and the host library.
 
 Every ``csrc/*.cu`` is compiled by its own ``nvcc`` process (all started
 together) for ``sm_90a`` and linked into one shared library with a plain
@@ -12,11 +12,21 @@ Each C entry point takes device pointers and the CUDA stream as
 ``void*``, sizes as ``int``, launches on that stream without
 synchronising, and returns ``cudaGetLastError()``; ``check`` turns a
 non-zero code into an exception.
+
+The host library (``host_library``) is every ``csrc/host/*.cpp``,
+compiled by the host C++ compiler (``c++``, or ``$CXX``) into
+``_build/libimcui_host_<hash>.so`` the same way: on first use, under a
+hash of its sources and flags, moved into place atomically. It needs no
+CUDA toolkit, so it builds on a machine without a card too.
+``-fwrapv`` gives the IDCT's 32-bit arithmetic the wrap-around the SIMD
+kernels it restates have, and no ``-march`` flag ties the library to
+one CPU.
 """
 
 import ctypes
 import hashlib
 import os
+import platform
 import shutil
 import subprocess
 import tempfile
@@ -51,8 +61,17 @@ SIGNATURES = {
     "tap_matmul_s8": [P, P, P, I, I, I, P],
 }
 
+HOST_CSRC = CSRC / "host"
+HOST_FLAGS = ["-std=c++17", "-O2", "-fwrapv", "-shared", "-fPIC"]
+L = ctypes.c_int64
+HOST_SIGNATURES = {
+    "jpeg_decode_scan": [P, L, L, P, P, P, P],
+    "jpeg_output": [P, P, P, P],
+}
+
 _lock = threading.Lock()
 _lib = None
+_host_lib = None
 build_seconds = None  # wall time of the build this process ran, if any
 
 
@@ -133,6 +152,68 @@ def library():
             lib.imcui_error_string.restype = ctypes.c_char_p
             _lib = lib
         return _lib
+
+
+def _cxx():
+    cxx = os.environ.get("CXX") or shutil.which("c++")
+    if not cxx:
+        raise RuntimeError("no C++ compiler: the host library needs c++ "
+                           "on PATH (or CXX set)")
+    return cxx
+
+
+def _host_sources():
+    """The host sources and a hash of them, the flags, the compiler and
+    the machine type: a library built elsewhere (a copied tree) is never
+    loaded."""
+    srcs = sorted(HOST_CSRC.glob("*.cpp"))
+    h = hashlib.sha256(" ".join(HOST_FLAGS + [_cxx(), platform.machine()])
+                       .encode())
+    for f in srcs:
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    return srcs, h.hexdigest()[:16]
+
+
+def host_library_path():
+    return BUILD_DIR / f"libimcui_host_{_host_sources()[1]}.so"
+
+
+def compile_host(out, srcs):
+    """Compile ``srcs`` with the host C++ compiler into the shared library
+    ``out``, written under a temporary name and moved into place. A
+    missing compiler or a failed build raises ``RuntimeError`` with what
+    the compiler said."""
+    out.parent.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        tmp_so = Path(tmp) / out.name
+        try:
+            proc = subprocess.run(
+                [_cxx(), *HOST_FLAGS, *map(str, srcs), "-o", str(tmp_so)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        except OSError as e:
+            raise RuntimeError(f"cannot run the C++ compiler: {e}") from None
+        if proc.returncode != 0:
+            raise RuntimeError(f"the host library failed to build:\n"
+                               f"{proc.stdout}")
+        os.replace(tmp_so, out)
+
+
+def host_library():
+    """The host library (``csrc/host/*.cpp``), built on first use."""
+    global _host_lib
+    with _lock:
+        if _host_lib is None:
+            so = host_library_path()
+            if not so.exists():
+                compile_host(so, _host_sources()[0])
+            lib = ctypes.CDLL(str(so))
+            for name, argtypes in HOST_SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _host_lib = lib
+        return _host_lib
 
 
 def stream_of(t):

@@ -25,8 +25,7 @@ confs = confs_dict["extractors"]
 
 def list_images(root, globs=("*.jpg", "*.png", "*.jpeg", "*.JPG", "*.PNG")):
     """Image files below ``root`` (recursively), as sorted posix paths
-    relative to it. JPEGs are listed as the JAX package lists them; this
-    package cannot decode them, so ``main`` raises on the first one."""
+    relative to it, listed as the JAX package lists them."""
     paths = []
     for g in globs:
         paths += list(Path(root).glob("**/" + g))

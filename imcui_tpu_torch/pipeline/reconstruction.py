@@ -14,9 +14,10 @@ scene whose inlier set is unique gives both packages the same verified
 matches. The mapper needs ``pycolmap``: without it ``run_reconstruction``
 raises the JAX module's ``ImportError`` once the database is written.
 
-Deviations: ``import_images`` reads image sizes with this package's
-reader (``utils/image.py``: PNG and PGM/PPM; a JPEG raises) where the JAX
-module calls ``cv2.imread``. Found in the JAX module and kept:
+``import_images`` reads image sizes with ``utils/image.py::image_size``
+where the JAX module decodes each image with ``cv2.imread``: a JPEG's
+size comes from its frame header, swapped for EXIF orientations 5-8 as
+``cv2.imread`` turns the image. Found in the JAX module and kept:
 ``geometric_verification`` stores the F it estimated from ``name0`` to
 ``name1`` while ``add_two_view_geometry`` flips the matches of a pair with
 ``id0 > id1`` into ``(id1, id0)`` order without transposing F.
@@ -31,7 +32,7 @@ import torch
 from .. import logger, resolve_device
 from ..ops import ransac as ransac_ops
 from ..utils.database import COLMAPDatabase, image_ids_to_pair_id
-from ..utils.image import read_image
+from ..utils.image import image_size
 from ..utils.io import get_keypoints, get_matches
 from ..utils.parsers_compat import parse_pairs_file
 from .extract_features import list_images
@@ -75,7 +76,7 @@ def import_images(image_dir, database_path, camera_mode="AUTO",
     db = COLMAPDatabase.connect(database_path)
     cameras = {}
     for name in names:
-        h, w = read_image(Path(image_dir) / name).shape[:2]
+        w, h = image_size(Path(image_dir) / name)
         key = (w, h)
         if camera_mode == "SINGLE":
             key = "single"

@@ -4,10 +4,12 @@ Counterpart of ``imcui_tpu/utils/image.py``'s ``read_image``,
 ``preprocess``, ``load_conf``, ``bucket_size`` and
 ``keypoints_to_original``. The JAX package reads files, converts to
 grayscale and resizes with OpenCV; this module restates them in numpy.
-``read_image`` and ``decode_image_bytes`` read PNG (``utils/png.py``) and
-binary PGM/PPM (P5/P6, maxval 255) only: there is no JPEG decoder here,
-and JPEG, GIF, BMP, TIFF and WebP data raise ``ValueError`` naming the
-format. The other restatements: ``to_grayscale`` as ``cv2.cvtColor(...,
+``read_image`` and ``decode_image_bytes`` read PNG (``utils/png.py``),
+JPEG (``utils/jpeg.py``: baseline and progressive Huffman, gray or YCbCr,
+bit for bit as libjpeg-turbo decodes them) and binary PGM/PPM (P5/P6,
+maxval 255); GIF, BMP, TIFF, WebP and JPEG 2000 data, and the JPEG kinds
+``utils/jpeg.py`` lists as refused, raise ``ValueError`` naming the
+format or the feature. The other restatements: ``to_grayscale`` as ``cv2.cvtColor(...,
 COLOR_RGB2GRAY)`` (fixed-point for uint8), ``resize_area`` as
 ``cv2.resize(..., INTER_AREA)`` for downscaling, each output pixel the
 coverage-weighted mean of the source box it spans, and ``resize_linear``
@@ -21,6 +23,8 @@ from types import SimpleNamespace
 
 import numpy as np
 
+from .jpeg import SOI as JPEG_SOI
+from .jpeg import decode_jpeg, jpeg_size
 from .png import SIGNATURE as PNG_SIGNATURE
 from .png import decode_png
 
@@ -44,9 +48,8 @@ def to_grayscale(image):
 
 
 # leading bytes of the formats this module cannot decode
-_OTHER_FORMATS = ((b"\xff\xd8\xff", "JPEG"), (b"GIF8", "GIF"), (b"BM", "BMP"),
-                  (b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"),
-                  (b"\x00\x00\x00\x0cjP", "JPEG 2000"))
+_OTHER_FORMATS = ((b"GIF8", "GIF"), (b"BM", "BMP"), (b"II*\x00", "TIFF"),
+                  (b"MM\x00*", "TIFF"), (b"\x00\x00\x00\x0cjP", "JPEG 2000"))
 _PNM_HEADER = re.compile(rb"(P[56])(?:\s|#[^\n]*\n)+(\d+)(?:\s|#[^\n]*\n)+"
                          rb"(\d+)(?:\s|#[^\n]*\n)+(\d+)\s")
 
@@ -67,11 +70,16 @@ def _pnm_gray(rgb):
             >> 14).astype(np.uint8)
 
 
-def decode_image_bytes(data, grayscale=False):
-    """PNG or binary PGM/PPM bytes → (H, W, 3) RGB uint8, or (H, W) gray
-    as OpenCV's IMREAD_GRAYSCALE reads the file when ``grayscale``. RGB is
-    what PIL's ``convert("RGB")`` gives (alpha dropped, gray repeated)."""
+def decode_image_bytes(data, grayscale=False, *, orientation):
+    """PNG, JPEG or binary PGM/PPM bytes → (H, W, 3) RGB uint8, or (H, W)
+    gray as OpenCV's IMREAD_GRAYSCALE reads the file when ``grayscale``.
+    RGB is what PIL's ``convert("RGB")`` gives (alpha dropped, gray
+    repeated). ``orientation``: apply a JPEG's EXIF orientation tag, as
+    ``cv2.imread`` does (True), or leave the pixels as stored, as PIL's
+    ``convert("RGB")`` does (False)."""
     data = bytes(data)
+    if data.startswith(JPEG_SOI + b"\xff"):
+        return decode_jpeg(data, grayscale, orientation)
     if data.startswith(PNG_SIGNATURE):
         rgb = decode_png(data)
         return _png_gray(rgb) if grayscale else rgb
@@ -98,22 +106,39 @@ def decode_image_bytes(data, grayscale=False):
             else None
     if name:
         raise ValueError(f"{name} images cannot be decoded: this package "
-                         "reads PNG and binary PGM/PPM only")
-    raise ValueError("unknown image format (this package reads PNG and "
-                     "binary PGM/PPM only)")
+                         "reads PNG, JPEG and binary PGM/PPM only")
+    raise ValueError("unknown image format (this package reads PNG, JPEG "
+                     "and binary PGM/PPM only)")
 
 
 def read_image(path, grayscale=False):
     """An image file as (H, W, 3) RGB uint8, or (H, W) gray when
-    ``grayscale``, as the JAX package's OpenCV reader gives it, for PNG and
-    binary PGM/PPM files. Other formats, JPEG first among them, raise
-    ``ValueError`` naming the format: this package has no JPEG decoder."""
+    ``grayscale``, as the JAX package's OpenCV reader gives it, for PNG,
+    JPEG (its EXIF orientation applied, as ``cv2.imread`` does) and binary
+    PGM/PPM files. Other formats raise ``ValueError`` naming the file and
+    the format."""
     try:
         data = Path(path).read_bytes()
     except OSError as e:
         raise ValueError(f"Cannot read image {path}: {e}") from None
     try:
-        return decode_image_bytes(data, grayscale)
+        return decode_image_bytes(data, grayscale, orientation=True)
+    except ValueError as e:
+        raise ValueError(f"Cannot read image {path}: {e}") from None
+
+
+def image_size(path):
+    """(width, height) of the image ``read_image`` reads from ``path``: a
+    JPEG's from its frame header and EXIF tag, without decoding it."""
+    try:
+        data = Path(path).read_bytes()
+    except OSError as e:
+        raise ValueError(f"Cannot read image {path}: {e}") from None
+    try:
+        if data.startswith(JPEG_SOI + b"\xff"):
+            return jpeg_size(data)
+        h, w = decode_image_bytes(data, orientation=True).shape[:2]
+        return w, h
     except ValueError as e:
         raise ValueError(f"Cannot read image {path}: {e}") from None
 

@@ -15,10 +15,12 @@ query by query and in order; the parsers' outputs are equal.
 """
 
 import copy
+import io
 from pathlib import Path
 
 import h5py
 import numpy as np
+import PIL.Image
 import pytest
 import torch
 
@@ -120,19 +122,23 @@ def test_extract_features_resumes_and_overwrites(views, tmp_path,
 
 
 def test_list_images_and_a_jpeg_raises(views, tmp_path):
-    """list_images finds *.jpg as the JAX function does; the port cannot
-    decode a JPEG, so main raises naming the file instead of skipping
-    it; "cuda" without a card raises."""
+    """list_images finds *.jpg as the JAX function does; main reads a real
+    JPEG and raises on a malformed one naming the file instead of
+    skipping it; "cuda" without a card raises."""
     d = tmp_path / "imgs"
     (d / "sub").mkdir(parents=True)
     (d / "sub" / "a.png").write_bytes((views[0] / "p0a.png").read_bytes())
+    buf = io.BytesIO()
+    PIL.Image.open(views[0] / "p0b.png").save(buf, format="JPEG")
+    (d / "sub" / "b.jpg").write_bytes(buf.getvalue())
     (d / "z.jpg").write_bytes(b"\xff\xd8\xff\xe0" + bytes(64))
     assert textract.list_images(d) == jextract.list_images(d) == [
-        "sub/a.png", "z.jpg"]
+        "sub/a.png", "sub/b.jpg", "z.jpg"]
     with pytest.raises(ValueError, match="z.jpg"):
         textract.main(_sp_conf(), d, tmp_path / "out", device="cpu")
-    assert tio.list_h5_names(
-        tmp_path / "out" / f"{_sp_conf()['output']}.h5") == ["sub/a.png"]
+    feats = tmp_path / "out" / f"{_sp_conf()['output']}.h5"
+    assert sorted(tio.list_h5_names(feats)) == ["sub/a.png", "sub/b.jpg"]
+    assert len(tio.get_keypoints(feats, "sub/b.jpg")) > 20
     with pytest.raises(ValueError, match="Could not find any image"):
         textract.list_images(tmp_path / "out")
     if not torch.cuda.is_available():

@@ -125,6 +125,9 @@ def test_generate_pairs_names_a_format_it_cannot_read(tmp_path):
     (tmp_path / "x.jpg").write_bytes(b"\xff\xd8\xff\xe0\x00\x10JFIF\x00")
     with pytest.raises(ValueError, match="JPEG"):
         tsynth.generate_pairs([tmp_path / "x.jpg"], tmp_path / "o")
+    (tmp_path / "x.tif").write_bytes(b"II*\x00" + bytes(12))
+    with pytest.raises(ValueError, match="TIFF"):
+        tsynth.generate_pairs([tmp_path / "x.tif"], tmp_path / "o")
 
 
 # --------------------------------------------------------------------------

@@ -162,14 +162,16 @@ def test_images_input_validates_as_jax(body):
 
 @pytest.mark.parametrize("prefix", ["", "data:image/png;base64,"])
 def test_decode_base64_equals_jax(files, prefix):
-    """Exact: the same RGB array as the JAX package's PIL decode."""
+    """Exact: the same RGB array as the JAX package's PIL decode, for the
+    PNG and for PIL's JPEG of the same image (the port's JPEG decoder)."""
     b64 = prefix + base64.b64encode(files["a"].read_bytes()).decode()
     got = tapi.to_base64_nparray(b64)
     np.testing.assert_array_equal(got, japi.to_base64_nparray(b64))
     assert got.dtype == np.uint8 and got.shape == (240, 320, 3)
-    jpg = base64.b64encode(files["jpg"].read_bytes()).decode()
-    with pytest.raises(ValueError, match="JPEG"):
-        tapi.decode_base64_to_image(jpg)
+    jpg = prefix + base64.b64encode(files["jpg"].read_bytes()).decode()
+    got = tapi.decode_base64_to_image(jpg)
+    np.testing.assert_array_equal(got, japi.decode_base64_to_image(jpg))
+    assert got.dtype == np.uint8 and got.shape == (240, 320, 3)
 
 
 # --------------------------------------------------------------------------
@@ -252,13 +254,13 @@ def test_errors_answer_500_and_the_server_goes_on(server, files):
     url, _ = server
     code, out = _post(f"{url}/v1/match", b"{not json", "application/json")
     assert code == 500 and "Expecting" in out["detail"]
-    jpg = base64.b64encode(files["jpg"].read_bytes()).decode()
+    cut = files["jpg"].read_bytes()
+    cut = cut[:len(cut) // 2]  # a JPEG truncated in its entropy data
+    jpg = base64.b64encode(cut).decode()
     code, out = _post(f"{url}/v1/match", json.dumps(
         {"image0": jpg, "image1": jpg}).encode(), "application/json")
     assert code == 500 and "JPEG" in out["detail"]
-    body, ctype = chip_smoke.multipart_body(
-        {"image0": files["jpg"].read_bytes(),
-         "image1": files["jpg"].read_bytes()})
+    body, ctype = chip_smoke.multipart_body({"image0": cut, "image1": cut})
     code, out = _post(f"{url}/v1/match", body, ctype)
     assert code == 500 and "JPEG" in out["detail"]
     code, out = _post(f"{url}/v1/extract", json.dumps(

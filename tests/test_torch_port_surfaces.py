@@ -207,9 +207,17 @@ def test_read_image_equals_jax_read_image(image_files, name, grayscale):
     np.testing.assert_array_equal(got, want)
 
 
-def test_read_image_refuses_jpeg_naming_it(image_files):
+def test_read_image_refuses_jpeg_naming_it(image_files, tmp_path):
+    """cv2's JPEG reads as the JAX package reads it (the port's decoder);
+    the same file cut short raises naming JPEG."""
+    for grayscale in (False, True):
+        np.testing.assert_array_equal(
+            read_image(image_files / "rgb.jpg", grayscale),
+            jax_read_image(image_files / "rgb.jpg", grayscale))
+    data = (image_files / "rgb.jpg").read_bytes()
+    (tmp_path / "cut.jpg").write_bytes(data[:len(data) // 2])
     with pytest.raises(ValueError, match="JPEG"):
-        read_image(image_files / "rgb.jpg")
+        read_image(tmp_path / "cut.jpg")
 
 
 # --------------------------------------------------------------------------

@@ -608,6 +608,7 @@ def test_port_imports_no_jax_cv2_pil_or_jax_package():
         "'models.extractors.cosplace', 'models.extractors.eigenplaces', "
         "'models.extractors.dir', 'models.extractors.fire', "
         "'models.extractors.fire_local', 'utils.h5lite', 'utils.io', "
+        "'utils.jpeg', "
         "'utils.parsers_compat', 'pipeline.extract_features', "
         "'pipeline.match_features', 'pipeline.match_dense', "
         "'pipeline.pairs_from_exhaustive', "
@@ -618,3 +619,25 @@ def test_port_imports_no_jax_cv2_pil_or_jax_package():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_port_sources_import_no_forbidden_module_anywhere():
+    """Every import statement in the port's sources, at any depth (a
+    function body's too, which importing the modules never runs): none
+    names JAX, cv2, PIL, the JAX package or the repository's root
+    scripts."""
+    import ast
+
+    banned = {"jax", "jaxlib", "cv2", "PIL", "imcui_tpu", "chip_smoke"}
+    found = []
+    for path in sorted((ROOT / "imcui_tpu_torch").rglob("*.py")):
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and not node.level:
+                names = [node.module or ""]
+            else:
+                continue
+            found += [f"{path.relative_to(ROOT)}:{node.lineno} {n}"
+                      for n in names if n.split(".")[0] in banned]
+    assert not found, found
