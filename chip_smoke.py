@@ -176,7 +176,23 @@ Phases, each of which passes or ends the run with a non-zero exit:
      views of phase 16's planted scene, the stem, K1 and K2 launched once
      a view and every launch held against its plain version, its
      keypoints and matches equal to the same run's on PNG copies of PIL's
-     gray decode, the planted gate; phase 8's JPEG checks reported.
+     gray decode, the planted gate; phase 8's JPEG checks reported;
+ 18. the serving precisions: W8A8 (precision "int8") through
+     ImageMatchingAPI(device="cuda") for the registry's duster, mast3r and
+     roma at full width, roma also and dkm at int8_conv_min_ch 256 (DKM
+     has no linear), on a planted 1600x1200 pair: the W8A8 linear and
+     convolution kernels (csrc/w8a8.cu) launched as often as the
+     quantised tree implies and each launch equal to its plain version
+     bit for bit (and the K14 launches of the ViT blocks held), ms a
+     request and device busy beside the same entry in bf16 in turns, the
+     int8 maps against the bf16 maps, the card against the CPU on a copy
+     of the card's tree; then LightGlue in bf16 at the flagship (4 planted
+     pairs, 1024 keypoints, 9 layers, the trained tree): K3 and K4
+     launched in bf16 9 times each, every launch held against its plain
+     version, the planted gate on the bf16 and the float32 matches, their
+     IoU and both times; last the new kernels' times (the W8A8 linear and
+     convolution, K3 and K4 in bf16) beside their plain versions, library
+     calls and bounds.
 Near the end it prints one JSON line {"timing": ...}, one {"kernels":
 [...]} and the card's name and power limit; the last line is {"ok": true,
 "device": {...}}. Without a CUDA device, or without the rest of the
@@ -621,6 +637,46 @@ M_SCENE = (1601, 8, 2000, 0.25)
 M_QUERY = 4096
 M_POSE_DEG, M_POSE_T = 1.5, 0.1
 M_RETRIEVAL_K = 3
+# W8A8 and LightGlue in bf16 (phase 18). (a) The registry's duster,
+# mast3r and roma at full width with precision "int8" on a planted Z_SIZE
+# pair, roma also and dkm at int8_conv_min_ch W8_CONV_MIN_CH (their
+# convolutions at least 256 wide: RoMa's VGG 256/512 layers, projections
+# and refiners' 1 x 1 convolutions; DKM's ResNet-50 layers, projections and
+# DFN; DKM has no linear, so without it int8 is DKM's bf16 run); DUSt3R
+# and MASt3R with vit.ATTN_IMPL "fused". The W8A8 launches a request
+# must equal what the tree implies: each quantised dict once, twice
+# where its path component (W8_PER_VIEW) runs on each view; K14 launches
+# W8_K14 times. The int8 maps against the bf16 ones: median |diff| within
+# W8_SANITY of the largest (a sanity bound: seed-0 trees, no geometric
+# gate); the card against the CPU: pointmaps and DKM as phase 12 in bf16
+# (V_CPU_BF16), RoMa on a cut DINOv2 (two blocks) at 112^2: its tokens as
+# the pointmaps, the random anchor decoder's warp and certainty within
+# W8_ROMA_CPU (median |warp diff|, as the CPU tests' int8 bound against
+# JAX; mean |certainty diff|: a re-quantised last-bit difference moves a
+# cell to another anchor, and its certainty with it). (b) LightGlue at
+# the flagship (BATCH planted LG_SIZE pairs on the CANVAS canvas,
+# MAX_KPTS keypoints, N_LAYERS layers, the trained tree) in bf16 beside
+# float32: the same gate, K3 and K4 in bf16 held as _bf16_attention_over
+# says (at most LG_OVER of the outputs past one bf16 step), LG_REPS timed
+# forwards each. (c) The new kernels' rows at
+# W8_LINEAR (DUSt3R's fc1: tokens, din, dout) and W8_CONV (RoMa's VGG 3 x 3:
+# batch, cin, h, w, cout).
+W8_CONV_MIN_CH = 256
+W8_ENTRIES = (("duster", None), ("mast3r", None), ("roma", None),
+              ("roma", W8_CONV_MIN_CH), ("dkm", W8_CONV_MIN_CH))
+W8_PER_VIEW = {"duster": ("enc_blocks", "decoder_embed", "patch_embed"),
+               "mast3r": ("enc_blocks", "decoder_embed", "patch_embed"),
+               "roma": ("dinov2", "encoder_cnn", "proj"),
+               "dkm": ("encoder", "proj")}
+W8_K14 = {"duster": V_K14, "mast3r": V_K14, "roma": 2 * 24, "dkm": 0}
+W8_SANITY = 0.25
+W8_ROMA_CPU = [0.35, 0.1]
+W8_LINEAR = (768, 1024, 4096)
+W8_CONV = (1, 256, 140, 140, 256)
+LG_SEEDS = (100, 101, 102, 103)
+LG_SIZE = (1024, 768)
+LG_REPS = 20
+LG_OVER = 1e-3
 ALL_KERNELS = ("stem_tail", "stage_tail", "nms_cellmax", "fused_attention",
                "bidirectional_attention", "flash_attention",
                "qtiled_attention", "tap_matmul")
@@ -1265,10 +1321,12 @@ def device_window(run, n):
 
 def attention_ptxas(source="attention.cu",
                     pattern=r"\d(attention|bidir_attention)_kernel"
-                            r"ILi(\d+)E(?:Li(\d+)ELi(\d+)E)?"):
+                            r"ILi(\d+)E(?:Li(\d+)ELi(\d+)E)?fE"):
     """Registers and spill bytes of each kernel of ``source`` whose name
     matches ``pattern`` (groups: the name, then its template arguments),
-    from the build's ptxas log: for K3, K4 and K5's float32 kernels
+    from the build's ptxas log: for K3, K4 and K5's float32 kernels (the
+    tile's float instances, ``f`` in the mangled name; the bf16 ones are
+    K3/K4's for LightGlue in bf16)
     {"attention<8><64><64>": {"registers": r, "spill_bytes": b,
     "stack_bytes": s}, "bidir_attention<8>": ..., ...}; for K14 and K5's
     bf16 kernels {"qtiled_attention<64><128><0>": ...}."""
@@ -3595,7 +3653,7 @@ def _served_modules(names=SERVED_KERNELS):
     attribute the path calls)} of each wrapper in ``names`` (LightGlue
     imports the attention wrappers by name)."""
     from imcui_tpu_torch.models.matchers import lightglue
-    from imcui_tpu_torch.ops import attention, cuda_nms, cuda_stage1
+    from imcui_tpu_torch.ops import attention, cuda_nms, cuda_stage1, w8a8
 
     where = {"stem_tail": (cuda_stage1, [cuda_stage1]),
              "stage_tail": (cuda_stage1, [cuda_stage1]),
@@ -3603,7 +3661,9 @@ def _served_modules(names=SERVED_KERNELS):
              "fused_attention": (attention, [lightglue, attention]),
              "bidirectional_attention": (attention, [lightglue]),
              "flash_attention": (attention, [lightglue]),
-             "qtiled_attention": (attention, [attention])}
+             "qtiled_attention": (attention, [attention]),
+             "linear_int8": (w8a8, [w8a8]),
+             "conv2d_int8": (w8a8, [w8a8])}
     return {name: where[name] for name in names}
 
 
@@ -3650,12 +3710,13 @@ def _capture_kernel_args(run, names=SERVED_KERNELS, counts=None):
     return seen
 
 
-def _check_served_kernels(seen, what="served request"):
+def _check_served_kernels(seen, what="served request", log_each=True):
     """Each recorded launch again, the kernel against its plain version on
     the same card tensors: K6 and K1 within one bf16 rounding step of the
     result (1e-3 + 2^-7·|plain|, as phase 1), K2 exact, K3, K4 and K5
     within 1e-5·max(1, max|plain|) (float32 sums in another order, as
-    phase 1; K4 with 4096 keys a side within 2e-5·, as phase 1 at 4096²).
+    phase 1; K4 with 4096 keys a side within 2e-5·, as phase 1 at 4096²),
+    the W8A8 linear and convolution bit for bit.
     Fails on any excess, or on a kernel of the path that ``what`` did not
     launch."""
     import torch
@@ -3695,6 +3756,11 @@ def _check_served_kernels(seen, what="served request"):
                 over = int((diff > 2.0 ** -7 * want.float().abs().clamp_min(
                     1.0) + 2.0 ** -9 * v.float().abs().max()).sum())
                 tol = "2^-7*max(1,|plain|) + 2^-9*max|v|"
+            elif name in ("linear_int8", "conv2d_int8"):
+                diff = (got.float() - want.float()).abs()
+                err, top = diff.max().item(), want.float().abs().max().item()
+                over = int((got != want).sum())
+                tol = "exact"
             elif name.endswith("attention"):
                 if isinstance(got, torch.Tensor):
                     got, want = (got,), (want,)
@@ -3726,11 +3792,18 @@ def _check_served_kernels(seen, what="served request"):
             out.setdefault(name, []).append(
                 {"shape": f"{shape} {dtype}", "max_abs_err": err,
                  "max_plain": top, "over": over})
-            log(f"  {what} shapes: {name} [{shape} {dtype}]: err {err:.3g} "
-                f"(max|plain| {top:.3g}; {over} over {tol})")
+            if log_each:
+                log(f"  {what} shapes: {name} [{shape} {dtype}]: err "
+                    f"{err:.3g} (max|plain| {top:.3g}; {over} over {tol})")
             if over:
                 fail(f"{name} [{shape} {dtype}] of the {what} differs from "
                      f"its plain version")
+        if not log_each:
+            cs = out[name]
+            log(f"  {what}: {len(cs)} {name} launches held ({tol}): shapes "
+                f"{sorted({c['shape'] for c in cs})}, max err "
+                f"{max(c['max_abs_err'] for c in cs):.3g}, "
+                f"{sum(c['over'] for c in cs)} over")
     return out
 
 
@@ -3814,9 +3887,9 @@ def zoo_flops(run):
 def _wrappers(names=ALL_KERNELS):
     """{name: the wrapper} of every hand-written kernel in ``names``."""
     from imcui_tpu_torch.ops import (attention, cuda_nms, cuda_stage1,
-                                     tap_matmul)
+                                     tap_matmul, w8a8)
 
-    mods = (cuda_stage1, cuda_nms, attention, tap_matmul)
+    mods = (cuda_stage1, cuda_nms, attention, tap_matmul, w8a8)
     return {n: next(getattr(m, n) for m in mods if hasattr(m, n))
             for n in names}
 
@@ -6204,7 +6277,7 @@ def flash_sass():
 
     f32 = {}
     for name, counts in kernel_sass("attention_kernel", F_SASS).items():
-        hit = re.search(r"\d(attention)_kernelILi(\d+)ELi(\d+)ELi(\d+)E",
+        hit = re.search(r"\d(attention)_kernelILi(\d+)ELi(\d+)ELi(\d+)EfE",
                         name)
         if hit:
             f32["<{}><{}><{}>".format(*hit.groups()[1:])] = counts
@@ -6329,6 +6402,533 @@ def phase6(peaks):
     return rows, {r["name"]: r["launches"] for r in rows}
 
 
+# --------------------------------------------------------------------------
+# phase 18: W8A8 (precision="int8") and LightGlue in bf16
+# --------------------------------------------------------------------------
+
+def _w8_expected(name, params):
+    """{kernel: launches a request} that the int8 tree implies: each
+    quantised linear (2-D w_q) and convolution (4-D) once a request, twice
+    where the path holds it for each view (W8_PER_VIEW)."""
+    from imcui_tpu_torch.utils import weights
+
+    out = {"linear_int8": 0, "conv2d_int8": 0}
+    for k, v in weights.flatten_tree(params).items():
+        if k.endswith(".w_q"):
+            uses = 2 if k.split(".")[0] in W8_PER_VIEW[name] else 1
+            out["linear_int8" if v.dim() == 2 else "conv2d_int8"] += uses
+    return out
+
+
+@contextlib.contextmanager
+def _drawn_on_the_card():
+    """While the context lasts, ``weights.seeded_init`` draws its seed-0
+    tree on the card, as the card's model did, and hands it to the caller
+    on the CPU: a CPU model built then starts from the card model's float32
+    tree and quantises it itself."""
+    from imcui_tpu_torch.utils import weights
+
+    real = weights.seeded_init
+    weights.seeded_init = lambda init, device, *a: weights.to_device(
+        real(init, "cuda", *a), "cpu")
+    try:
+        yield
+    finally:
+        weights.seeded_init = real
+
+
+def _w8_conf(name, precision, conv_min_ch=None):
+    from imcui_tpu_torch.ui import utils as ui
+
+    conf = ui.parse_match_config({"matcher": name, "dense": True})
+    conf["matcher"]["model"]["precision"] = precision
+    conf["matcher"]["model"]["int8_conv_min_ch"] = conv_min_ch
+    return conf
+
+
+def _w8_maps(api, img0, img1, size=None):
+    """The dense maps the entry's matching reads on one prepared pair,
+    float32 on the host: view 1's pointmap and confidence (DUSt3R), its
+    descriptors and confidence (MASt3R), the warp and certainty (RoMa,
+    DKM). ``size`` resizes the canvas (the CPU comparisons)."""
+    import torch
+
+    from imcui_tpu_torch.models.matchers import dkm
+
+    if size is not None:
+        api.match_conf["preprocessing"]["resize_max"] = size
+    pre = api.match_conf["preprocessing"]
+    d = [_canvas(im, pre)[None] for im in (img0, img1)]
+    m = api.matcher
+    kind = type(m).__name__
+    with torch.inference_mode():
+        if kind in ("Duster", "Mast3r"):
+            x = [m._prepare(t)[0] for t in d]
+            maps = _pointmap_maps(m, *x)
+        elif kind == "DKMv3":
+            s = dkm.coarse_size(m.conf, *d[0].shape[-2:])
+            maps = m.match(*(m._prepare(t, s)[0] for t in d))
+        else:
+            maps = m.match(*(m._prepare(t)[0] for t in d))
+    return [t.float().cpu().numpy() for t in maps]
+
+
+def _w8_roma_cut(api, conf, img0, img1):
+    """RoMa with the card's tree cut to its first two DINOv2 blocks at
+    coarse_res 112 x 112 (so that the CPU run takes seconds), on the card
+    and on the CPU from the same float32 tree quantised on each device:
+    [view 0's DINOv2 tokens, the warp, the certainty] of each, float32 on
+    the host."""
+    import torch
+
+    from imcui_tpu_torch.api.core import ImageMatchingAPI
+    from imcui_tpu_torch.models.matchers import roma
+    from imcui_tpu_torch.ops import resize
+
+    cpu = ImageMatchingAPI(conf, device="cpu")
+    out = []
+    for a in (api, cpu):
+        p = dict(a.matcher.params)
+        p["dinov2"] = {**p["dinov2"], "blocks": p["dinov2"]["blocks"][:2]}
+        x = [resize.resize(a.matcher._prepare(_canvas(im, a.match_conf[
+            "preprocessing"])[None]).float(), (112, 112), "bilinear")[0]
+            .to(torch.bfloat16) for im in (img0, img1)]
+        with torch.inference_mode():
+            tokens = roma.encode(p, x[0], a.matcher.conf)[0]
+            maps = roma.match_gp(p, *x, a.matcher.conf)
+        out.append([t.float().cpu().numpy() for t in (tokens, *maps)])
+    return out
+
+
+def phase18_w8a8(pair, fns):
+    """Each W8_ENTRIES entry through ImageMatchingAPI(device="cuda") at the
+    registry's conf with precision "int8": the W8A8 launches of a request
+    (and DUSt3R's and MASt3R's K14 launches) counted against what the tree
+    implies and each held against its plain version (W8A8 bit for bit);
+    ms a request and device busy beside the bf16 entry, in turns; the int8
+    maps against the bf16 maps (W8_SANITY); the card against the CPU on a
+    copy of the card's tree. Returns (launches, measurements)."""
+    import torch
+
+    from imcui_tpu_torch.api.core import ImageMatchingAPI
+    from imcui_tpu_torch.models.backbones import vit
+
+    img0, img1, _ = pair
+    launches, out, bf16_api = {}, {}, {}
+    for name, cmc in W8_ENTRIES:
+        tag = f"{name} int8" + (f" conv>={cmc}" if cmc else "")
+        t0 = time.perf_counter()
+        pointmap = name in ("duster", "mast3r")
+        vit.ATTN_IMPL = "fused" if pointmap else "xla"
+        try:
+            api = ImageMatchingAPI(_w8_conf(name, "int8", cmc), device="cuda")
+            api(img0, img1)  # warm-up
+            want = _w8_expected(name, api.matcher.params)
+            if W8_K14[name]:
+                want["qtiled_attention"] = W8_K14[name]
+            counts = {}
+            seen = _capture_kernel_args(lambda: api(img0, img1),
+                                        tuple(want), counts)
+            if counts != want:
+                fail(f"{tag}: a request launched {counts}, the tree implies "
+                     f"{want}")
+            checks = _check_served_kernels(
+                {k: v for k, v in seen.items() if v}, f"{tag} request",
+                log_each=False)
+            del seen
+            torch.cuda.synchronize()
+            if name not in bf16_api:  # one bf16 entry for both roma runs
+                bf16_api.clear()
+                torch.cuda.empty_cache()
+                bf16_api[name] = ImageMatchingAPI(_w8_conf(name, "bf16"),
+                                                  device="cuda")
+                bf16_api[name](img0, img1)  # warm-up
+            bf = bf16_api[name]
+            runs = {"int8": [], "bf16": []}
+            for prec in ("int8", "bf16", "bf16", "int8"):
+                a = api if prec == "int8" else bf
+                ms, got, busy, evs, pred = _dense_request_times(
+                    a, img0, img1, fns)
+                runs[prec].append((ms, got, busy, evs, pred))
+            res = {}
+            for prec, rs in runs.items():
+                ms = [m for r in rs for m in r[0]]
+                got = {n: sum(r[1].get(n, 0) for r in rs) / 2
+                       for n in set().union(*(r[1] for r in rs))}
+                _check_dense_pred(f"{tag} ({prec} run)", rs[-1][4])
+                res[prec] = _log_dense(f"{tag} ({prec} run)", ms,
+                                       float(np.mean([r[2] for r in rs])),
+                                       rs[-1][3], rs[-1][4], got)
+            if res["int8"]["launches_per_request"] != {
+                    k: float(v) for k, v in want.items() if v}:
+                fail(f"{tag}: timed requests launched "
+                     f"{res['int8']['launches_per_request']}, not {want}")
+            # one captured request and the timed int8 runs
+            for n, c in counts.items():
+                launches[n] = launches.get(n, 0) + c + sum(
+                    r[1].get(n, 0) for r in runs["int8"])
+            # the int8 maps against the bf16 maps, on the card
+            m8, m16 = _w8_maps(api, img0, img1), _w8_maps(bf, img0, img1)
+            sanity = [float(np.median(np.abs(a - b)) / max(
+                1e-30, np.abs(b).max())) for a, b in zip(m8, m16)]
+            log(f"  {tag}: int8 against bf16 maps: median |diff| "
+                f"{[f'{s:.3g}' for s in sanity]} of the largest (bound "
+                f"{W8_SANITY})")
+            if not all(np.isfinite(a).all() for a in m8) or \
+                    max(sanity) > W8_SANITY:
+                fail(f"{tag}: the int8 maps are not near the bf16 maps")
+            del bf
+            # the card against the CPU on a copy of the card's tree
+            t1 = time.perf_counter()
+            if name == "roma":
+                card, host = _w8_roma_cut(
+                    api, _w8_conf(name, "int8", cmc), img0, img1)
+                errs = [float(np.median(np.abs(card[0] - host[0]))
+                              / np.abs(host[0]).max()),
+                        float(np.median(np.abs(card[1] - host[1]))),
+                        float(np.abs(card[2] - host[2]).mean())]
+                bound_ = [V_CPU_BF16, *W8_ROMA_CPU]
+            else:
+                with _drawn_on_the_card():
+                    cpu = ImageMatchingAPI(_w8_conf(name, "int8", cmc),
+                                           device="cpu")
+                size = V_CPU_RESIZE if pointmap else None
+                card = _w8_maps(api, img0, img1, size)
+                host = _w8_maps(cpu, img0, img1, size)
+                errs = [float(np.median(np.abs(g - w)) / np.abs(w).max())
+                        for g, w in zip(card, host)]
+                bound_ = [V_CPU_BF16, V_CPU_BF16]
+                del cpu
+            log(f"  {tag}: card against CPU: {[f'{e:.3g}' for e in errs]} "
+                f"(bounds {bound_}; " + ("a cut DINOv2 at 112^2: median "
+                "|token diff| of the largest, median |warp diff|, mean "
+                "|certainty diff|" if name == "roma" else
+                "median |diff| of the largest") + ")")
+            if not all(e <= b for e, b in zip(errs, bound_)):
+                fail(f"{tag}: the card and the CPU disagree: {errs}")
+            res["card_vs_cpu"] = {"errs": errs, "bounds": bound_,
+                                  "s": time.perf_counter() - t1}
+            res["int8_vs_bf16_maps"] = sanity
+            res["kernel_checks"] = {k: len(v) for k, v in checks.items()}
+            res["expected_launches"] = want
+            res["speedup_vs_bf16"] = (res["bf16"]["ms_per_request"]
+                                      / res["int8"]["ms_per_request"])
+            res["seconds"] = time.perf_counter() - t0
+            out[tag] = res
+        finally:
+            vit.ATTN_IMPL = "xla"
+        del api
+        torch.cuda.empty_cache()
+    bf16_api.clear()
+    torch.cuda.empty_cache()
+    return launches, out
+
+
+def _planted_canvas(seed):
+    """A planted LG_SIZE pair, gray in [0, 1] on a CANVAS x CANVAS canvas
+    (top left), with its homography."""
+    img0, img1, hm = synthetic_pair(seed, *LG_SIZE)
+    out = []
+    for im in (img0, img1):
+        c = np.zeros((CANVAS, CANVAS), np.float32)
+        c[:LG_SIZE[1], :LG_SIZE[0]] = im[..., 0] / 255.0
+        out.append(c)
+    return out[0], out[1], hm
+
+
+def _bf16_attention_over(got, want, v):
+    """K3/K4 bf16 launches against the plain version: (max |err|, outputs
+    past one bf16 step 2^-7 · max(1, |plain|), outputs past that plus one
+    bf16 step of one weight of P times max|v| (2^-8 · max|v|: the two
+    float32 softmaxes may round a weight at a bf16 edge apart))."""
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    step = 2.0 ** -7 * w.abs().clamp_min(1.0)
+    return (diff.max().item(), int((diff > step).sum()),
+            int((diff > step + 2.0 ** -8 * v.float().abs().max()).sum()),
+            diff.numel())
+
+
+def phase18_lightglue():
+    """LightGlue at the flagship operating point (BATCH planted pairs,
+    MAX_KPTS bf16 SuperPoint keypoints on the CANVAS canvas, the trained
+    N_LAYERS-layer tree) in float32 and in bf16: K3 and K4 launch in bf16
+    N_LAYERS times each per pair batch, every launch held against its
+    plain version (_bf16_attention_over; at most LG_OVER of the outputs
+    past one bf16 step, none past the P-rounding bound); both runs'
+    matches through RANSAC pass the planted gate; the IoU of the bf16
+    matches against the float32 ones and both forwards' times."""
+    import torch
+
+    from imcui_tpu_torch.models.extractors import superpoint as sp
+    from imcui_tpu_torch.models.matchers import lightglue as lg
+    from imcui_tpu_torch.ops import attention
+    from imcui_tpu_torch.ops import ransac as ransac_ops
+    from imcui_tpu_torch.pipeline import two_view
+
+    dev = torch.device("cuda")
+    params, meta = two_view.load_pretrained(n_layers=N_LAYERS, device=dev)
+    if not meta["lightglue"]["pretrained"]:
+        fail("phase 18: the trained LightGlue tree was not found")
+    pairs = [_planted_canvas(s) for s in LG_SEEDS]
+    im0 = torch.tensor(np.stack([p[0] for p in pairs])[:, None], device=dev)
+    im1 = torch.tensor(np.stack([p[1] for p in pairs])[:, None], device=dev)
+    valid = torch.tensor([LG_SIZE] * BATCH, dtype=torch.int32, device=dev)
+    with torch.inference_mode():
+        f = sp.apply(params["superpoint"], torch.cat([im0, im1]),
+                     torch.cat([valid, valid]), max_keypoints=MAX_KPTS,
+                     keypoint_threshold=0.0005, device=dev)
+    args = (params["lightglue"], f["keypoints"][:BATCH],
+            f["keypoints"][BATCH:], f["descriptors"][:BATCH].transpose(1, 2),
+            f["descriptors"][BATCH:].transpose(1, 2), f["mask"][:BATCH],
+            f["mask"][BATCH:], valid.float(), valid.float())
+
+    def run(precision):
+        with torch.inference_mode():
+            return lg.forward_pair(*args, device=dev, precision=precision)
+
+    run("bf16")  # warm-up
+    counts = {}
+    seen = _capture_kernel_args(lambda: run("bf16"), (
+        "fused_attention", "bidirectional_attention"), counts)
+    want = {"fused_attention": N_LAYERS, "bidirectional_attention": N_LAYERS}
+    if counts != want:
+        fail(f"phase 18 LightGlue bf16: launched {counts}, not {want}")
+    checks = {}
+    for name, calls in seen.items():
+        kernel = getattr(attention, name)
+        plain = getattr(attention, f"{name}_plain")
+        for a, kw in calls:
+            if a[0].dtype != torch.bfloat16:
+                fail(f"{name} took {a[0].dtype} in the bf16 forward")
+            got, ref = kernel(*a, **kw), plain(*a, **kw)
+            torch.cuda.synchronize()
+            vs = (a[2],) if name == "fused_attention" else (a[3], a[2])
+            for g, r, v in zip(*(x if isinstance(x, tuple) else (x,)
+                                 for x in (got, ref)), vs):
+                err, past, out_, n = _bf16_attention_over(g, r, v)
+                checks.setdefault(name, []).append(
+                    {"shape": "x".join(map(str, a[0].shape)),
+                     "max_abs_err": err, "past_step": past,
+                     "past_bound": out_, "outputs": n})
+                if out_ or past > LG_OVER * n:
+                    fail(f"{name} bf16 [{tuple(a[0].shape)}]: {past} of {n} "
+                         f"outputs past one bf16 step, {out_} past the "
+                         f"P-rounding bound")
+    del seen
+    for name, cs in checks.items():
+        log(f"  LightGlue bf16 {name}: {len(cs)} launches at "
+            f"{cs[0]['shape']} held: max |err| "
+            f"{max(c['max_abs_err'] for c in cs):.3g}, outputs past one bf16 "
+            f"step {sum(c['past_step'] for c in cs)} of "
+            f"{sum(c['outputs'] for c in cs)}, past the P-rounding bound 0")
+    res = {"kernel_checks": checks, "launches_per_batch": counts}
+    gen = torch.Generator(device=dev)
+    matches, launches = {}, {}
+    k34 = (attention.fused_attention, attention.bidirectional_attention)
+    for precision in ("fp32", "bf16"):
+        for fn in k34:
+            fn.launches = 0
+        ms = []
+        for _ in range(LG_REPS + 2):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            m = run(precision)
+            ev[1].record()
+            ev[1].synchronize()
+            ms.append(ev[0].elapsed_time(ev[1]))
+        ms = ms[2:]
+        for fn in k34:
+            if fn.launches != N_LAYERS * (LG_REPS + 2):
+                fail(f"LightGlue {precision}: {fn.__name__} launched "
+                     f"{fn.launches} times in {LG_REPS + 2} forwards")
+            key = fn.__name__ + ("[bf16]" if precision == "bf16" else "")
+            launches[key] = fn.launches + (
+                counts[fn.__name__] if precision == "bf16" else 0)
+        m0 = m["matches0"].long()
+        p1 = torch.gather(f["keypoints"][BATCH:], 1, m0.clamp(
+            0, MAX_KPTS - 1)[..., None].expand(-1, -1, 2))
+        gen.manual_seed(2)
+        ver = ransac_ops.ransac(f["keypoints"][:BATCH], p1, m0 > -1, gen,
+                                threshold=4.0, num_hypotheses=HYPOTHESES,
+                                device=dev)
+        gates = []
+        for i, (_, _, hm) in enumerate(pairs):
+            keep = ver["inliers"][i].cpu().numpy()
+            err = transfer_errors(hm, f["keypoints"][i].cpu().numpy()[keep],
+                                  p1[i].cpu().numpy()[keep])
+            med = float(np.median(err)) if len(err) else float("inf")
+            gates.append({"inliers": int(keep.sum()), "median_px": med})
+            if len(err) < GATE_MIN_INLIERS or med > GATE_MEDIAN_PX:
+                fail(f"phase 18 LightGlue {precision}, pair {i}: "
+                     f"{len(err)} inliers at a median {med:.3f} px (gate "
+                     f">= {GATE_MIN_INLIERS} at <= {GATE_MEDIAN_PX} px)")
+        matches[precision] = m0.cpu().numpy()
+        res[precision] = {"ms_median": float(np.median(ms)), "ms_runs": ms,
+                          "matches": int((m0 > -1).sum()), "gate": gates}
+        log(f"  LightGlue {precision} ({BATCH} pairs, {MAX_KPTS} keypoints, "
+            f"{N_LAYERS} layers): {np.median(ms):.3f} ms a forward (median "
+            f"of {LG_REPS}, CUDA events), {int((m0 > -1).sum())} matches; "
+            f"gate " + ", ".join(f"{g['inliers']} at {g['median_px']:.3f} px"
+                                 for g in gates))
+    both = {(b, i, j) for b, row in enumerate(matches["bf16"])
+            for i, j in enumerate(row) if j > -1}
+    ref = {(b, i, j) for b, row in enumerate(matches["fp32"])
+           for i, j in enumerate(row) if j > -1}
+    res["iou_bf16_vs_fp32"] = len(both & ref) / max(1, len(both | ref))
+    log(f"  LightGlue bf16 against fp32: match IoU "
+        f"{res['iou_bf16_vs_fp32']:.4f}")
+    return launches, res
+
+
+def phase18_times(peaks):
+    """The new kernels' rows: W8A8 linear at DUSt3R's fc1 (768 tokens of
+    1024 into 4096, bf16) and convolution at RoMa's VGG 256 -> 256 3 x 3 at
+    140 x 140 (bf16), K3 and K4 in bf16 at the flagship's LightGlue shapes;
+    each a median of 20 CUDA-event timings beside its plain version, its
+    library call and its bound."""
+    import torch
+
+    from imcui_tpu_torch.models import layers
+    from imcui_tpu_torch.ops import attention, w8a8
+
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    rows = []
+
+    def rnd(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    # linear
+    m, k, n = W8_LINEAR
+    q = layers.quantize_linear_int8({"w": rnd(n, k, dtype=torch.float32),
+                                     "b": rnd(n, dtype=torch.float32)})
+    x = rnd(m, k)
+    got = w8a8.linear_int8(x, q["w_q"], q["w_s"], q["b"])
+    want = w8a8.linear_int8_plain(x, q["w_q"], q["w_s"], q["b"])
+    if not torch.equal(got, want):
+        fail("linear_int8 differs from its plain version at the timed shape")
+    wt = q["w_q"].t()
+
+    def library():
+        xq, sx = w8a8.quantize_rows(x)
+        acc = torch._int_mm(xq, wt)
+        return (acc.float() * sx * q["w_s"] + q["b"]).to(x.dtype)
+
+    if not torch.equal(library(), want):
+        fail("torch._int_mm and the epilogue differ from the plain version")
+    t, by = bound(2.0 * m * n * k, 2 * m * k + n * k + 8 * n + 2 * m * n,
+                  peaks["int8"], peaks)
+    rows.append({
+        "name": "linear_int8", "route": "cuda",
+        "source": "imcui_tpu_torch/csrc/w8a8.cu",
+        "replaces": "none (XLA in the JAX package: "
+                    "imcui_tpu/models/layers.py:123 _linear_int8)",
+        "shape": f"{m}x{k} bf16 by {n}x{k} int8", "tolerance": "exact",
+        "max_abs_err": 0.0,
+        "ms": cuda_ms(lambda: w8a8.linear_int8(x, q["w_q"], q["w_s"],
+                                               q["b"])),
+        "plain_ms": cuda_ms(lambda: w8a8.linear_int8_plain(
+            x, q["w_q"], q["w_s"], q["b"])),
+        "library_ms": cuda_ms(library),
+        "library": "torch._int_mm and the epilogue",
+        "bound_ms": t, "bound_by": by})
+    # convolution
+    b, c, h, w, co = W8_CONV
+    q = layers.quantize_conv_int8({"w": rnd(co, c, 3, 3, dtype=torch.float32),
+                                   "b": rnd(co, dtype=torch.float32)})
+    x = rnd(b, c, h, w)
+    pad = ((1, 1), (1, 1))
+    got = w8a8.conv2d_int8(x, q["w_q"], q["w_s"], q["b"], 1, pad, 1, 1)
+    want = w8a8.conv2d_int8_plain(x, q["w_q"], q["w_s"], q["b"], 1, pad, 1, 1)
+    if not torch.equal(got, want):
+        fail("conv2d_int8 differs from its plain version at the timed shape")
+    mm, kk = b * h * w, c * 9
+    t, by = bound(2.0 * mm * co * kk, 2 * b * c * h * w + co * kk + 8 * co
+                  + 2 * mm * co, peaks["int8"], peaks)
+    rows.append({
+        "name": "conv2d_int8", "route": "cuda",
+        "source": "imcui_tpu_torch/csrc/w8a8.cu",
+        "replaces": "none (XLA in the JAX package: "
+                    "imcui_tpu/models/layers.py:150 _conv2d_int8)",
+        "shape": f"{b}x{c}x{h}x{w} bf16, 3x3 to {co}", "tolerance": "exact",
+        "max_abs_err": 0.0,
+        "ms": cuda_ms(lambda: w8a8.conv2d_int8(x, q["w_q"], q["w_s"],
+                                               q["b"], 1, pad, 1, 1)),
+        "plain_ms": cuda_ms(lambda: w8a8.conv2d_int8_plain(
+            x, q["w_q"], q["w_s"], q["b"], 1, pad, 1, 1)),
+        "library_ms": None, "library": "none on CUDA",
+        "bound_ms": t, "bound_by": by})
+    # K3 and K4 in bf16 at LightGlue's flagship shapes
+    nk = MAX_KPTS
+    mask = torch.ones((2 * BATCH, nk), dtype=torch.bool, device="cuda")
+    mask[1, nk * 2 // 3:] = False
+    s3 = 2 * BATCH * HEADS
+    q3, k3, v3 = rnd(s3, nk, 64), rnd(s3, nk, 64), rnd(s3, nk, 64)
+    e3 = _bf16_attention_over(
+        attention.fused_attention(q3, k3, v3, mask, HEADS),
+        attention.fused_attention_plain(q3, k3, v3, mask, HEADS), v3)
+    t, by = bound(4.0 * s3 * nk * nk * 64, 4 * s3 * nk * 64 * 2
+                  + 2 * BATCH * nk, peaks["bf16"], peaks)
+    lib = library_sdpa((q3, k3, v3, mask, HEADS))
+    rows.append({
+        "name": "fused_attention[bf16]", "route": "cuda",
+        "source": "imcui_tpu_torch/csrc/attention.cu",
+        "replaces": "imcui_tpu/ops/attention.py:263",
+        "shape": f"{s3}x{nk}x64 bf16", "max_abs_err": e3[0],
+        "tolerance": "2^-7*max(1,|plain|), P-rounding 2^-8*max|v|",
+        "ms": cuda_ms(lambda: attention.fused_attention(q3, k3, v3, mask,
+                                                        HEADS)),
+        "plain_ms": cuda_ms(lambda: attention.fused_attention_plain(
+            q3, k3, v3, mask, HEADS)),
+        "library_ms": lib["ms"], "library": f"SDPA ({lib['backend']})",
+        "bound_ms": t, "bound_by": by})
+    s4 = BATCH * HEADS
+    m0, m1 = mask[:BATCH], mask[BATCH:]
+    a0, a1, v0, v1 = (rnd(s4, nk, 64) for _ in range(4))
+    got = attention.bidirectional_attention(a0, a1, v0, v1, m0, m1, HEADS)
+    ref = attention.bidirectional_attention_plain(a0, a1, v0, v1, m0, m1,
+                                                  HEADS)
+    e4 = max(_bf16_attention_over(g, r, v)[0]
+             for g, r, v in zip(got, ref, (v1, v0)))
+    t, by = bound(s4 * 6.0 * nk * nk * 64, 6 * s4 * nk * 64 * 2
+                  + 2 * BATCH * nk, peaks["bf16"], peaks)
+    lib = library_sdpa((a0, a1, v1, m1, HEADS), (a1, a0, v0, m0, HEADS))
+    rows.append({
+        "name": "bidirectional_attention[bf16]", "route": "cuda",
+        "source": "imcui_tpu_torch/csrc/attention.cu",
+        "replaces": "imcui_tpu/ops/attention.py:385",
+        "shape": f"{s4}x{nk}x{nk}x64 bf16", "max_abs_err": e4,
+        "tolerance": "2^-7*max(1,|plain|), P-rounding 2^-8*max|v|",
+        "ms": cuda_ms(lambda: attention.bidirectional_attention(
+            a0, a1, v0, v1, m0, m1, HEADS)),
+        "plain_ms": cuda_ms(lambda: attention.bidirectional_attention_plain(
+            a0, a1, v0, v1, m0, m1, HEADS)),
+        "library_ms": lib["ms"], "library": f"SDPA ({lib['backend']})",
+        "bound_ms": t, "bound_by": by})
+    for r in rows:
+        log(f"  {r['name']} [{r['shape']}]: {r['ms']:.4f} ms (median of 20 "
+            f"CUDA-event timings), plain {r['plain_ms']:.4f}, library "
+            f"{r['library_ms']} ({r['library']}), bound {r['bound_ms']:.4f} "
+            f"({r['bound_by']}); max |err| {r['max_abs_err']:.3g}")
+    return rows
+
+
+def phase18(peaks):
+    """(a) W8A8 through the dense API, (b) LightGlue in bf16 at the
+    flagship, (c) the new kernels' times. Returns (rows, launches,
+    measurements)."""
+    t_phase = time.perf_counter()
+    fns = _wrappers(ALL_KERNELS + ("linear_int8", "conv2d_int8"))
+    launches, out = phase18_w8a8(synthetic_pair(Z_SEEDS[0], *Z_SIZE), fns)
+    more, out["lightglue_bf16"] = phase18_lightglue()
+    for n, c in more.items():
+        launches[n] = launches.get(n, 0) + c
+    rows = phase18_times(peaks)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase 18: {out['phase_s']:.1f} s")
+    return rows, launches, out
+
+
 def main():
     import torch
 
@@ -6403,6 +7003,10 @@ def main():
         "time, SfmEngine on JPEG views against PNG copies, the HTTP bodies)")
     launches_17, timing["jpeg"] = phase17(smi_line,
                                           timing["surfaces"]["jpeg"])
+    log("phase 18: W8A8 (precision int8: duster, mast3r, roma, dkm through "
+        "ImageMatchingAPI) and LightGlue in bf16 at the flagship")
+    rows_18, launches_18, timing["int8_bf16"] = phase18(peaks)
+    rows += rows_18
     for r in rows:
         by_path = {
             "turbo": launches.get(r["name"], 0),
@@ -6419,7 +7023,8 @@ def main():
             "zoo 14": launches_14.get(r["name"], 0),
             "batch": launches_15.get(r["name"], 0),
             "sfm": launches_16.get(r["name"], 0),
-            "jpeg": launches_17.get(r["name"], 0)}
+            "jpeg": launches_17.get(r["name"], 0),
+            "int8/bf16": launches_18.get(r["name"], 0)}
         r["launches_by_path"] = by_path
         r["launches"] = sum(by_path.values())
         if r["launches"] == 0:

@@ -1,4 +1,4 @@
-// LightGlue attention, f32: masked softmax(Q K^T / sqrt(dh)) V per head.
+// LightGlue attention, f32 and bf16: masked softmax(Q K^T / sqrt(dh)) V per head.
 //
 //   fused_attention_f32  replaces imcui_tpu/ops/attention.py:_fused_attn_pallas
 //                        (kernel _fused_attn_kernel): self-attention, one
@@ -12,6 +12,16 @@
 //                        both share the tile code; S is recomputed per
 //                        direction (a third more flops than the minimum) and
 //                        never written to memory.
+//   fused_attention_bf16, bidir_attention_bf16
+//                        the same two on bfloat16 q, k and v (LightGlue
+//                        with precision="bf16"): a second instance of the
+//                        tile that widens the inputs on load, normalises P
+//                        in float32 after a first pass over the keys, rounds
+//                        it once to bf16 as the JAX kernels do (p.astype(
+//                        q.dtype)), sums P V in float32 and rounds the
+//                        output once to bf16. The first pass recomputes
+//                        Q K^T, so a bf16 launch does about 1.5x the float32
+//                        launch's flops; no tensor core is used.
 //   flash_attention_f32  the float32 variants of K5, imcui_tpu/ops/
 //                        attention.py:_flash_pallas (kernel
 //                        _flash_attn_kernel), through flash_attention.cu's
@@ -72,6 +82,7 @@
 // builds that skip one part; PERF.md): the two product loops, each alone
 // well under the FMA peak, overlapping only in part.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <climits>
@@ -122,25 +133,40 @@ __device__ __forceinline__ float lane_of(const float4& f, int i) {
   return i == 0 ? f.x : i == 1 ? f.y : i == 2 ? f.z : f.w;
 }
 
+// bf16 element i (0 or 1) of a 32-bit pair, widened exactly.
+__device__ __forceinline__ float bf16_at(unsigned u, int i) {
+  return __uint_as_float(i == 0 ? u << 16 : u & 0xffff0000u);
+}
+
 // out[q0 : q0+BQ] = attention of q[q0 : q0+BQ] over (k, v) with key mask
 // (null: all valid).
 //
-// The running maximum starts at -inf, where K5's contract starts it at the
-// finite -1e9: the two give the same result. Key k0 exists, so after the
-// first tile m >= that tile's largest logit, which is at least -1e9 (a
-// masked logit; a real logit below -1e9 needs inputs of norm ~1e5), and
-// the first tile's rescale exp2(-inf - m) = 0 meets l = 0 and o = 0 either
-// way. A row whose keys are all masked then has m = NEG2 (-1e9 in base 2)
-// and weighs each key exp2(0) = 1: the mean of V.
-template <int QR, int D, int BK>
-__device__ void attend(const float* __restrict__ q, const float* __restrict__ k,
-                       const float* __restrict__ v,
+// float32 (T = float): one pass, online softmax. The running maximum
+// starts at -inf, where K5's contract starts it at the finite -1e9: the
+// two give the same result. Key k0 exists, so after the first tile
+// m >= that tile's largest logit, which is at least -1e9 (a masked logit;
+// a real logit below -1e9 needs inputs of norm ~1e5), and the first
+// tile's rescale exp2(-inf - m) = 0 meets l = 0 and o = 0 either way. A
+// row whose keys are all masked then has m = NEG2 (-1e9 in base 2) and
+// weighs each key exp2(0) = 1: the mean of V.
+//
+// bfloat16 (T = __nv_bfloat16): q, k and v are widened to float32 as they
+// are loaded (plain 16-byte loads; the cp.async ring is float32's), and
+// the JAX kernel's rounding points are kept: P is normalised in float32
+// and rounded once to bf16 before P V (attention.py:256, :352, :361),
+// whose sums are float32, and the output is rounded once to bf16. A
+// first pass over the key tiles finds each row's maximum and sum; the
+// second recomputes the logits, writes bf16(exp2(s - m) / l) and reads V.
+template <int QR, int D, int BK, typename T>
+__device__ void attend(const T* __restrict__ q, const T* __restrict__ k,
+                       const T* __restrict__ v,
                        const uint8_t* __restrict__ kmask,
-                       float* __restrict__ out, int nq, int nk, int q0,
+                       T* __restrict__ out, int nq, int nk, int q0,
                        float* smem) {
-  using T = Tile<QR, D, BK>;
-  constexpr int BQ = T::BQ, LDQ = T::LDQ, LDP = T::LDP;
-  constexpr float SCALE2 = T::SCALE2;
+  constexpr bool BF = std::is_same<T, __nv_bfloat16>::value;
+  using Tl = Tile<QR, D, BK>;
+  constexpr int BQ = Tl::BQ, LDQ = Tl::LDQ, LDP = Tl::LDP;
+  constexpr float SCALE2 = Tl::SCALE2;
   constexpr int KJ = BK / 8;  // keys per thread in the logit tile
   constexpr int G = D / 32;   // float4 groups of a thread's output columns
   float* Qs = smem;
@@ -152,38 +178,31 @@ __device__ void attend(const float* __restrict__ q, const float* __restrict__ k,
   const int row0 = (tid / 32) * 4 * QR + qg;  // this thread's rows: row0 + 4i
 
   // rows [r0, r0 + rows) of x (n rows) into dst; rows past n zero-filled
-  auto load = [&](float* dst, const float* x, int r0, int rows, int n) {
-    for (int c = tid; c < rows * (D / 4); c += THREADS) {
-      const int r = c / (D / 4), col = (c % (D / 4)) * 4;
-      const bool in = r0 + r < n;
-      cp_async16(dst + r * LDQ + col, x + size_t(in ? r0 + r : 0) * D + col,
-                 in);
+  auto load = [&](float* dst, const T* x, int r0, int rows, int n) {
+    if constexpr (BF) {
+      for (int c = tid; c < rows * (D / 8); c += THREADS) {
+        const int r = c / (D / 8), col = (c % (D / 8)) * 8;
+        uint4 u = make_uint4(0u, 0u, 0u, 0u);
+        if (r0 + r < n)
+          u = *reinterpret_cast<const uint4*>(x + size_t(r0 + r) * D + col);
+        float* d = dst + r * LDQ + col;
+        *reinterpret_cast<float4*>(d) = make_float4(
+            bf16_at(u.x, 0), bf16_at(u.x, 1), bf16_at(u.y, 0), bf16_at(u.y, 1));
+        *reinterpret_cast<float4*>(d + 4) = make_float4(
+            bf16_at(u.z, 0), bf16_at(u.z, 1), bf16_at(u.w, 0), bf16_at(u.w, 1));
+      }
+    } else {
+      for (int c = tid; c < rows * (D / 4); c += THREADS) {
+        const int r = c / (D / 4), col = (c % (D / 4)) * 4;
+        const bool in = r0 + r < n;
+        cp_async16(dst + r * LDQ + col, x + size_t(in ? r0 + r : 0) * D + col,
+                   in);
+      }
     }
   };
-  load(Qs, q, q0, BQ, nq);
-  load(Ks, k, 0, BK, nk);
-  cp_async_commit();  // group: Q and K of tile 0
-  load(Vs, v, 0, BK, nk);
-  cp_async_commit();  // group: V of tile 0
 
-  float o[QR][4 * G], m[QR], l[QR];
-#pragma unroll
-  for (int i = 0; i < QR; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-#pragma unroll
-    for (int e = 0; e < 4 * G; ++e) o[i][e] = 0.f;
-  }
-
-  // K and V have one buffer each: K of tile t+1 lands during tile t's P V,
-  // V of tile t+1 during tile t+1's Q K^T.
-  const int tiles = (nk + BK - 1) / BK;
-  for (int t = 0; t < tiles; ++t) {
-    const int k0 = t * BK;
-    cp_async_wait<1>();  // K of tile t (V of tile t may be in flight)
-    __syncthreads();
-
-    float s[QR][KJ];
+  // s = Q K^T of this thread's rows against its keys of the tile in Ks
+  auto logits = [&](float (&s)[QR][KJ]) {
 #pragma unroll
     for (int i = 0; i < QR; ++i)
 #pragma unroll
@@ -209,42 +228,120 @@ __device__ void attend(const float* __restrict__ q, const float* __restrict__ k,
         }
       }
     }
+  };
+
+  // row i's logits of key tile k0 in base 2: keys past nk do not exist,
+  // masked keys take the finite -1e9; returns the tile's row maximum
+  // (over the 8 lanes of the row)
+  auto scaled = [&](auto with_mask, float (&s)[QR][KJ], int i, int k0) {
+    constexpr bool MASK = decltype(with_mask)::value;
+    float tmax = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < KJ; ++j) {
+      const int key = k0 + kg + 8 * j;
+      s[i][j] = key >= nk                  ? -INFINITY
+                : (!MASK || kmask[key]) ? s[i][j] * SCALE2
+                                           : NEG2;
+      tmax = fmaxf(tmax, s[i][j]);
+    }
+#pragma unroll
+    for (int off = 1; off < 8; off *= 2)
+      tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, off));
+    return tmax;
+  };
+
+  float o[QR][4 * G], m[QR], l[QR];
+#pragma unroll
+  for (int i = 0; i < QR; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+#pragma unroll
+    for (int e = 0; e < 4 * G; ++e) o[i][e] = 0.f;
+  }
+  const int tiles = (nk + BK - 1) / BK;
+
+  if constexpr (BF) {
+    // first pass: each row's maximum and sum over every key tile
+    load(Qs, q, q0, BQ, nq);
+    for (int t = 0; t < tiles; ++t) {
+      const int k0 = t * BK;
+      __syncthreads();  // the last tile's readers are done with Ks
+      load(Ks, k, k0, BK, nk);
+      __syncthreads();
+      float s[QR][KJ];
+      logits(s);
+      auto stats = [&](auto with_mask) {
+#pragma unroll
+        for (int i = 0; i < QR; ++i) {
+          const float m_new = fmaxf(m[i], scaled(with_mask, s, i, k0));
+          float rsum = 0.f;
+#pragma unroll
+          for (int j = 0; j < KJ; ++j) rsum += exp2f(s[i][j] - m_new);
+          l[i] = l[i] * exp2f(m[i] - m_new) + rsum;
+          m[i] = m_new;
+        }
+      };
+      if (kmask != nullptr)
+        stats(std::true_type{});
+      else
+        stats(std::false_type{});
+    }
+#pragma unroll
+    for (int i = 0; i < QR; ++i)
+#pragma unroll
+      for (int off = 1; off < 8; off *= 2)
+        l[i] += __shfl_xor_sync(0xffffffffu, l[i], off);
+    __syncthreads();  // Ks is free again
+    load(Ks, k, 0, BK, nk);
+    load(Vs, v, 0, BK, nk);
+  } else {
+    load(Qs, q, q0, BQ, nq);
+    load(Ks, k, 0, BK, nk);
+    cp_async_commit();  // group: Q and K of tile 0
+    load(Vs, v, 0, BK, nk);
+    cp_async_commit();  // group: V of tile 0
+  }
+
+  // K and V have one buffer each: K of tile t+1 lands during tile t's P V,
+  // V of tile t+1 during tile t+1's Q K^T.
+  for (int t = 0; t < tiles; ++t) {
+    const int k0 = t * BK;
+    cp_async_wait<1>();  // K of tile t (V of tile t may be in flight)
+    __syncthreads();
+
+    float s[QR][KJ];
+    logits(s);
 
     // The row softmax, in two copies: with a key mask and without. The
     // mask's null test is hoisted by hand: left to the compiler, it was
     // hoisted in K3's kernel and not in K4's, whose per-key test cost 7 %.
     auto softmax = [&](auto with_mask) {
-      constexpr bool MASK = decltype(with_mask)::value;
 #pragma unroll
       for (int i = 0; i < QR; ++i) {
-        float tmax = -INFINITY;
+        [[maybe_unused]] const float tmax = scaled(with_mask, s, i, k0);
+        if constexpr (BF) {
+          // the first pass's maximum and sum: normalised, then bf16
 #pragma unroll
-        for (int j = 0; j < KJ; ++j) {
-          // keys past nk do not exist; masked keys take the finite -1e9
-          const int key = k0 + kg + 8 * j;
-          s[i][j] = key >= nk                  ? -INFINITY
-                    : (!MASK || kmask[key]) ? s[i][j] * SCALE2
-                                               : NEG2;
-          tmax = fmaxf(tmax, s[i][j]);
+          for (int j = 0; j < KJ; ++j)
+            Ps[(row0 + 4 * i) * LDP + kg + 8 * j] = __bfloat162float(
+                __float2bfloat16_rn(__fdiv_rn(exp2f(s[i][j] - m[i]), l[i])));
+        } else {
+          // key k0 exists, so m_new is finite; exp2f(-inf) = 0 on the
+          // first tile
+          const float m_new = fmaxf(m[i], tmax);
+          const float alpha = exp2f(m[i] - m_new);
+          float rsum = 0.f;
+#pragma unroll
+          for (int j = 0; j < KJ; ++j) {
+            const float p = exp2f(s[i][j] - m_new);
+            rsum += p;
+            Ps[(row0 + 4 * i) * LDP + kg + 8 * j] = p;
+          }
+          l[i] = l[i] * alpha + rsum;  // this lane's share of the row sum
+          m[i] = m_new;
+#pragma unroll
+          for (int e = 0; e < 4 * G; ++e) o[i][e] *= alpha;
         }
-#pragma unroll
-        for (int off = 1; off < 8; off *= 2)
-          tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, off));
-        // key k0 exists, so m_new is finite; exp2f(-inf) = 0 on the first
-        // tile
-        const float m_new = fmaxf(m[i], tmax);
-        const float alpha = exp2f(m[i] - m_new);
-        float rsum = 0.f;
-#pragma unroll
-        for (int j = 0; j < KJ; ++j) {
-          const float p = exp2f(s[i][j] - m_new);
-          rsum += p;
-          Ps[(row0 + 4 * i) * LDP + kg + 8 * j] = p;
-        }
-        l[i] = l[i] * alpha + rsum;  // this lane's share of the row sum
-        m[i] = m_new;
-#pragma unroll
-        for (int e = 0; e < 4 * G; ++e) o[i][e] *= alpha;
       }
     };
     if (kmask != nullptr)
@@ -291,47 +388,63 @@ __device__ void attend(const float* __restrict__ q, const float* __restrict__ k,
 
 #pragma unroll
   for (int i = 0; i < QR; ++i) {
-    float sum = l[i];
-#pragma unroll
-    for (int off = 1; off < 8; off *= 2)
-      sum += __shfl_xor_sync(0xffffffffu, sum, off);
     const int r = q0 + row0 + 4 * i;
-    if (r < nq) {
-      float* dst = out + size_t(r) * D + 4 * kg;
+    if constexpr (BF) {
+      if (r < nq) {
+        __nv_bfloat16* dst = out + size_t(r) * D + 4 * kg;
 #pragma unroll
-      for (int g = 0; g < G; ++g)
-        *reinterpret_cast<float4*>(dst + 32 * g) =
-            make_float4(o[i][4 * g] / sum, o[i][4 * g + 1] / sum,
-                        o[i][4 * g + 2] / sum, o[i][4 * g + 3] / sum);
+        for (int g = 0; g < G; ++g) {
+          const __nv_bfloat162 lo =
+              __floats2bfloat162_rn(o[i][4 * g], o[i][4 * g + 1]);
+          const __nv_bfloat162 hi =
+              __floats2bfloat162_rn(o[i][4 * g + 2], o[i][4 * g + 3]);
+          *reinterpret_cast<uint2*>(dst + 32 * g) =
+              make_uint2(*reinterpret_cast<const unsigned*>(&lo),
+                         *reinterpret_cast<const unsigned*>(&hi));
+        }
+      }
+    } else {
+      float sum = l[i];
+#pragma unroll
+      for (int off = 1; off < 8; off *= 2)
+        sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      if (r < nq) {
+        float* dst = out + size_t(r) * D + 4 * kg;
+#pragma unroll
+        for (int g = 0; g < G; ++g)
+          *reinterpret_cast<float4*>(dst + 32 * g) =
+              make_float4(o[i][4 * g] / sum, o[i][4 * g + 1] / sum,
+                          o[i][4 * g + 2] / sum, o[i][4 * g + 3] / sum);
+      }
     }
   }
 }
 
 // One block per (head-sequence, query tile), head-sequence major; bh reads
 // mask row bh / heads. K3 (nq = nk, D 64) and K5's float32 variants.
-template <int QR, int D, int BK>
+template <int QR, int D, int BK, typename T = float>
 __global__ void __launch_bounds__(THREADS, 2)
-attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, const uint8_t* __restrict__ mask,
-                 float* __restrict__ out, int nq, int nk, int heads,
+attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, const uint8_t* __restrict__ mask,
+                 T* __restrict__ out, int nq, int nk, int heads,
                  int tiles) {
   extern __shared__ __align__(16) float smem[];
   const int bh = blockIdx.x / tiles;
   const int q0 = (blockIdx.x % tiles) * Tile<QR, D, BK>::BQ;
-  attend<QR, D, BK>(q + size_t(bh) * nq * D, k + size_t(bh) * nk * D,
-                    v + size_t(bh) * nk * D,
-                    mask ? mask + size_t(bh / heads) * nk : nullptr,
-                    out + size_t(bh) * nq * D, nq, nk, q0, smem);
+  attend<QR, D, BK, T>(q + size_t(bh) * nq * D, k + size_t(bh) * nk * D,
+                       v + size_t(bh) * nk * D,
+                       mask ? mask + size_t(bh / heads) * nk : nullptr,
+                       out + size_t(bh) * nq * D, nq, nk, q0, smem);
 }
 
 // Blocks [0, BH * tiles0) give O0 (N rows), the rest O1 (M rows).
-template <int QR>
+template <int QR, typename T = float>
 __global__ void __launch_bounds__(THREADS, 2)
-bidir_attention_kernel(const float* __restrict__ a0, const float* __restrict__ a1,
-                       const float* __restrict__ v0, const float* __restrict__ v1,
+bidir_attention_kernel(const T* __restrict__ a0, const T* __restrict__ a1,
+                       const T* __restrict__ v0, const T* __restrict__ v1,
                        const uint8_t* __restrict__ m0,
-                       const uint8_t* __restrict__ m1, float* __restrict__ o0,
-                       float* __restrict__ o1, int N, int M, int heads,
+                       const uint8_t* __restrict__ m1, T* __restrict__ o0,
+                       T* __restrict__ o1, int N, int M, int heads,
                        int tiles0, int tiles1, int BH) {
   extern __shared__ __align__(16) float smem[];
   // one call site, so the tile's code is in the kernel once
@@ -341,12 +454,12 @@ bidir_attention_kernel(const float* __restrict__ a0, const float* __restrict__ a
   const int bh = item / tiles, q0 = (item % tiles) * Tile<QR, 64, 64>::BQ;
   const int nq = first ? N : M, nk = first ? M : N;
   const uint8_t* km = first ? m1 : m0;
-  attend<QR, 64, 64>((first ? a0 : a1) + size_t(bh) * nq * 64,
-                     (first ? a1 : a0) + size_t(bh) * nk * 64,
-                     (first ? v1 : v0) + size_t(bh) * nk * 64,
-                     km ? km + size_t(bh / heads) * nk : nullptr,
-                     (first ? o0 : o1) + size_t(bh) * nq * 64, nq, nk, q0,
-                     smem);
+  attend<QR, 64, 64, T>((first ? a0 : a1) + size_t(bh) * nq * 64,
+                        (first ? a1 : a0) + size_t(bh) * nk * 64,
+                        (first ? v1 : v0) + size_t(bh) * nk * 64,
+                        km ? km + size_t(bh / heads) * nk : nullptr,
+                        (first ? o0 : o1) + size_t(bh) * nq * 64, nq, nk, q0,
+                        smem);
 }
 
 // Raises the kernel's shared-memory limit and reads the blocks an SM holds.
@@ -360,11 +473,16 @@ cudaError_t fit(Kernel kernel, size_t smem, int* per_sm) {
   return e;
 }
 
+// Both types' kernels at one height; per_sm is float32's K3.
 template <int QR>
 cudaError_t fit_dh64(int* per_sm) {
+  using BF = __nv_bfloat16;
   int unused = 0;
   constexpr size_t SMEM = Tile<QR, 64, 64>::SMEM;
   cudaError_t e = fit(bidir_attention_kernel<QR>, SMEM, &unused);
+  if (e == cudaSuccess) e = fit(bidir_attention_kernel<QR, BF>, SMEM, &unused);
+  if (e == cudaSuccess)
+    e = fit(attention_kernel<QR, 64, 64, BF>, SMEM, &unused);
   return e == cudaSuccess ? fit(attention_kernel<QR, 64, 64>, SMEM, per_sm)
                           : e;
 }
@@ -441,53 +559,52 @@ bool misaligned(std::initializer_list<const void*> ptrs) {
   return false;
 }
 
-template <int QR, int D, int BK>
+template <int QR, int D, int BK, typename T = float>
 void launch_self(const Plan& p, const void* q, const void* k, const void* v,
                  const void* mask, void* out, int nq, int nk, int heads,
                  cudaStream_t stream) {
-  attention_kernel<QR, D, BK><<<unsigned(p.blocks), THREADS,
-                                Tile<QR, D, BK>::SMEM, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const uint8_t*>(mask),
-      static_cast<float*>(out), nq, nk, heads, p.tiles0);
+  attention_kernel<QR, D, BK, T><<<unsigned(p.blocks), THREADS,
+                                   Tile<QR, D, BK>::SMEM, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const uint8_t*>(mask),
+      static_cast<T*>(out), nq, nk, heads, p.tiles0);
 }
 
-template <int QR>
+template <int QR, typename T = float>
 void launch_bidir(const Plan& p, const void* a0, const void* a1,
                   const void* v0, const void* v1, const void* m0,
                   const void* m1, void* o0, void* o1, int BH, int N, int M,
                   int heads, cudaStream_t stream) {
-  bidir_attention_kernel<QR><<<unsigned(p.blocks), THREADS,
-                               Tile<QR, 64, 64>::SMEM, stream>>>(
-      static_cast<const float*>(a0), static_cast<const float*>(a1),
-      static_cast<const float*>(v0), static_cast<const float*>(v1),
+  bidir_attention_kernel<QR, T><<<unsigned(p.blocks), THREADS,
+                                  Tile<QR, 64, 64>::SMEM, stream>>>(
+      static_cast<const T*>(a0), static_cast<const T*>(a1),
+      static_cast<const T*>(v0), static_cast<const T*>(v1),
       static_cast<const uint8_t*>(m0), static_cast<const uint8_t*>(m1),
-      static_cast<float*>(o0), static_cast<float*>(o1), N, M, heads,
-      p.tiles0, p.tiles1, BH);
+      static_cast<T*>(o0), static_cast<T*>(o1), N, M, heads, p.tiles0,
+      p.tiles1, BH);
 }
 
-// Self-attention of BH head-sequences at head dim dh (64 or 128), Nq
-// queries over Nk keys; the plan's height for dh 64.
+// Self-attention of BH head-sequences at head dim dh (64 or 128; 64 only
+// in bf16), Nq queries over Nk keys; the plan's height for dh 64.
+template <typename T = float>
 int launch_self_any(const Plan& p, const void* q, const void* k,
                     const void* v, const void* mask, void* out, int nq,
                     int nk, int heads, int dh, cudaStream_t s) {
   if (dh == 128)
     launch_self<QR128, 128, BK128>(p, q, k, v, mask, out, nq, nk, heads, s);
   else if (p.qr == 8)
-    launch_self<8, 64, 64>(p, q, k, v, mask, out, nq, nk, heads, s);
+    launch_self<8, 64, 64, T>(p, q, k, v, mask, out, nq, nk, heads, s);
   else if (p.qr == 7)
-    launch_self<7, 64, 64>(p, q, k, v, mask, out, nq, nk, heads, s);
+    launch_self<7, 64, 64, T>(p, q, k, v, mask, out, nq, nk, heads, s);
   else
-    launch_self<4, 64, 64>(p, q, k, v, mask, out, nq, nk, heads, s);
+    launch_self<4, 64, 64, T>(p, q, k, v, mask, out, nq, nk, heads, s);
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-// mask may be null (every key valid).
-extern "C" int fused_attention_f32(const void* q, const void* k, const void* v,
-                                   const void* mask, void* out, int BH, int N,
-                                   int heads, void* stream) {
+// K3: mask may be null (every key valid).
+template <typename T>
+int fused(const void* q, const void* k, const void* v, const void* mask,
+          void* out, int BH, int N, int heads, void* stream) {
   if (BH < 1 || N < 1) return 0;
   if (misaligned({q, k, v, out}))
     return static_cast<int>(cudaErrorMisalignedAddress);
@@ -496,16 +613,15 @@ extern "C" int fused_attention_f32(const void* q, const void* k, const void* v,
   if (e != cudaSuccess) return static_cast<int>(e);
   const Plan p = choose(BH, N, N, false, card.sms);
   if (p.blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_self_any(p, q, k, v, mask, out, N, N, heads, 64,
-                         static_cast<cudaStream_t>(stream));
+  return launch_self_any<T>(p, q, k, v, mask, out, N, N, heads, 64,
+                            static_cast<cudaStream_t>(stream));
 }
 
-// m0 and m1 may be null (every key valid).
-extern "C" int bidir_attention_f32(const void* a0, const void* a1,
-                                   const void* v0, const void* v1,
-                                   const void* m0, const void* m1, void* o0,
-                                   void* o1, int BH, int N, int M, int heads,
-                                   void* stream) {
+// K4: m0 and m1 may be null (every key valid).
+template <typename T>
+int bidir(const void* a0, const void* a1, const void* v0, const void* v1,
+          const void* m0, const void* m1, void* o0, void* o1, int BH, int N,
+          int M, int heads, void* stream) {
   if (BH < 1 || N < 1 || M < 1) return 0;
   if (misaligned({a0, a1, v0, v1, o0, o1}))
     return static_cast<int>(cudaErrorMisalignedAddress);
@@ -516,11 +632,43 @@ extern "C" int bidir_attention_f32(const void* a0, const void* a1,
   if (p.blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
   switch (p.qr) {
-    case 8: launch_bidir<8>(p, a0, a1, v0, v1, m0, m1, o0, o1, BH, N, M, heads, s); break;
-    case 7: launch_bidir<7>(p, a0, a1, v0, v1, m0, m1, o0, o1, BH, N, M, heads, s); break;
-    default: launch_bidir<4>(p, a0, a1, v0, v1, m0, m1, o0, o1, BH, N, M, heads, s); break;
+    case 8: launch_bidir<8, T>(p, a0, a1, v0, v1, m0, m1, o0, o1, BH, N, M, heads, s); break;
+    case 7: launch_bidir<7, T>(p, a0, a1, v0, v1, m0, m1, o0, o1, BH, N, M, heads, s); break;
+    default: launch_bidir<4, T>(p, a0, a1, v0, v1, m0, m1, o0, o1, BH, N, M, heads, s); break;
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int fused_attention_f32(const void* q, const void* k, const void* v,
+                                   const void* mask, void* out, int BH, int N,
+                                   int heads, void* stream) {
+  return fused<float>(q, k, v, mask, out, BH, N, heads, stream);
+}
+
+extern "C" int fused_attention_bf16(const void* q, const void* k,
+                                    const void* v, const void* mask, void* out,
+                                    int BH, int N, int heads, void* stream) {
+  return fused<__nv_bfloat16>(q, k, v, mask, out, BH, N, heads, stream);
+}
+
+extern "C" int bidir_attention_f32(const void* a0, const void* a1,
+                                   const void* v0, const void* v1,
+                                   const void* m0, const void* m1, void* o0,
+                                   void* o1, int BH, int N, int M, int heads,
+                                   void* stream) {
+  return bidir<float>(a0, a1, v0, v1, m0, m1, o0, o1, BH, N, M, heads,
+                      stream);
+}
+
+extern "C" int bidir_attention_bf16(const void* a0, const void* a1,
+                                    const void* v0, const void* v1,
+                                    const void* m0, const void* m1, void* o0,
+                                    void* o1, int BH, int N, int M, int heads,
+                                    void* stream) {
+  return bidir<__nv_bfloat16>(a0, a1, v0, v1, m0, m1, o0, o1, BH, N, M,
+                              heads, stream);
 }
 
 // K5 in float32 (flash_attention.cu's entry point): q, out (BH, Nq, dh); k,

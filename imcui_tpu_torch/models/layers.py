@@ -14,6 +14,13 @@ import contextlib
 import torch
 import torch.nn.functional as F
 
+from ..ops import w8a8
+
+
+# the serving precisions that run the models' images in bfloat16 (the JAX
+# wrappers' ("bf16", "int8"))
+LOW_PRECISIONS = ("bf16", "bfloat16", "int8")
+
 
 @contextlib.contextmanager
 def full_fp32():
@@ -33,25 +40,45 @@ def full_fp32():
         torch.backends.cuda.matmul.allow_tf32 = mm
 
 
+def _explicit_padding(padding, kh, kw, dilation):
+    """((top, bottom), (left, right)) of ``padding``: "SAME" is
+    torch-symmetric ``k//2`` padding of the dilated kernel, "VALID" none,
+    and a pair of pairs is taken as it is."""
+    d = w8a8._pair(dilation)
+    if padding == "SAME":
+        eh, ew = (kh - 1) * d[0] + 1, (kw - 1) * d[1] + 1
+        return (eh // 2, eh // 2), (ew // 2, ew // 2)
+    if padding == "VALID":
+        return (0, 0), (0, 0)
+    if not isinstance(padding, str):
+        (pt, pb), (pl, pr) = padding
+        return (int(pt), int(pb)), (int(pl), int(pr))
+    raise ValueError(f"padding is 'SAME', 'VALID' or ((top, bottom), (left, "
+                     f"right)), not {padding!r}")
+
+
 def conv2d(p, x, stride=1, dilation=1, padding="SAME", groups=1):
     """2-D convolution. p: {"w": (cout, cin/groups, kh, kw), "b": (cout,)?};
     x: (B, C, H, W). ``padding="SAME"`` is torch-symmetric ``k//2`` padding;
-    ``"VALID"`` pads nothing (a ViT patch embed: k × k at stride k).
+    ``"VALID"`` pads nothing (a ViT patch embed: k × k at stride k); a pair
+    of pairs ((top, bottom), (left, right)) pads as it says.
 
     The weight dtype sets the compute dtype (a bf16 parameter tree makes
     the conv bf16); the bias is added after the convolution, in that
-    dtype, as the JAX layer does."""
+    dtype, as the JAX layer does. A dict quantised by
+    ``quantize_conv_int8`` (key "w_q") takes the W8A8 route
+    (``ops.w8a8.conv2d_int8``) with x as it comes, and returns x's type."""
+    wt = p["w_q"] if "w_q" in p else p["w"]
+    (pt, pb), (pl, pr) = _explicit_padding(padding, *wt.shape[-2:], dilation)
+    if "w_q" in p:
+        return w8a8.conv2d_int8(x, p["w_q"], p["w_s"], p.get("b"), stride,
+                                ((pt, pb), (pl, pr)), dilation, groups)
     w = p["w"]
     if x.dtype != w.dtype:
         x = x.to(w.dtype)
-    kh, kw = w.shape[-2:]
-    if padding == "SAME":
-        pad = (((kh - 1) * dilation + 1) // 2, ((kw - 1) * dilation + 1) // 2)
-    elif padding == "VALID":
-        pad = 0
-    else:
-        raise ValueError(f"padding is 'SAME' or 'VALID', not {padding!r}")
-    out = F.conv2d(x, w, stride=stride, padding=pad, dilation=dilation,
+    if (pt, pl) != (pb, pr):
+        x, pt, pl = F.pad(x, (pl, pr, pt, pb)), 0, 0
+    out = F.conv2d(x, w, stride=stride, padding=(pt, pl), dilation=dilation,
                    groups=groups)
     if p.get("b") is not None:
         out = out + p["b"].view(1, -1, 1, 1)
@@ -82,13 +109,46 @@ def depthwise_conv(p, x):
 def linear(p, x):
     """p: {"w": (dout, din), "b": (dout,)?}; x: (..., din). Where the two
     dtypes differ (float32 tokens through a bf16 tree) both are promoted to
-    the wider one, as ``x @ w`` is in the JAX layer."""
+    the wider one, as ``x @ w`` is in the JAX layer. A dict quantised by
+    ``quantize_linear_int8`` (key "w_q") takes the W8A8 route
+    (``ops.w8a8.linear_int8``) and returns x's type."""
+    if "w_q" in p:
+        return w8a8.linear_int8(x, p["w_q"], p["w_s"], p.get("b"))
     w, b = p["w"], p.get("b")
     if x.dtype != w.dtype:
         dtype = torch.promote_types(x.dtype, w.dtype)
         x, w = x.to(dtype), w.to(dtype)
         b = b.to(dtype) if b is not None else None
     return F.linear(x, w, b)
+
+
+def _quantized(p, scale, q):
+    out = {"w_q": q, "w_s": scale}
+    if p.get("b") is not None:
+        out["b"] = p["b"]
+    return out
+
+
+def quantize_linear_int8(p):
+    """Symmetric per-output-channel int8 quantisation of a linear dict
+    {"w": (dout, din), "b"?} → {"w_q": int8 (dout, din), "w_s": float32
+    (dout,), "b"?}: s = max(max|w| over din, 1e-12) / 127, w_q =
+    clip(round_half_even(w / s), -127, 127), from the float32 weights. The
+    bias is kept as it is."""
+    w = p["w"].float()
+    s = w.abs().amax(1).clamp_min(1e-12) / 127.0
+    return _quantized(p, s, torch.round(w / s[:, None]).clamp(-127, 127)
+                      .to(torch.int8))
+
+
+def quantize_conv_int8(p):
+    """The same for a convolution dict {"w": (cout, cin/groups, kh, kw),
+    "b"?}: one scale per output channel, over (cin/groups, kh, kw), the
+    axes the JAX layout orders (kh, kw, cin)."""
+    w = p["w"].float()
+    s = w.abs().amax((1, 2, 3)).clamp_min(1e-12) / 127.0
+    return _quantized(p, s, torch.round(w / s.view(-1, 1, 1, 1))
+                      .clamp(-127, 127).to(torch.int8))
 
 
 def xla_mean3(x, dim):
@@ -126,23 +186,42 @@ def l2_normalize(x, dim=-1, eps=1e-8):
         eps)
 
 
-def apply_precision(tree, precision):
-    """Serving-time precision of a whole parameter tree: ``None``/"f32"
-    leaves it alone, "bf16" casts every floating leaf to bfloat16 (the ops
-    that need float32 widen inside: LayerNorm statistics, the depthwise
-    accumulation, attention logits). "int8", the JAX package's W8A8 path
-    for wide linears, is not ported (ROADMAP.md, queue A)."""
+def apply_precision(tree, precision, min_dim=256, conv_min_ch=None):
+    """Serving-time precision of a whole parameter tree, the JAX package's
+    rules:
+
+    - ``None``/"f32": the tree as it is;
+    - "bf16": every floating leaf cast to bfloat16 (the ops that need
+      float32 widen inside: LayerNorm statistics, the depthwise
+      accumulation, attention logits);
+    - "int8" (W8A8): every dict {"w", "b"?} whose ``w`` is 2-D with
+      min(dout, din) >= ``min_dim`` quantised by ``quantize_linear_int8``
+      and, where ``conv_min_ch`` is given, every such dict whose ``w`` is
+      4-D with min(cout, cin/groups) >= ``conv_min_ch`` by
+      ``quantize_conv_int8`` (depthwise kernels, cin/groups = 1, stay out
+      above 1), both from the float32 weights; ``w_s`` and the bias of a
+      quantised dict stay float32 and every other floating leaf is cast
+      to bfloat16.
+
+    A quantised dict has no "w": a function that reads one (the DPT's
+    transposed convolutions, RoMa's and DKM's ``pos_conv``, the depthwise
+    convolution) raises ``KeyError`` where the threshold takes its dict,
+    as in the JAX package (ROADMAP.md, §C)."""
     if precision in (None, "f32", "float32"):
         return tree
-    if precision == "int8":
-        raise NotImplementedError(
-            "precision 'int8' (W8A8 linears and convs) is not ported yet: "
-            "see ROADMAP.md; use None or 'bf16'")
-    if precision not in ("bf16", "bfloat16"):
+    if precision not in ("bf16", "bfloat16", "int8"):
         raise ValueError(f"unknown precision {precision!r}")
+    int8 = precision == "int8"
 
     def walk(node):
         if isinstance(node, dict):
+            w = node.get("w")
+            if int8 and set(node) <= {"w", "b"} and torch.is_tensor(w):
+                if w.dim() == 2 and min(w.shape) >= min_dim:
+                    return quantize_linear_int8(node)
+                if (w.dim() == 4 and conv_min_ch is not None
+                        and min(w.shape[:2]) >= conv_min_ch):
+                    return quantize_conv_int8(node)
             return {k: walk(v) for k, v in node.items()}
         if isinstance(node, (list, tuple)):
             return type(node)(walk(v) for v in node)

@@ -31,6 +31,12 @@ that fills a sixteenth of it (64 × 64 if called on the image alone);
 return to the inputs' pixels by (w − 1)/(cw − 1) and (h − 1)/(ch − 1). A
 float32 tree runs in full float32.
 
+``precision="int8"``: DKM has no linear, so only ``int8_conv_min_ch``
+quantises anything (its convolutions whose cin and cout reach it: W8A8,
+``ops/w8a8.py``); the rest is cast to bfloat16 and the images as under
+"bf16". The thresholds at which a quantised dict raises ``KeyError`` are
+RoMa's (``roma.py``'s docstring; the stride-1 refiner is 24 wide here).
+
 No trained tree (``DKMv3_outdoor.pth``, ``gim_dkm_100h.ckpt``) is in the
 repository: the model runs a user's ``checkpoint_npz`` or the port's
 seed-0 random tree, drawn on the model's device (the card's is not the
@@ -46,8 +52,8 @@ from ...ops import resize as resize_ops
 from ...utils import weights
 from ...utils.base_model import BaseModel
 from ..backbones import resnet
-from ..layers import (apply_precision, batch_norm_inference, conv2d,
-                      full_fp32, init_bn, init_conv, relu)
+from ..layers import (LOW_PRECISIONS, apply_precision, batch_norm_inference,
+                      conv2d, full_fp32, init_bn, init_conv, relu)
 from . import roma as roma_mod
 
 GP_DIM = 256
@@ -218,8 +224,11 @@ class DKMv3(BaseModel):
         # None: the input rounded to multiples of 32; the published
         # operating point 540 x 720 is (544, 704) on that lattice
         "coarse_res": None,
-        # serving precision: None/"f32" or "bf16"
+        # serving precision: None/"f32", "bf16", or "int8" (W8A8 of the
+        # convolutions at least int8_conv_min_ch wide where that is set; DKM
+        # has no linear: layers.apply_precision)
         "precision": None,
+        "int8_conv_min_ch": None,
     }
     required_inputs = ["image0", "image1"]
 
@@ -227,7 +236,9 @@ class DKMv3(BaseModel):
         init = weights.seeded_init(init_params, self.device, conf)
         params, self.meta = weights.load_trained(conf, init, "dkm",
                                                  self.device)
-        self.params = apply_precision(params, conf.get("precision"))
+        self.params = apply_precision(
+            params, conf.get("precision"),
+            conv_min_ch=conf.get("int8_conv_min_ch"))
         logger.info(f"dkm weights: {self.meta}")
 
     def _prepare(self, image, size):
@@ -235,12 +246,12 @@ class DKMv3(BaseModel):
         if x.shape[1] == 1:
             x = x.expand(-1, 3, -1, -1)
         x = resize_ops.resize(x, size, "bilinear")
-        if self.conf.get("precision") in ("bf16", "bfloat16"):
+        if self.conf.get("precision") in LOW_PRECISIONS:
             x = x.to(torch.bfloat16)
         return x
 
     def match(self, image0, image1):
-        if self.conf.get("precision") in ("bf16", "bfloat16"):
+        if self.conf.get("precision") in LOW_PRECISIONS:
             return match(self.params, image0, image1)
         with full_fp32():
             return match(self.params, image0, image1)

@@ -23,6 +23,13 @@ route, which with ``"fused"`` is ``mha_auto`` → K14 (``qtiled_attention``)
 for every block, 96 launches a pair at ViT-L (2 × 24 encoder, 2 × 12 × 2
 decoder). ``precision="bf16"`` casts the tree and the normalised images
 to bfloat16; the pointmaps, confidences and matching stay float32.
+``precision="int8"`` quantises the linears at least 256 wide (every ViT
+projection and MLP at ViT-L, MASt3R's descriptor MLP) and, with
+``int8_conv_min_ch``, the convolutions whose cin and cout reach it (W8A8,
+``ops/w8a8.py``), and casts the rest as "bf16" does. At a threshold of 96
+or less the DPT's transposed convolutions are quantised and
+``dpt.conv_transpose_s`` raises ``KeyError``, at 3 or less the patch
+embedding is quantised, as in the JAX package (ROADMAP §C).
 
 No trained tree (``duster_vit_large``) is in the repository: the model
 runs a user's ``checkpoint_npz`` or the port's seed-0 random tree,
@@ -40,8 +47,8 @@ from ... import logger
 from ...utils import weights
 from ...utils.base_model import BaseModel
 from ..backbones import dpt, vit
-from ..layers import (apply_precision, full_fp32, init_layer_norm,
-                      init_linear, layer_norm, linear)
+from ..layers import (LOW_PRECISIONS, apply_precision, full_fp32,
+                      init_layer_norm, init_linear, layer_norm, linear)
 
 PUBLISHED = {
     "enc_dim": 1024, "enc_depth": 24, "enc_heads": 16,
@@ -227,8 +234,11 @@ class Duster(BaseModel):
         "max_matches": 2048,
         "subsample": 8,
         "weights": "duster_vit_large",
-        # serving precision: None/"f32" or "bf16"
+        # serving precision: None/"f32", "bf16", or "int8" (W8A8 of the
+        # wide ViT linears, and of the convolutions at least
+        # int8_conv_min_ch wide where that is set: layers.apply_precision)
         "precision": None,
+        "int8_conv_min_ch": None,
     }
     required_inputs = ["image0", "image1"]
     name = "duster"
@@ -240,17 +250,19 @@ class Duster(BaseModel):
         init = weights.seeded_init(self.init_params, self.device, conf)
         params, self.meta = weights.load_trained(conf, init, self.name,
                                                  self.device)
-        self.params = apply_precision(params, conf.get("precision"))
+        self.params = apply_precision(
+            params, conf.get("precision"),
+            conv_min_ch=conf.get("int8_conv_min_ch"))
         logger.info(f"{self.name} weights: {self.meta}")
 
     def _prepare(self, image):
         """(B, 1 or 3, H, W) in [0, 1] → (B, 3, H, W) in [-1, 1], bf16
-        under ``precision="bf16"``."""
+        under ``precision="bf16"`` or "int8"."""
         x = torch.as_tensor(image, dtype=torch.float32, device=self.device)
         if x.shape[1] == 1:
             x = x.expand(-1, 3, -1, -1)
         x = (x - 0.5) / 0.5
-        if self.conf.get("precision") in ("bf16", "bfloat16"):
+        if self.conf.get("precision") in LOW_PRECISIONS:
             x = x.to(torch.bfloat16)
         return x
 
@@ -262,7 +274,7 @@ class Duster(BaseModel):
         x0, x1 = self._prepare(data["image0"]), self._prepare(data["image1"])
         rows = []
         for a, b in zip(x0, x1):
-            if self.conf.get("precision") in ("bf16", "bfloat16"):
+            if self.conf.get("precision") in LOW_PRECISIONS:
                 rows.append(self.forward_pair(a, b))
             else:
                 with full_fp32():

@@ -1,4 +1,5 @@
-"""LightGlue attentional matcher, float32, static or adaptive depth.
+"""LightGlue attentional matcher, static or adaptive depth, float32 or
+bfloat16.
 
 Counterpart of ``imcui_tpu/models/matchers/lightglue.py``
 (``forward_pair``, ``forward_pair_adaptive`` and the ``LightGlue``
@@ -8,7 +9,19 @@ Learnable-Fourier rotary positional encoding, L layers of self-attention
 bidirectional cross-attention (kernel K4), and a sigmoid-matchability
 double-softmax assignment head per layer. Padded keypoint slots carry a
 key mask and zero mass in the assignment.
+
+``precision="bf16"`` (``forward_pair`` and ``forward_pair_adaptive``, as
+the JAX functions' ``conf["precision"]``) runs the transformer stack in
+bfloat16: the input projection and the layers' weights and tokens are
+bf16, the attention kernels take bf16 (K3, K5 and K4 keep float32 logits,
+softmax and sums), and the rotary frequencies come from the float32
+weights, cast to bf16 once computed. The token-confidence heads and the
+assignment head run in float32 on the float32 weights and the widened
+tokens. The ``LightGlue`` BaseModel, like the JAX one, passes no
+precision, so it serves float32.
 """
+
+import contextlib
 
 import math
 from pathlib import Path
@@ -21,7 +34,7 @@ from ...ops.attention import (NEG_INF, apply_rotary, bidirectional_attention,
                               learnable_fourier_encoding)
 from ...utils import weights
 from ...utils.base_model import BaseModel
-from ..layers import full_fp32, gelu, layer_norm, linear
+from ..layers import apply_precision, full_fp32, gelu, layer_norm, linear
 from .nearest_neighbor import pair_masks, pair_sizes
 
 NUM_HEADS = 4
@@ -185,26 +198,49 @@ def filter_matches(scores, threshold, mask0, mask1):
                                                  torch.zeros_like(mscores))
 
 
+def _bf16(precision):
+    """Whether ``precision`` asks for the bfloat16 transformer."""
+    if precision in (None, "fp32", "f32", "float32"):
+        return False
+    if precision in ("bf16", "bfloat16"):
+        return True
+    raise ValueError(f"LightGlue precision is None, 'fp32' or 'bf16', not "
+                     f"{precision!r}")
+
+
+def _stack_params(params, bf16):
+    """The input projection and the layers, cast to bf16 under bf16."""
+    if not bf16:
+        return params
+    return apply_precision({k: params[k] for k in ("input_proj",
+                                                   "transformers")}, "bf16")
+
+
 def _prepare(params, kpts0, kpts1, desc0, desc1, mask0, mask1, size0, size1,
-             dev):
-    """Inputs on ``dev``; projected descriptors and rotary encodings.
+             dev, bf16=False):
+    """Inputs on ``dev``; projected descriptors and rotary encodings (in
+    bf16 under ``bf16``: the descriptors cast before the projection, the
+    encodings after they are computed from the float32 weights).
     Keypoints with 4 columns carry scale and orientation (SIFT mode)."""
     kpts0, kpts1, desc0, desc1, size0, size1 = (
         torch.as_tensor(t, dtype=torch.float32, device=dev)
         for t in (kpts0, kpts1, desc0, desc1, size0, size1))
     mask0, mask1 = (torch.as_tensor(m, device=dev).bool().contiguous()
                     for m in (mask0, mask1))
-    x0 = linear(params["input_proj"], desc0)
-    x1 = linear(params["input_proj"], desc1)
+    tparams = _stack_params(params, bf16)
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    x0 = linear(tparams["input_proj"], desc0.to(dtype))
+    x1 = linear(tparams["input_proj"], desc1.to(dtype))
     wr = params["posenc"]["Wr"]["w"]
 
     def encode(kpts, size):
         p = normalize_keypoints(kpts[..., :2], size)
         if wr.shape[1] == 4:
             p = torch.cat([p, kpts[..., 2:4]], -1)
-        return learnable_fourier_encoding(p, wr)
+        return tuple(e.to(dtype) for e in learnable_fourier_encoding(p, wr))
 
-    return x0, x1, encode(kpts0, size0), encode(kpts1, size1), mask0, mask1
+    return (tparams, x0, x1, encode(kpts0, size0), encode(kpts1, size1),
+            mask0, mask1)
 
 
 def _joined(enc0, enc1, mask0, mask1):
@@ -229,23 +265,27 @@ def _layer(layer, x0, x1, enc0, enc1, mask0, mask1, joined=None):
 
 
 def forward_pair(params, kpts0, kpts1, desc0, desc1, mask0, mask1, size0,
-                 size1, match_threshold=0.1, device="cuda"):
-    """Static-depth forward over a batch of B pairs, float32.
+                 size1, match_threshold=0.1, device="cuda", precision=None):
+    """Static-depth forward over a batch of B pairs.
 
     kpts: (B, N, 2) xy; desc: (B, N, D); mask: (B, N) bool; size: (B, 2)
-    (w, h). ``params`` must already be on ``device``. Returns matches0
-    (B, N0) int32 (-1 = unmatched) and matching_scores0 (B, N0)."""
+    (w, h). ``params`` (float32) must already be on ``device``;
+    ``precision`` None/"fp32" or "bf16" (the transformer stack in
+    bfloat16, the assignment head in float32). Returns matches0 (B, N0)
+    int32 (-1 = unmatched) and matching_scores0 (B, N0)."""
     dev = resolve_device(device)
-    with full_fp32():
-        x0, x1, enc0, enc1, mask0, mask1 = _prepare(
+    bf16 = _bf16(precision)
+    with contextlib.nullcontext() if bf16 else full_fp32():
+        tparams, x0, x1, enc0, enc1, mask0, mask1 = _prepare(
             params, kpts0, kpts1, desc0, desc1, mask0, mask1, size0, size1,
-            dev)
+            dev, bf16)
         joined = _joined(enc0, enc1, mask0, mask1) \
             if x0.shape == x1.shape else None
-        for layer in params["transformers"]:
+        for layer in tparams["transformers"]:
             x0, x1 = _layer(layer, x0, x1, enc0, enc1, mask0, mask1, joined)
-        scores = assignment(params["log_assignment"][-1], x0, x1, mask0,
-                            mask1)
+    with full_fp32():
+        scores = assignment(params["log_assignment"][-1], x0.float(),
+                            x1.float(), mask0, mask1)
         matches0, mscores0 = filter_matches(scores, match_threshold, mask0,
                                             mask1)
     return {"matches0": matches0, "matching_scores0": mscores0}
@@ -253,8 +293,9 @@ def forward_pair(params, kpts0, kpts1, desc0, desc1, mask0, mask1, size0,
 
 def forward_pair_adaptive(params, kpts0, kpts1, desc0, desc1, mask0, mask1,
                           size0, size1, match_threshold=0.1,
-                          depth_confidence=0.95, device="cuda"):
-    """Adaptive-depth forward over a batch of B pairs, float32.
+                          depth_confidence=0.95, device="cuda",
+                          precision=None):
+    """Adaptive-depth forward over a batch of B pairs.
 
     After layer i (but the last) a pair exits once more than
     ``depth_confidence`` of its valid tokens pass that layer's confidence
@@ -262,24 +303,26 @@ def forward_pair_adaptive(params, kpts0, kpts1, desc0, desc1, mask0, mask1,
     assignment head of the layer it stopped at. Each pair stops on its
     own: a pair that has exited keeps its state while the others run on
     (only the pairs still active go through a layer). The exit test costs
-    one host synchronisation per layer. Arguments as ``forward_pair``;
+    one host synchronisation per layer; the confidence heads run in
+    float32 on the widened tokens. Arguments as ``forward_pair``;
     additionally returns stop_layer (B,) int32, the number of layers each
     pair ran."""
     n_layers = len(params["transformers"])
     depth_confidence = float(depth_confidence or 0)
     if n_layers < 2 or depth_confidence <= 0:
         return forward_pair(params, kpts0, kpts1, desc0, desc1, mask0, mask1,
-                            size0, size1, match_threshold, device)
+                            size0, size1, match_threshold, device, precision)
     dev = resolve_device(device)
-    with full_fp32():
-        x0, x1, enc0, enc1, mask0, mask1 = _prepare(
+    bf16 = _bf16(precision)
+    with contextlib.nullcontext() if bf16 else full_fp32():
+        tparams, x0, x1, enc0, enc1, mask0, mask1 = _prepare(
             params, kpts0, kpts1, desc0, desc1, mask0, mask1, size0, size1,
-            dev)
+            dev, bf16)
         b = x0.shape[0]
         npts = (mask0.sum(-1) + mask1.sum(-1)).clamp_min(1).float()
         stop = [n_layers] * b
         active = list(range(b))
-        for i, layer in enumerate(params["transformers"]):
+        for i, layer in enumerate(tparams["transformers"]):
             whole = len(active) == b
             sel = None if whole else torch.tensor(active, device=dev)
 
@@ -298,8 +341,9 @@ def forward_pair_adaptive(params, kpts0, kpts1, desc0, desc1, mask0, mask1,
                 break
             tc = params["token_confidence"][i]["token"]
             th = min(max(0.8 + 0.1 * math.exp(-4.0 * i / n_layers), 0.0), 1.0)
-            c0 = torch.sigmoid(linear(tc, xa0))[..., 0]
-            c1 = torch.sigmoid(linear(tc, xa1))[..., 0]
+            with full_fp32():
+                c0 = torch.sigmoid(linear(tc, xa0.float()))[..., 0]
+                c1 = torch.sigmoid(linear(tc, xa1.float()))[..., 0]
             n_unconf = (m0 & (c0 < th)).sum(-1) + (m1 & (c1 < th)).sum(-1)
             ratio = 1.0 - n_unconf.float() / take(npts)
             done = (ratio > depth_confidence).tolist()  # the host waits here
@@ -309,6 +353,8 @@ def forward_pair_adaptive(params, kpts0, kpts1, desc0, desc1, mask0, mask1,
             active = [j for j, d in zip(active, done) if not d]
             if not active:
                 break
+    with full_fp32():
+        x0, x1 = x0.float(), x1.float()
         n0, n1 = x0.shape[1], x1.shape[1]
         scores = x0.new_empty((b, n0 + 1, n1 + 1))
         for depth in sorted(set(stop)):

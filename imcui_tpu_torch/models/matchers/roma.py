@@ -24,6 +24,15 @@ in the JAX package: the GP's kernel matrices and solve are float32, so the
 decoder's tokens are float32 running through bf16-valued weights; warps
 and certainties are float32; each refiner widens its input at the
 concatenation and narrows it again in its first convolution.
+``precision="int8"`` quantises the linears at least 256 wide (DINOv2's
+and the decoder's) and, with ``int8_conv_min_ch``, the convolutions whose
+cin and cout both reach it (W8A8, ``ops/w8a8.py``), casts the rest to
+bfloat16 and the images as under "bf16". The JAX package runs the
+stride-1 refiner on 2×2-folded weights, which read ``w``: there a
+threshold of 24 or less, which takes that refiner's convolutions, raises
+``KeyError``; the port has no fold and serves them (a deviation, ROADMAP
+§C). At 2 or less ``pos_conv`` is quantised and ``fourier_embed`` raises
+``KeyError`` in both packages, at 1 the depthwise kernels.
 """
 
 import math
@@ -37,7 +46,8 @@ from ...utils import weights
 from ...utils.base_model import BaseModel
 from ..backbones import dinov2, vgg
 from ..backbones import vit as vit_mod
-from ..layers import (apply_precision, batch_norm_inference, conv2d,
+from ..layers import (LOW_PRECISIONS, apply_precision, batch_norm_inference,
+                      conv2d,
                       depthwise_conv, full_fp32, init_bn, init_conv,
                       init_linear, linear, relu)
 from . import loftr
@@ -523,14 +533,19 @@ class Roma(BaseModel):
         "coarse_res": (560, 560),
         "upsample_res": (864, 1152),
         "dinov2_variant": "vitl14",
-        # serving precision: None/"f32" or "bf16"
+        # serving precision: None/"f32", "bf16", or "int8" (W8A8 of the
+        # wide DINOv2 and decoder linears, and of the convolutions at least
+        # int8_conv_min_ch wide where that is set: layers.apply_precision)
         "precision": None,
+        "int8_conv_min_ch": None,
     }
     required_inputs = ["image0", "image1"]
 
     def _init(self, conf):
         params, self.meta = load_params(conf, self.device)
-        self.params = apply_precision(params, conf.get("precision"))
+        self.params = apply_precision(
+            params, conf.get("precision"),
+            conv_min_ch=conf.get("int8_conv_min_ch"))
         logger.info(f"roma weights: {self.meta}")
 
     def _prepare(self, image):
@@ -545,14 +560,14 @@ class Roma(BaseModel):
                 x = x.expand(-1, 3, -1, -1)
             x = resize_ops.resize(x, tuple(self.conf["coarse_res"]),
                                   "bilinear")
-        if self.conf.get("precision") in ("bf16", "bfloat16"):
+        if self.conf.get("precision") in LOW_PRECISIONS:
             x = x.to(torch.bfloat16)
         return x
 
     def match(self, image0, image1):
         """Warp (H, W, 2) and certainty (H, W) of one prepared pair. A
         float32 tree runs in full float32 (no TF32 convolutions)."""
-        if self.conf.get("precision") in ("bf16", "bfloat16"):
+        if self.conf.get("precision") in LOW_PRECISIONS:
             return match(self.params, image0, image1, self.conf)
         with full_fp32():
             return match(self.params, image0, image1, self.conf)

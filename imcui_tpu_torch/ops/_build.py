@@ -59,6 +59,10 @@ SIGNATURES = {
     "qtiled_attention_plan": [I, I, I, P],
     "tap_matmul_bf16": [P, P, P, I, I, I, P],
     "tap_matmul_s8": [P, P, P, I, I, I, P],
+    "fused_attention_bf16": [P, P, P, P, P, I, I, I, P],
+    "bidir_attention_bf16": [P, P, P, P, P, P, P, P, I, I, I, I, P],
+    "w8a8_gemm": [P, P, P, P, P, P, I, I, I, I, P],
+    "w8a8_conv": [P, P, P, P, P, P, P],
 }
 
 HOST_CSRC = CSRC / "host"

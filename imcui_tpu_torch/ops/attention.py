@@ -1,5 +1,6 @@
 """Attention primitives for LightGlue and for the ViT backbones (DINOv2,
-the CroCo-style blocks), with kernels K3 and K4 (``csrc/attention.cu``),
+the CroCo-style blocks), with kernels K3 and K4 (``csrc/attention.cu``,
+float32 and bfloat16),
 K5 (entry ``csrc/flash_attention.cu``: float32 on K3's tile, bf16 on
 K14's body) and K14 (``csrc/qtiled_attention.cu``).
 Counterpart of ``imcui_tpu/ops/attention.py`` and of the q-tiled kernel of
@@ -86,18 +87,43 @@ def attention_plan(s, n, m=None):
             "sms": sms, "rounds": blocks / (per_sm * sms)}
 
 
+def _readout(logits, v, dim=-1):
+    """Softmax of float32 ``logits`` over ``dim``, rounded once to v's
+    dtype, read against v in float32 and rounded once to v's dtype (the
+    JAX kernels' ``p.astype(q.dtype)``); ``dim=-2`` reads v by columns."""
+    p = torch.softmax(logits, dim).to(v.dtype).float()
+    if dim == -2:
+        p = p.transpose(-1, -2)
+    return torch.matmul(p, v.float()).to(v.dtype)
+
+
 def fused_attention_plain(q, k, v, mask, heads):
     """Plain version of K3 (``_fused_attn_xla``). q/k/v: (S, N, Dh)
-    float32; mask: (S // heads, N) bool key validity."""
+    float32 or bfloat16; mask: (S // heads, N) bool key validity. In
+    bfloat16 the logits, the softmax and the P V sums are float32, P and
+    the output are rounded once to bf16."""
     m = mask.repeat_interleave(heads, 0)[:, None, :]
-    return mha(q, k, v, m)
+    if q.dtype != torch.bfloat16:  # float32 (and float64 references)
+        return mha(q, k, v, m)
+    dh = q.shape[-1]
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) / (
+        dh ** 0.5)
+    return _readout(torch.where(m, logits, logits.new_tensor(NEG_INF)), v)
+
+
+def _k34_dtype(name, t):
+    if t.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{name} takes float32 or bfloat16, got {t.dtype}")
+    return t.dtype
 
 
 def fused_attention(q, k, v, mask, heads):
     """Kernel K3 on CUDA tensors; the plain version on CPU tensors.
-    Self-attention over (S, N, 64) float32 head-sequences; mask (S/heads,
-    N) bool, or None for all valid."""
+    Self-attention over (S, N, 64) float32 or bfloat16 head-sequences
+    (the output in their type); mask (S/heads, N) bool, or None for all
+    valid."""
     s, n, dh = q.shape
+    dtype = _k34_dtype("fused_attention", q)
     if q.device.type == "cpu":
         return fused_attention_plain(
             q, k, v, _head_mask(mask, s // heads, n, q.device), heads)
@@ -108,13 +134,15 @@ def fused_attention(q, k, v, mask, heads):
                          f"through mha_auto, which pads nothing and picks "
                          f"the kernel by shape)")
     for name, t in (("q", q), ("k", k), ("v", v)):
-        _build.require(t, name, torch.float32, (s, n, 64))
+        _build.require(t, name, dtype, (s, n, 64))
     if mask is not None:
         _build.require(mask, "mask", torch.bool, (s // heads, n))
     out = torch.empty_like(q)
-    code = _build.library().fused_attention_f32(
-        _build.ptr(q), _build.ptr(k), _build.ptr(v), _mask_ptr(mask),
-        _build.ptr(out), s, n, heads, _build.stream_of(q))
+    lib = _build.library()
+    fn = lib.fused_attention_f32 if dtype == torch.float32 else \
+        lib.fused_attention_bf16
+    code = fn(_build.ptr(q), _build.ptr(k), _build.ptr(v), _mask_ptr(mask),
+              _build.ptr(out), s, n, heads, _build.stream_of(q))
     _build.check(code, "fused_attention")
     fused_attention.launches += 1
     return out
@@ -126,24 +154,33 @@ fused_attention.launches = 0
 def bidirectional_attention_plain(a0, a1, v0, v1, mask0, mask1, heads):
     """Plain version of K4 (``_bidir_xla``): one S = A0·A1ᵀ/√dh per head,
     a row softmax masked by mask1 reads V1 and a column softmax masked by
-    mask0 reads V0. a0/v0: (S, N, Dh), a1/v1: (S, M, Dh); masks (S/heads,
-    N) and (S/heads, M) bool."""
+    mask0 reads V0. a0/v0: (S, N, Dh), a1/v1: (S, M, Dh), float32 or
+    bfloat16 (float32 logits, softmax and sums; P and the outputs rounded
+    once to bf16); masks (S/heads, N) and (S/heads, M) bool."""
     dh = a0.shape[-1]
+    bf16 = a0.dtype == torch.bfloat16
+    if bf16:
+        a0, a1 = a0.float(), a1.float()
     logits = torch.matmul(a0, a1.transpose(-1, -2)) / (dh ** 0.5)
     neg = logits.new_tensor(NEG_INF)
     mk0 = mask0.repeat_interleave(heads, 0)[:, :, None]
     mk1 = mask1.repeat_interleave(heads, 0)[:, None, :]
-    att01 = torch.softmax(torch.where(mk1, logits, neg), -1)
-    att10 = torch.softmax(torch.where(mk0, logits, neg), -2)
+    l01, l10 = torch.where(mk1, logits, neg), torch.where(mk0, logits, neg)
+    if bf16:
+        return _readout(l01, v1), _readout(l10, v0, -2)
+    att01 = torch.softmax(l01, -1)
+    att10 = torch.softmax(l10, -2)
     return (torch.matmul(att01, v1),
             torch.matmul(att10.transpose(-1, -2), v0))
 
 
 def bidirectional_attention(a0, a1, v0, v1, mask0, mask1, heads):
     """Kernel K4 on CUDA tensors; the plain version on CPU tensors.
-    Returns (O0 (S, N, Dh), O1 (S, M, Dh)); masks may be None."""
+    float32 or bfloat16; returns (O0 (S, N, Dh), O1 (S, M, Dh)) in the
+    inputs' type; masks may be None."""
     s, n, dh = a0.shape
     m = a1.shape[1]
+    dtype = _k34_dtype("bidirectional_attention", a0)
     if a0.device.type == "cpu":
         return bidirectional_attention_plain(
             a0, a1, v0, v1, _head_mask(mask0, s // heads, n, a0.device),
@@ -153,16 +190,18 @@ def bidirectional_attention(a0, a1, v0, v1, mask0, mask1, heads):
                          f"divisible by heads; got {tuple(a0.shape)}")
     for name, t, rows in (("a0", a0, n), ("a1", a1, m), ("v0", v0, n),
                           ("v1", v1, m)):
-        _build.require(t, name, torch.float32, (s, rows, 64))
+        _build.require(t, name, dtype, (s, rows, 64))
     for name, t, rows in (("mask0", mask0, n), ("mask1", mask1, m)):
         if t is not None:
             _build.require(t, name, torch.bool, (s // heads, rows))
     o0 = torch.empty_like(a0)
     o1 = torch.empty_like(a1)
-    code = _build.library().bidir_attention_f32(
-        _build.ptr(a0), _build.ptr(a1), _build.ptr(v0), _build.ptr(v1),
-        _mask_ptr(mask0), _mask_ptr(mask1), _build.ptr(o0), _build.ptr(o1),
-        s, n, m, heads, _build.stream_of(a0))
+    lib = _build.library()
+    fn = lib.bidir_attention_f32 if dtype == torch.float32 else \
+        lib.bidir_attention_bf16
+    code = fn(_build.ptr(a0), _build.ptr(a1), _build.ptr(v0), _build.ptr(v1),
+              _mask_ptr(mask0), _mask_ptr(mask1), _build.ptr(o0),
+              _build.ptr(o1), s, n, m, heads, _build.stream_of(a0))
     _build.check(code, "bidirectional_attention")
     bidirectional_attention.launches += 1
     return o0, o1

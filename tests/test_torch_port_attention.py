@@ -3,9 +3,12 @@ versions of kernels K3, K4 and K5 against the JAX package's XLA
 restatements of its Pallas kernels and against the Pallas kernel bodies
 of K3, K4 and K5 themselves (``pl.pallas_call(..., interpret=True)``), and
 the rotary helpers. float32 unless a test says otherwise; tolerance 1e-5 (the
-same arithmetic, summed in another order)."""
+same arithmetic, summed in another order). Then LightGlue's
+``forward_pair`` and ``forward_pair_adaptive`` with ``precision="bf16"``
+against the JAX functions with ``conf["precision"] = "bf16"``."""
 
 import functools
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -14,8 +17,11 @@ import pytest
 import torch
 from jax.experimental import pallas as pl
 
+from imcui_tpu.models.matchers import lightglue as jlg
 from imcui_tpu.ops import attention as ja
+from imcui_tpu_torch.models.matchers import lightglue as tlg
 from imcui_tpu_torch.ops import attention as ta
+from imcui_tpu_torch.utils import weights as tweights
 
 HEADS = 4
 
@@ -149,41 +155,71 @@ def _edge_masks(b, n, rng):
     return m
 
 
-@pytest.mark.parametrize("n", [1, 65, 130])
-def test_fused_attention_plain_matches_pallas_kernel(n):
+def _close(got, want, dtype):
+    """float32: 1e-5 (the same arithmetic summed in another order). bf16:
+    both round P once to bf16 before P V and the output once, so they
+    differ where an f32 difference of the order of an ulp moves P or the
+    output across a rounding edge: 2^-7 * max(1, |ref|), one bf16 step."""
+    got, want = (np.asarray(torch.as_tensor(a).float() if isinstance(
+        a, torch.Tensor) else np.asarray(a, np.float32)) for a in (got, want))
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+    else:
+        assert np.all(np.abs(got - want)
+                      <= 2.0 ** -7 * np.maximum(1.0, np.abs(want)))
+
+
+# float32 at the ids the tests had before bf16 joined them
+K3_CASES = [pytest.param(n, d, id=f"{n}" if d == "float32" else f"{n}-bf16")
+            for d in ("float32", "bfloat16") for n in (1, 65, 130)]
+K4_CASES = [pytest.param(n, m, d, id=f"{n}-{m}" + ("" if d == "float32"
+                                                   else "-bf16"))
+            for d in ("float32", "bfloat16") for n, m in ((1, 65), (130, 70))]
+
+
+@pytest.mark.parametrize("n,dtype", K3_CASES)
+def test_fused_attention_plain_matches_pallas_kernel(n, dtype):
     """K3's plain version against the Pallas body at the sizes the CUDA
     tile's edges hit (one row, one past a 64-row tile, two tiles and a
-    part), with an image whose keys are all masked."""
+    part), with an image whose keys are all masked; float32 and bf16
+    (the body takes bf16 q, k and v and returns bf16)."""
     rng = np.random.default_rng(10 + n)
     b, dh = 3, 64
     q, k, v = (_rand(rng, b * HEADS, n, dh) for _ in range(3))
     mask = _edge_masks(b, n, rng)
-    got = ta.fused_attention(*(torch.from_numpy(a) for a in (q, k, v)),
-                             torch.from_numpy(mask), HEADS).numpy()
+    tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
+    got = ta.fused_attention(*(torch.from_numpy(a).to(tdt)
+                               for a in (q, k, v)),
+                             torch.from_numpy(mask), HEADS)
+    assert got.dtype == tdt
     maskf = np.repeat(mask.astype(np.float32), HEADS, 0)[:, None, :]
-    want = np.asarray(_fused_pallas(q, k, v, maskf))
-    np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+    want = _fused_pallas(*(jnp.asarray(a).astype(jdt) for a in (q, k, v)),
+                         maskf)
+    assert want.dtype == jdt
+    _close(got, want, dtype)
 
 
-@pytest.mark.parametrize("n,m", [(1, 65), (130, 70)])
-def test_bidirectional_attention_plain_matches_pallas_kernel(n, m):
+@pytest.mark.parametrize("n,m,dtype", K4_CASES)
+def test_bidirectional_attention_plain_matches_pallas_kernel(n, m, dtype):
     """K4's plain version against the Pallas body, both directions, with
-    a pair whose keys are all masked on one side."""
+    a pair whose keys are all masked on one side; float32 and bf16."""
     rng = np.random.default_rng(20 + n + m)
     b, dh = 3, 64
     a0, v0 = _rand(rng, b * HEADS, n, dh), _rand(rng, b * HEADS, n, dh)
     a1, v1 = _rand(rng, b * HEADS, m, dh), _rand(rng, b * HEADS, m, dh)
     m0, m1 = _edge_masks(b, n, rng), _edge_masks(b, m, rng)
     m1[1, :] = True            # pair 1: view 0 all masked, view 1 valid
+    tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
     o0, o1 = ta.bidirectional_attention(
-        *(torch.from_numpy(x) for x in (a0, a1, v0, v1, m0, m1)), HEADS)
+        *(torch.from_numpy(x).to(tdt) for x in (a0, a1, v0, v1)),
+        torch.from_numpy(m0), torch.from_numpy(m1), HEADS)
+    assert o0.dtype == o1.dtype == tdt
     mk0 = np.repeat(m0.astype(np.float32), HEADS, 0)[:, :, None]
     mk1 = np.repeat(m1.astype(np.float32), HEADS, 0)[:, None, :]
-    w0, w1 = _bidir_pallas(a0, a1, v0, v1, mk0, mk1)
-    np.testing.assert_allclose(o0.numpy(), np.asarray(w0), atol=1e-5,
-                               rtol=1e-5)
-    np.testing.assert_allclose(o1.numpy(), np.asarray(w1), atol=1e-5,
-                               rtol=1e-5)
+    w0, w1 = _bidir_pallas(*(jnp.asarray(x).astype(jdt)
+                             for x in (a0, a1, v0, v1)), mk0, mk1)
+    _close(o0, w0, dtype)
+    _close(o1, w1, dtype)
 
 
 @pytest.mark.parametrize("dh", [64, 128])
@@ -341,3 +377,76 @@ def test_sdpa_views_compute_each_kernels_function(kernel):
     for got, want in pairs:
         assert float((got - want).abs().max()) <= 1e-5 * max(
             1.0, float(want.abs().max()))
+
+
+# --------------------------------------------------------------------------
+# LightGlue in bf16
+# --------------------------------------------------------------------------
+
+def _lg_inputs(seed=4, b=2, n0=64, n1=64):
+    """Pairs of keypoints and unit descriptors, view 1 a perturbed subset
+    of view 0, pair 1 with padded slots."""
+    rng = np.random.default_rng(seed)
+    kpts0 = rng.uniform(0, 120, (b, n0, 2)).astype(np.float32)
+    desc0 = rng.normal(size=(b, n0, 256)).astype(np.float32)
+    desc0 /= np.linalg.norm(desc0, axis=-1, keepdims=True)
+    perm = rng.permutation(n0)[:n1]
+    kpts1 = kpts0[:, perm] + rng.normal(0, 1.0, (b, n1, 2)).astype(
+        np.float32)
+    desc1 = desc0[:, perm] + rng.normal(0, 0.05, (b, n1, 256)).astype(
+        np.float32)
+    desc1 /= np.linalg.norm(desc1, axis=-1, keepdims=True)
+    mask0, mask1 = np.ones((b, n0), bool), np.ones((b, n1), bool)
+    mask0[1, 50:] = False
+    mask1[1, 40:] = False
+    size = np.asarray([[128, 96], [120, 90]], np.float32)
+    return kpts0, kpts1, desc0, desc1, mask0, mask1, size, size
+
+
+@pytest.mark.parametrize("adaptive", [False, True],
+                         ids=["forward_pair", "forward_pair_adaptive"])
+def test_lightglue_bf16_matches_jax(adaptive):
+    """The trained tree cut to 3 layers, bf16 in both packages. The two
+    round at other places (the JAX CPU program rounds x @ w and + b apart,
+    torch's linear once), so the matches are compared as sets of index
+    pairs, IoU ≥ 0.9 (measured 63 of 64 alike), and the scores of the
+    matches both keep within 0.05 (measured 0.026; float32 agrees to
+    5e-4, tests/test_torch_port_models.py). The stop layer is equal, and
+    the bf16 run is not the float32 one."""
+    tree = tweights.load_tree_npz(Path(__file__).resolve().parents[1]
+                                  / "weights" / "lightglue_selftrained.npz")
+    tree["transformers"] = tree["transformers"][:3]
+    tree["log_assignment"] = tree["log_assignment"][:3]
+    tree["token_confidence"] = tree["token_confidence"][:2]
+    jp = jax.tree_util.tree_map(jnp.asarray, tree)
+    tp = tweights.params_from_jax(tree)
+    args = _lg_inputs()
+    conf = {"num_heads": 4, "match_threshold": 0.1, "precision": "bf16",
+            "depth_confidence": 0.95}
+    jfn = functools.partial(
+        jlg.forward_pair_adaptive if adaptive else jlg.forward_pair,
+        conf=conf)
+    want = jax.jit(jax.vmap(lambda *a: jfn(jp, *a)))(
+        *(jnp.asarray(a) for a in args))
+    tfn = tlg.forward_pair_adaptive if adaptive else tlg.forward_pair
+    got = tfn(tp, *args, match_threshold=0.1, device="cpu",
+              precision="bf16")
+    f32 = tfn(tp, *args, match_threshold=0.1, device="cpu")
+    assert got["matching_scores0"].dtype == torch.float32
+    gm, wm = got["matches0"].numpy(), np.asarray(want["matches0"])
+
+    def pairs(m):
+        return {(i, j, int(k)) for i, row in enumerate(m)
+                for j, k in enumerate(row) if k > -1}
+
+    g, w = pairs(gm), pairs(wm)
+    assert len(w) > 40 and len(g & w) / len(g | w) >= 0.9
+    both = (gm == wm) & (gm > -1)
+    assert np.abs(got["matching_scores0"].numpy()
+                  - np.asarray(want["matching_scores0"]))[both].max() <= 0.05
+    assert not torch.equal(got["matching_scores0"], f32["matching_scores0"])
+    if adaptive:
+        np.testing.assert_array_equal(got["stop_layer"].numpy(),
+                                      np.asarray(want["stop_layer"]))
+    with pytest.raises(ValueError, match="precision"):
+        tfn(tp, *args, device="cpu", precision="int8")

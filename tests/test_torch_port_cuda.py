@@ -11,7 +11,8 @@ import pytest
 import torch
 
 from imcui_tpu_torch.models.layers import full_fp32
-from imcui_tpu_torch.ops import attention, cuda_nms, cuda_stage1, tap_matmul
+from imcui_tpu_torch.ops import (attention, cuda_nms, cuda_stage1, tap_matmul,
+                                 w8a8)
 from imcui_tpu_torch.utils import weights
 
 
@@ -1562,3 +1563,146 @@ def test_retrieval_conf_on_card_matches_cpu(gen, key):
     img = chip_smoke.synthetic_pair(100, 1024, 768)[0]
     res = chip_smoke._retrieval(key, img)
     assert res["ok"], res
+
+
+# --------------------------------------------------------------------------
+# W8A8 (csrc/w8a8.cu): bit for bit against the plain versions, whose int32
+# sums are exact in float64
+# --------------------------------------------------------------------------
+
+def _int8_weights(gen, shape):
+    """(w_q, w_s) of a random (dout, din) linear or OIHW convolution."""
+    from imcui_tpu_torch.models import layers
+
+    p = {"w": torch.randn(shape, generator=gen, device="cuda")}
+    q = (layers.quantize_linear_int8 if len(shape) == 2
+         else layers.quantize_conv_int8)(p)
+    return q["w_q"], q["w_s"]
+
+
+@pytest.mark.parametrize("m,n,k,dtype,bias", [
+    (1, 8, 16, F32, True), (7, 257, 40, BF16, True), (130, 300, 300, F32,
+                                                       False),
+    (65, 130, 1000, BF16, True), (3, 5, 33, F32, True),
+    # the paths' shapes: ViT-L's qkv and fc1 at DUSt3R's 768 tokens and
+    # RoMa's 1601, MASt3R's descriptor fc2, RoMa's decoder head
+    (768, 3072, 1024, BF16, True), (1601, 4096, 1024, BF16, True),
+    (768, 6400, 7168, BF16, True), (1600, 4097, 1024, F32, True)])
+def test_linear_int8_kernel_matches_plain(gen, m, n, k, dtype, bias):
+    w_q, w_s = _int8_weights(gen, (n, k))
+    b = torch.randn(n, generator=gen, device="cuda") if bias else None
+    x = (torch.randn((m, k), generator=gen, device="cuda") * 3).to(dtype)
+    x[0] = 0  # the 1e-12 floor
+    if m % 2:  # a transposed view, as a ViT's patch tokens come
+        x = x.t().contiguous().t()
+    before = w8a8.linear_int8.launches
+    got = w8a8.linear_int8(x, w_q, w_s, b)
+    want = w8a8.linear_int8_plain(x, w_q, w_s, b)
+    assert w8a8.linear_int8.launches == before + 1
+    assert got.dtype == want.dtype == dtype and got.shape == (m, n)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("b,cin,cout,h,w,k,stride,dil,pad,groups,dtype", [
+    (1, 8, 16, 13, 11, 3, 1, 1, "SAME", 1, F32),
+    (2, 6, 10, 9, 7, 3, 2, 1, "SAME", 2, BF16),
+    (1, 5, 7, 12, 10, 3, 1, 2, ((1, 2), (0, 3)), 1, F32),
+    (1, 16, 32, 5, 6, 1, 1, 1, "VALID", 1, BF16),
+    (1, 3, 1024, 64, 96, 16, 16, 1, "VALID", 1, BF16),   # a patch embed
+    (1, 24, 24, 30, 34, 5, 1, 1, "SAME", 1, F32),
+    (3, 12, 12, 17, 15, 3, 2, 2, ((2, 1), (1, 2)), 3, BF16),
+    # the paths' shapes: RoMa's VGG at 140^2 and a refiner's 1 x 1 at 40^2,
+    # DKM's strided ResNet-50 3 x 3 and its 1 x 1 at 1/32
+    (1, 256, 256, 140, 140, 3, 1, 1, "SAME", 1, BF16),
+    (1, 1377, 1377, 40, 40, 1, 1, 1, "SAME", 1, F32),
+    (1, 256, 256, 136, 176, 3, 2, 1, "SAME", 1, BF16),
+    (1, 2048, 512, 17, 22, 1, 1, 1, "SAME", 1, BF16)])
+def test_conv2d_int8_kernel_matches_plain(gen, b, cin, cout, h, w, k, stride,
+                                          dil, pad, groups, dtype):
+    from imcui_tpu_torch.models import layers
+
+    w_q, w_s = _int8_weights(gen, (cout, cin // groups, k, k))
+    bias = torch.randn(cout, generator=gen, device="cuda")
+    x = (torch.randn((b, cin, h, w), generator=gen, device="cuda") * 2).to(
+        dtype)
+    if h % 2:  # channels-last in memory, as the kernel's own outputs are
+        x = x.contiguous(memory_format=torch.channels_last)
+    padding = layers._explicit_padding(pad, k, k, dil)
+    before = w8a8.conv2d_int8.launches
+    got = w8a8.conv2d_int8(x, w_q, w_s, bias, stride, padding, dil, groups)
+    want = w8a8.conv2d_int8_plain(x, w_q, w_s, bias, stride, padding, dil,
+                                  groups)
+    assert w8a8.conv2d_int8.launches == before + 1
+    assert got.dtype == want.dtype == dtype and got.shape == want.shape
+    assert torch.equal(got, want)
+
+
+def test_w8a8_back_to_back_launches_and_refusals(gen):
+    """Four launches queued before any output is read, each equal to its
+    plain version; what the kernels do not take raises."""
+    w_q, w_s = _int8_weights(gen, (300, 200))
+    c_q, c_s = _int8_weights(gen, (64, 32, 3, 3))
+    xs = [torch.randn((m, 200), generator=gen, device="cuda")
+          for m in (50, 1000)]
+    ys = [torch.randn((1, 32, s, s), generator=gen, device="cuda")
+          for s in (20, 33)]
+    pad = ((1, 1), (1, 1))
+    got = [w8a8.linear_int8(x, w_q, w_s) for x in xs] + [
+        w8a8.conv2d_int8(y, c_q, c_s, None, 1, pad, 1, 1) for y in ys]
+    torch.cuda.synchronize()
+    want = [w8a8.linear_int8_plain(x, w_q, w_s) for x in xs] + [
+        w8a8.conv2d_int8_plain(y, c_q, c_s, None, 1, pad, 1, 1) for y in ys]
+    assert all(torch.equal(g, w_) for g, w_ in zip(got, want))
+    with pytest.raises(ValueError):
+        w8a8.linear_int8(xs[0], w_q.t(), w_s)       # not contiguous
+    with pytest.raises(ValueError):
+        w8a8.linear_int8(xs[0], w_q, w_s.double())
+    with pytest.raises(ValueError):
+        w8a8.conv2d_int8(ys[0], c_q, c_s, None, 1, ((0, 0), (0, 0)), 40, 1)
+
+
+def _bf16_attention_close(got, want, v):
+    """K3/K4 in bf16 against the plain version: both round P once to bf16
+    and the output once. An output within one bf16 step, 2^-7 · max(1,
+    |plain|), but where a weight of P sits at a bf16 rounding edge: the
+    two float32 softmaxes differ in the last bits (exp2 against exp, sums
+    in another order), so the two roundings of that weight can fall one
+    step apart (≤ 2^-8, the step below 1), which moves the output by up to
+    2^-8 · max|v|. Such outputs must be rare (≤ 1e-3 of them) and within
+    that step (chip_smoke.py holds every LightGlue launch the same way)."""
+    g, w_ = got.float(), want.float()
+    diff = (g - w_).abs()
+    step = 2.0 ** -7 * w_.abs().clamp_min(1.0)
+    assert bool((diff <= step + 2.0 ** -8 * v.float().abs().max()).all())
+    assert (diff > step).float().mean().item() <= 1e-3
+
+
+@pytest.mark.parametrize("b,n", [(3, 1), (3, 65), (3, 130), (4, 1024),
+                                 (2, 2048)])
+def test_fused_attention_bf16_kernel_matches_plain(gen, b, n):
+    """K3 on bf16 (``_bf16_attention_close``)."""
+    heads = 4
+    q, k, v = ((torch.randn((b * heads, n, 64), generator=gen, device="cuda")
+                * 2).to(BF16) for _ in range(3))
+    mask = _masks(b, n)
+    got = attention.fused_attention(q, k, v, mask, heads)
+    want = attention.fused_attention_plain(q, k, v, mask, heads)
+    assert got.dtype == BF16
+    _bf16_attention_close(got, want, v)
+
+
+@pytest.mark.parametrize("b,n,m", [(2, 100, 70), (3, 1, 1024), (3, 130, 70),
+                                   (4, 1024, 1024), (2, 4096, 4096)])
+def test_bidirectional_attention_bf16_kernel_matches_plain(gen, b, n, m):
+    heads = 4
+    a0, v0 = ((torch.randn((b * heads, n, 64), generator=gen, device="cuda")
+               * 2).to(BF16) for _ in range(2))
+    a1, v1 = ((torch.randn((b * heads, m, 64), generator=gen, device="cuda")
+               * 2).to(BF16) for _ in range(2))
+    m0, m1 = _masks(b, n), _masks(b, m)
+    got = attention.bidirectional_attention(a0, a1, v0, v1, m0, m1, heads)
+    want = attention.bidirectional_attention_plain(a0, a1, v0, v1, m0, m1,
+                                                   heads)
+    for g, w_, v in zip(got, want, (v1, v0)):
+        assert g.dtype == BF16
+        _bf16_attention_close(g, w_, v)

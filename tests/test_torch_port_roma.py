@@ -441,8 +441,14 @@ WRAPPER_CONF = {"backbone": "dinov2-gp", "dinov2_variant": "test",
 
 
 def test_roma_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tr.Roma({**WRAPPER_CONF, "precision": "int8"}, device="cpu")
+    """precision "int8" is served now (W8A8, tests/test_torch_port_int8*):
+    the wrapper quantises the decoder's linears and casts the rest to
+    bf16. Without a card the default device still raises."""
+    m = tr.Roma({**WRAPPER_CONF, "precision": "int8"}, device="cpu")
+    head = m.params["embedding_decoder"]["to_out"]
+    assert set(head) == {"w_q", "w_s", "b"} and head["w_q"].dtype == \
+        torch.int8
+    assert m.params["proj"]["16"]["0"]["w"].dtype == torch.bfloat16
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             tr.Roma(WRAPPER_CONF)           # device defaults to "cuda"

@@ -359,8 +359,15 @@ def test_l2_normalize_linear_promotion_and_apply_precision():
     assert cast["a"]["n"].dtype == torch.int64
     assert cast["l"][1]["b"].dtype == torch.bfloat16
     assert tl.apply_precision(tree, None) is tree
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tl.apply_precision(tree, "int8")
+    # int8 quantises no dict of this tree ("a" has a third key, every
+    # weight is narrower than 256): it is the bf16 cast, integers kept
+    int8 = tl.apply_precision(tree, "int8")
+    assert int8["a"]["w"].dtype == torch.bfloat16
+    assert int8["a"]["n"].dtype == torch.int64
+    assert int8["l"][0].dtype == int8["l"][1]["b"].dtype == torch.bfloat16
+    assert set(int8["a"]) == {"w", "n"} and set(int8["l"][1]) == {"b"}
+    wide = tl.apply_precision({"p": {"w": torch.ones(256, 300)}}, "int8")
+    assert set(wide["p"]) == {"w_q", "w_s"}
     with pytest.raises(ValueError):
         tl.apply_precision(tree, "fp8")
     # float32 tokens through a bf16 linear: promoted, as x @ w in JAX
@@ -570,8 +577,8 @@ def test_dinov2_init_tree_and_pos_embed():
 def test_port_imports_no_jax_cv2_pil_or_jax_package():
     """Import every module of imcui_tpu_torch in a fresh interpreter (the
     evaluations in imcui_tpu_torch/eval/, the zoo's models and the batch
-    pipelines on utils/h5lite among them) and look at sys.modules: no JAX,
-    cv2, PIL, h5py, triton or torchvision."""
+    pipelines on utils/h5lite and the W8A8 ops among them) and look at
+    sys.modules: no JAX, cv2, PIL, h5py, triton or torchvision."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import imcui_tpu_torch\n"
@@ -608,7 +615,7 @@ def test_port_imports_no_jax_cv2_pil_or_jax_package():
         "'models.extractors.cosplace', 'models.extractors.eigenplaces', "
         "'models.extractors.dir', 'models.extractors.fire', "
         "'models.extractors.fire_local', 'utils.h5lite', 'utils.io', "
-        "'utils.jpeg', "
+        "'utils.jpeg', 'ops.w8a8', "
         "'utils.parsers_compat', 'pipeline.extract_features', "
         "'pipeline.match_features', 'pipeline.match_dense', "
         "'pipeline.pairs_from_exhaustive', "
